@@ -1,0 +1,59 @@
+"""Configuration for the PyTorch port: the knobs the greedy captioning path
+reads, with the same names and defaults as ``adaptive_tpu.config.Config``.
+
+The port keeps its own copy instead of importing the JAX package's module,
+so the two packages can be installed and run apart. Only the fields that the
+ported slice reads are here; later slices add theirs under the same names.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+VARIANTS = ("baseline_attention", "adaptive_attention", "rnn_attention")
+
+
+@dataclass
+class Config:
+    atten_model_name: str = "adaptive_attention"  # baseline_attention|adaptive_attention|rnn_attention
+    train_crop_size: int = 224
+    decode_max_len: int = 30
+    vocab_length: int = 10123
+    # Pad the embedding/head vocab dim to a multiple; padded logits are masked
+    # so argmax equals the unpadded model's. 1 = no padding.
+    vocab_pad_multiple: int = 1
+    adaptive_word_embed_size: int = 256
+    adaptive_lstm_hidden_size: int = 512
+    encoder_backbone: str = "resnet152"  # resnet18|34|50|101|152
+    compute_dtype: str = "float32"  # float32|bfloat16
+    # auto|always: the decode step runs the fused kernels (ops/fused_step.py);
+    # never: the plain op-by-op path (ops/lstm.py + ops/attention.py).
+    use_pallas: str = "auto"
+    encoder_quant: str = "none"  # none|int8 (int8 is not ported yet)
+    # The reference sampler feeds the sentinel h_{t-1}=0 at every step; True
+    # uses the true previous hidden instead.
+    sampler_sentinel_uses_prev_hidden: bool = False
+    decode_eos_token: int = 2
+    decode_start_token: int = 1
+    # Stop once every row has emitted <end>; ids equal the fixed loop's.
+    decode_early_exit: bool = False
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def word_embed_size(self) -> int:
+        if self.atten_model_name != "adaptive_attention":
+            raise NotImplementedError(
+                f"{self.atten_model_name} is not ported yet (ROADMAP.md, queue 1)"
+            )
+        return self.adaptive_word_embed_size
+
+    @property
+    def lstm_hidden_size(self) -> int:
+        if self.atten_model_name != "adaptive_attention":
+            raise NotImplementedError(
+                f"{self.atten_model_name} is not ported yet (ROADMAP.md, queue 1)"
+            )
+        return self.adaptive_lstm_hidden_size

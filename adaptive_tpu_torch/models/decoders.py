@@ -1,0 +1,203 @@
+"""Caption decoder, adaptive-attention variant (counterpart of
+adaptive_tpu/models/decoders.py).
+
+``Decoder`` carries the reference's module names (embed, LSTM, adaptive.
+{sentinel, atten, mlp}), so its state_dict keys are the reference
+checkpoint's ``decoder.*`` keys. The decode functions take the parameters in
+the JAX layout (``decoder_params``): linear kernels [in, out], LSTM weights
+[in, 4H] with gate order i,f,g,o, applied as ``x @ W``.
+
+The sentinel's h_{t-1} is ZERO at every decode step unless
+sampler_sentinel_uses_prev_hidden is set: the reference's sampler calls the
+decoder one token at a time, and its zero-prefixed shift always yields zero.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from adaptive_tpu_torch.ops import attention as att
+from adaptive_tpu_torch.ops import fused_step as fs
+from adaptive_tpu_torch.ops import inits
+from adaptive_tpu_torch.ops.lstm import lstm_cell
+
+NOT_PORTED = "{} is not ported yet: ROADMAP.md, queue 1 (non-adaptive decoder variants)"
+
+
+class DecoderSpec(NamedTuple):
+    variant: str  # only adaptive_attention is ported
+    embed_size: int
+    hidden_size: int
+    vocab_size: int
+    num_slots: int = 49
+    atten_dim: int = 49
+    # vocab dim of the embedding/head params; > vocab_size when padded
+    padded_vocab: int = 0
+
+    @property
+    def vocab_param_dim(self) -> int:
+        return self.padded_vocab or self.vocab_size
+
+
+def _linear(cin, cout, bias=False):
+    return nn.Linear(cin, cout, bias=bias)
+
+
+class Decoder(nn.Module):
+    """Reference Decoder + AdaptiveBlock + Sentinel + Atten parameters."""
+
+    def __init__(self, spec: DecoderSpec):
+        super().__init__()
+        if spec.variant != "adaptive_attention":
+            raise NotImplementedError(NOT_PORTED.format(spec.variant))
+        E, H, D, Vp = spec.embed_size, spec.hidden_size, spec.atten_dim, spec.vocab_param_dim
+        self.embed = nn.Embedding(Vp, E)
+        self.LSTM = nn.LSTM(2 * E, H, 1, batch_first=True)
+        self.adaptive = nn.Module()
+        self.adaptive.sentinel = nn.Module()
+        self.adaptive.sentinel.affine_x = _linear(2 * E, H)
+        self.adaptive.sentinel.affine_h = _linear(H, H)
+        self.adaptive.atten = nn.Module()
+        for name in ("affine_v", "affine_g", "affine_s"):
+            setattr(self.adaptive.atten, name, _linear(H, D))
+        self.adaptive.atten.affine_h = _linear(D, 1)
+        self.adaptive.mlp = _linear(H, Vp, bias=True)
+
+    @torch.no_grad()
+    def init_(self, gen: torch.Generator) -> None:
+        """The JAX package's init: embed N(0,1); LSTM orthogonal with forget
+        bias 0.5 in each bias; atten v/g/s xavier_uniform(tanh), h
+        kaiming_normal(relu); sentinel xavier_uniform(sigmoid); mlp
+        kaiming_normal(relu) with zero bias."""
+        dev = self.embed.weight.device
+        self.embed.weight.normal_(0.0, 1.0, generator=gen)
+        E2, H = self.LSTM.input_size, self.LSTM.hidden_size
+        lstm = inits.lstm_init(gen, E2, H, dev)
+        self.LSTM.weight_ih_l0.copy_(lstm["w_ih"])
+        self.LSTM.weight_hh_l0.copy_(lstm["w_hh"])
+        self.LSTM.bias_ih_l0.copy_(lstm["b_ih"])
+        self.LSTM.bias_hh_l0.copy_(lstm["b_hh"])
+        schemes = [
+            (self.adaptive.atten.affine_v, "xavier_uniform", "tanh"),
+            (self.adaptive.atten.affine_g, "xavier_uniform", "tanh"),
+            (self.adaptive.atten.affine_s, "xavier_uniform", "tanh"),
+            (self.adaptive.atten.affine_h, "kaiming_normal", "relu"),
+            (self.adaptive.sentinel.affine_x, "xavier_uniform", "sigmoid"),
+            (self.adaptive.sentinel.affine_h, "xavier_uniform", "sigmoid"),
+            (self.adaptive.mlp, "kaiming_normal", "relu"),
+        ]
+        for lin, scheme, nl in schemes:
+            lin.weight.copy_(inits.linear_weight(
+                gen, lin.in_features, lin.out_features, scheme, nl, dev))
+        self.adaptive.mlp.bias.zero_()
+
+
+def decoder_params(dec: Decoder) -> Dict:
+    """The decoder's parameters in the JAX layout, as the decode functions
+    take them (kernels transposed to [in, out], contiguous)."""
+    t = lambda w: w.detach().T.contiguous()  # noqa: E731
+    a = dec.adaptive
+    return {
+        "embed": dec.embed.weight.detach(),
+        "lstm": {"w_ih": t(dec.LSTM.weight_ih_l0), "w_hh": t(dec.LSTM.weight_hh_l0),
+                 "b_ih": dec.LSTM.bias_ih_l0.detach(), "b_hh": dec.LSTM.bias_hh_l0.detach()},
+        "adaptive": {
+            "atten": {n: {"kernel": t(getattr(a.atten, n).weight)}
+                      for n in ("affine_v", "affine_g", "affine_s", "affine_h")},
+            "sentinel": {n: {"kernel": t(getattr(a.sentinel, n).weight)}
+                         for n in ("affine_x", "affine_h")},
+            "mlp": {"kernel": t(a.mlp.weight), "bias": a.mlp.bias.detach()},
+        },
+    }
+
+
+def mask_padded_vocab(spec: DecoderSpec, scores: torch.Tensor) -> torch.Tensor:
+    """Set logits of vocab-padding columns to the dtype's lowest value, so
+    softmax/argmax equal the unpadded model's."""
+    if not spec.padded_vocab or spec.padded_vocab == spec.vocab_size:
+        return scores
+    col = torch.arange(scores.shape[-1], device=scores.device)
+    low = torch.finfo(scores.dtype).min
+    return torch.where(col < spec.vocab_size, scores, torch.full_like(scores, low))
+
+
+class DecodeState(NamedTuple):
+    h: torch.Tensor  # [B,H] LSTM hidden
+    c: torch.Tensor  # [B,H] LSTM cell
+    h_prev: torch.Tensor  # [B,H] the sentinel's h_{t-1}: previous output, zero at step 0
+
+
+def _fused_cell(params, x, state: DecodeState, sentinel_uses_prev_hidden, V, pv):
+    block = params["adaptive"]
+    hp = state.h_prev if sentinel_uses_prev_hidden else torch.zeros_like(state.h)
+    if pv is None:
+        pv = V @ block["atten"]["affine_v"]["kernel"]
+    return fs.adaptive_decode_cell_fused(
+        params["lstm"], block["atten"], block["sentinel"], x, state.h, state.c, hp, V, pv,
+    )
+
+
+@torch.no_grad()
+def decode_step(
+    params: Dict, spec: DecoderSpec, token: torch.Tensor, v_g: torch.Tensor,
+    state: DecodeState, V: torch.Tensor, sentinel_uses_prev_hidden: bool = False,
+    pv: Optional[torch.Tensor] = None, fused: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, DecodeState]:
+    """token [B] -> (logits [B,vocab], alpha [B,K], beta [B,1], state').
+    fused routes the cell through the fused kernel; the head stays a matmul."""
+    x = torch.cat([params["embed"][token], v_g], dim=-1)  # [B, 2E]
+    if fused:
+        h_new, c_new, c_hat, alpha, beta = _fused_cell(
+            params, x, state, sentinel_uses_prev_hidden, V, pv)
+        logits = inits.linear(params["adaptive"]["mlp"], c_hat + h_new)
+        return mask_padded_vocab(spec, logits), alpha, beta, DecodeState(h_new, c_new, h_new)
+
+    h_new, (h, c) = lstm_cell(params["lstm"], x, (state.h, state.c))
+    h_prev = state.h_prev if sentinel_uses_prev_hidden else torch.zeros_like(h_new)
+    block = params["adaptive"]
+    s = att.sentinel_gate(block["sentinel"], x[:, None], h_prev[:, None], c[:, None])
+    c_hat, alpha, beta = att.adaptive_attention(block["atten"], V, h_new[:, None], s, pv)
+    logits = inits.linear(block["mlp"], c_hat + h_new[:, None])
+    logits = mask_padded_vocab(spec, logits)
+    return logits[:, 0], alpha[:, 0], beta[:, 0], DecodeState(h, c, h_new)
+
+
+def prepare_greedy_head(params: Dict, spec: DecoderSpec):
+    """Padded vocab head (kernel [H, Vp'], bias [Vp']) for the fused head
+    kernel, made once per checkpoint: Vp' is a multiple of 128, and of 1280
+    past 1280, as in the JAX package; every bias column past the real vocab
+    is -1e30, so padded columns never win."""
+    w = params["adaptive"]["mlp"]["kernel"]
+    b = params["adaptive"]["mlp"]["bias"]
+    vp = w.shape[1]
+    target = -(-vp // 128) * 128
+    if target > 1280:
+        target = -(-target // 1280) * 1280
+    w_p = torch.nn.functional.pad(w, (0, target - vp)).contiguous()
+    b_p = torch.nn.functional.pad(b, (0, target - vp))
+    col = torch.arange(target, device=b.device)
+    b_p = torch.where(col < spec.vocab_size, b_p, torch.full_like(b_p, fs.NEG))
+    return w_p, b_p
+
+
+@torch.no_grad()
+def greedy_decode_step(
+    params: Dict, spec: DecoderSpec, token: torch.Tensor, v_g: torch.Tensor,
+    state: DecodeState, V: torch.Tensor, sentinel_uses_prev_hidden: bool = False,
+    pv: Optional[torch.Tensor] = None, head=None, fused: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, DecodeState]:
+    """One GREEDY step: token [B] -> (next_token [B] int32, alpha, beta, state').
+    With fused and a prepared head, the cell and the head+argmax each run as
+    one kernel; otherwise argmax over decode_step's logits."""
+    if fused and head is not None:
+        x = torch.cat([params["embed"][token], v_g], dim=-1)
+        h_new, c_new, c_hat, alpha, beta = _fused_cell(
+            params, x, state, sentinel_uses_prev_hidden, V, pv)
+        nxt = fs.greedy_head_argmax(head[0], head[1], c_hat, h_new, spec.vocab_size)
+        return nxt, alpha, beta, DecodeState(h_new, c_new, h_new)
+    logits, alpha, beta, st = decode_step(
+        params, spec, token, v_g, state, V, sentinel_uses_prev_hidden, pv=pv, fused=fused)
+    return torch.argmax(logits, dim=-1).to(torch.int32), alpha, beta, st

@@ -1,0 +1,150 @@
+"""Model factory: config -> CaptionModel (counterpart of
+adaptive_tpu/models/factory.py, adaptive_attention only).
+
+``CaptionModel`` is a static description plus the functions the greedy path
+calls. Its weights live in an ``Encoder2Decoder`` module whose state_dict keys
+are the reference checkpoint's; ``prepare_inference`` turns them once per
+checkpoint into the tree the per-batch functions read (BN folded, JAX
+layouts, compute dtype, padded greedy head).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import torch
+import torch.nn as nn
+
+from adaptive_tpu_torch.config import VARIANTS
+from adaptive_tpu_torch.models import decoders as D
+from adaptive_tpu_torch.models.encoder import AttentiveCNN
+from adaptive_tpu_torch.models.infer import (
+    INT8_TODO, cast_floating, encoder_apply_inference, prepare_encoder_inference,
+)
+from adaptive_tpu_torch.ops import attention as att
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for an entry point; a CUDA device must exist (there is no
+    silent CPU fallback: ask for device="cpu" to run on the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch path on the CPU")
+    return dev
+
+
+class Encoder2Decoder(nn.Module):
+    """The reference's top-level module: encoder (AttentiveCNN) + decoder."""
+
+    def __init__(self, spec: D.DecoderSpec, arch: str):
+        super().__init__()
+        self.encoder = AttentiveCNN(spec.embed_size, spec.hidden_size, arch)
+        self.decoder = D.Decoder(spec)
+
+
+class CaptionModel(NamedTuple):
+    variant: str
+    arch: str
+    spec: D.DecoderSpec
+    crop_size: int
+    compute_dtype: torch.dtype
+    device: torch.device
+    fused: bool = True  # decode through the kernels of ops/fused_step.py
+    encoder_quant: str = "none"
+
+    def init(self, seed: int = 0) -> Encoder2Decoder:
+        """Random weights on self.device, drawn from torch.Generator(seed)
+        with the JAX package's init schemes (not its random bits)."""
+        with torch.device("meta"):
+            net = Encoder2Decoder(self.spec, self.arch)
+        net = net.to_empty(device=self.device).eval()
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        net.encoder.init_(gen)
+        net.decoder.init_(gen)
+        return net
+
+    def prepare_inference(self, net: Encoder2Decoder) -> Dict:
+        """{'encoder': folded, cast encoder tree, 'decoder': JAX-layout decoder
+        params in the compute dtype, 'head': padded greedy head, None unless
+        fused}."""
+        with torch.no_grad():
+            enc = prepare_encoder_inference(net.encoder, self.compute_dtype, self.encoder_quant)
+            dec = cast_floating(D.decoder_params(net.decoder), self.compute_dtype)
+            head = self.prepare_greedy_head(dec)
+        return {"encoder": enc, "decoder": dec, "head": head}
+
+    def encode_inference(self, prepared: Dict, images: torch.Tensor):
+        """Preprocessed float NHWC images -> (V, v_g, h0, c0)."""
+        return encoder_apply_inference(
+            None, images, self.arch, self.compute_dtype, self.encoder_quant,
+            prepared=prepared["encoder"])
+
+    def prepare_greedy_head(self, dec_params: Dict):
+        if not self.fused:
+            return None
+        return D.prepare_greedy_head(dec_params, self.spec)
+
+    def precompute_slots(self, dec_params: Dict, V: torch.Tensor) -> torch.Tensor:
+        return att.precompute_slots(dec_params["adaptive"]["atten"], V)
+
+    def init_decode_state(self, h0, c0) -> D.DecodeState:
+        return D.DecodeState(h=h0, c=c0, h_prev=torch.zeros_like(h0))
+
+    def decode_step(self, dec_params, token, v_g, dstate, V,
+                    sentinel_uses_prev_hidden=False, pv=None):
+        return D.decode_step(dec_params, self.spec, token, v_g, dstate, V,
+                             sentinel_uses_prev_hidden, pv=pv, fused=self.fused)
+
+    def greedy_decode_step(self, dec_params, token, v_g, dstate, V,
+                           sentinel_uses_prev_hidden=False, pv=None, head=None):
+        return D.greedy_decode_step(dec_params, self.spec, token, v_g, dstate, V,
+                                    sentinel_uses_prev_hidden, pv=pv, head=head,
+                                    fused=self.fused)
+
+
+def build_model(cf, device="cuda") -> CaptionModel:
+    if cf.atten_model_name not in VARIANTS:
+        raise ValueError(f"unknown atten_model_name {cf.atten_model_name!r}")
+    if cf.atten_model_name != "adaptive_attention":
+        raise NotImplementedError(D.NOT_PORTED.format(cf.atten_model_name))
+    if cf.encoder_quant == "int8":
+        raise NotImplementedError(INT8_TODO)
+    dev = resolve_device(device)
+    num_slots = (cf.train_crop_size // 32) ** 2  # 49 at 224 (7x7 map)
+    m = max(1, cf.vocab_pad_multiple)
+    padded_vocab = ((cf.vocab_length + m - 1) // m) * m
+    spec = D.DecoderSpec(
+        variant=cf.atten_model_name,
+        embed_size=cf.word_embed_size,
+        hidden_size=cf.lstm_hidden_size,
+        vocab_size=cf.vocab_length,
+        num_slots=num_slots,
+        atten_dim=num_slots,
+        padded_vocab=padded_vocab if padded_vocab != cf.vocab_length else 0,
+    )
+    return CaptionModel(
+        variant=cf.atten_model_name,
+        arch=cf.encoder_backbone,
+        spec=spec,
+        crop_size=cf.train_crop_size,
+        compute_dtype=DTYPES[cf.compute_dtype],
+        device=dev,
+        fused=cf.use_pallas != "never",
+        encoder_quant=cf.encoder_quant,
+    )
+
+
+def load_jax_weights(model: CaptionModel, params, state) -> Encoder2Decoder:
+    """An Encoder2Decoder on model.device holding a JAX parameter tree (numpy
+    leaves), through the weight bridge in models/jax_params.py."""
+    from adaptive_tpu_torch.models.jax_params import from_jax
+
+    with torch.device("meta"):
+        net = Encoder2Decoder(model.spec, model.arch)
+    net = net.to_empty(device=model.device).eval()
+    net.load_state_dict(from_jax(params, state, model.arch))
+    return net

@@ -1,0 +1,183 @@
+"""ResNet backbone (v1.5, torchvision-compatible) without torchvision
+(counterpart of adaptive_tpu/models/resnet.py).
+
+Parameter names follow the reference's ``resnet_conv`` Sequential of
+torchvision's children (0=conv1, 1=bn1, 4..7=layer1..4; inside a block
+conv{1..3}, bn{1..3}, downsample.{0,1}), so a reference state_dict loads with
+``load_state_dict``. Only the eval-mode forward is ported: BN uses
+the running statistics. Public tensors are NHWC as in the JAX package; inside,
+the convolutions run on NCHW views in the channels_last memory format, which
+is what a permuted NHWC tensor already is.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+# torchvision resnet depth -> (block type, stage sizes)
+RESNET_SPECS = {
+    "resnet18": ("basic", (2, 2, 2, 2)),
+    "resnet34": ("basic", (3, 4, 6, 3)),
+    "resnet50": ("bottleneck", (3, 4, 6, 3)),
+    "resnet101": ("bottleneck", (3, 4, 23, 3)),
+    "resnet152": ("bottleneck", (3, 8, 36, 3)),
+}
+
+def feature_channels(arch: str) -> int:
+    return 2048 if RESNET_SPECS[arch][0] == "bottleneck" else 512
+
+
+def _conv(cin, cout, k, stride=1):
+    return nn.Conv2d(cin, cout, k, stride, (k - 1) // 2, bias=False)
+
+
+def _bn_eval(x, bn: nn.BatchNorm2d):
+    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                        False, 0.0, bn.eps)
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, cin, width, cout, stride, has_down):
+        super().__init__()
+        self.conv1, self.bn1 = _conv(cin, width, 1), nn.BatchNorm2d(width)
+        self.conv2, self.bn2 = _conv(width, width, 3, stride), nn.BatchNorm2d(width)
+        self.conv3, self.bn3 = _conv(width, cout, 1), nn.BatchNorm2d(cout)
+        self.downsample = (
+            nn.Sequential(_conv(cin, cout, 1, stride), nn.BatchNorm2d(cout))
+            if has_down else None
+        )
+
+    def forward(self, x):
+        y = F.relu(_bn_eval(self.conv1(x), self.bn1))
+        y = F.relu(_bn_eval(self.conv2(y), self.bn2))
+        y = _bn_eval(self.conv3(y), self.bn3)
+        sc = x if self.downsample is None else _bn_eval(
+            self.downsample[0](x), self.downsample[1])
+        return F.relu(y + sc)
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, cin, width, cout, stride, has_down):
+        super().__init__()
+        self.conv1, self.bn1 = _conv(cin, width, 3, stride), nn.BatchNorm2d(width)
+        self.conv2, self.bn2 = _conv(width, width, 3), nn.BatchNorm2d(width)
+        self.downsample = (
+            nn.Sequential(_conv(cin, cout, 1, stride), nn.BatchNorm2d(cout))
+            if has_down else None
+        )
+
+    def forward(self, x):
+        y = F.relu(_bn_eval(self.conv1(x), self.bn1))
+        y = _bn_eval(self.conv2(y), self.bn2)
+        sc = x if self.downsample is None else _bn_eval(
+            self.downsample[0](x), self.downsample[1])
+        return F.relu(y + sc)
+
+
+class ResNet(nn.Sequential):
+    """torchvision ResNet minus avgpool/fc, as the reference wraps it:
+    nn.Sequential([conv1, bn1, relu, maxpool, layer1..4]), so its state_dict
+    keys are the reference's ``encoder.resnet_conv.<i>...`` below the encoder.
+    forward: NHWC float -> NHWC [B, H/32, W/32, C], eval-mode BN."""
+
+    def __init__(self, arch: str = "resnet152"):
+        block_type, stages = RESNET_SPECS[arch]
+        block = Bottleneck if block_type == "bottleneck" else BasicBlock
+        expansion = 4 if block_type == "bottleneck" else 1
+        layers = []
+        cin = 64
+        for li, n_blocks in enumerate(stages):
+            width = 64 * 2 ** li
+            cout = width * expansion
+            blocks = []
+            for bi in range(n_blocks):
+                stride = 2 if (li > 0 and bi == 0) else 1
+                has_down = bi == 0 and (stride != 1 or cin != cout)
+                blocks.append(block(cin, width, cout, stride, has_down))
+                cin = cout
+            layers.append(nn.Sequential(*blocks))
+        super().__init__(_conv(3, 64, 7, 2), nn.BatchNorm2d(64), nn.ReLU(),
+                         nn.MaxPool2d(3, 2, 1), *layers)
+        self.arch = arch
+
+    def layers(self):
+        """(layer1, ..., layer4)."""
+        return tuple(self[i] for i in range(4, len(self)))
+
+    def forward(self, x):
+        y = x.permute(0, 3, 1, 2)
+        y = self[3](F.relu(_bn_eval(self[0](y), self[1])))
+        for layer in self.layers():
+            y = layer(y)
+        return y.permute(0, 2, 3, 1)
+
+
+def _conv_bn_pairs(net: ResNet):
+    yield net[0], net[1]
+    for layer in net.layers():
+        for blk in layer:
+            for i in (1, 2, 3):
+                if hasattr(blk, f"conv{i}"):
+                    yield getattr(blk, f"conv{i}"), getattr(blk, f"bn{i}")
+            if blk.downsample is not None:
+                yield blk.downsample[0], blk.downsample[1]
+
+
+def _residual_bns(net: ResNet):
+    """The last BN of every block's residual branch (bn3 of a bottleneck,
+    bn2 of a basic block)."""
+    for layer in net.layers():
+        for blk in layer:
+            yield blk.bn3 if isinstance(blk, Bottleneck) else blk.bn2
+
+
+@torch.no_grad()
+def calibrate_bn_(net: ResNet, x: torch.Tensor, residual_gain: float = 0.2) -> None:
+    """Set every BN's running statistics to those of its input on the batch
+    x (NHWC float), in one forward pass: each conv's output sets its BN's
+    mean and variance before the BN reads them. With random conv weights the
+    identity statistics of a fresh init let activations grow by orders of
+    magnitude with depth; calibrated statistics keep them at the scale a
+    trained network's BN gives.
+
+    Then the last BN of each residual branch gets scale residual_gain, as
+    the small final scales of trained ResNets have it. With every branch at
+    unit scale the calibrated random ResNet-152 is chaotic: it grows
+    rounding-level differences at its input (as between two devices) into
+    visibly different features, so fp32 captions computed on two devices
+    part ways. With branches at 0.2 it shrinks such differences instead."""
+    def hook(bn):
+        def set_stats(_conv, _inp, out):
+            o = out.float()
+            bn.running_mean.copy_(o.mean(dim=(0, 2, 3)))
+            bn.running_var.copy_(o.var(dim=(0, 2, 3), unbiased=False))
+        return set_stats
+
+    handles = [conv.register_forward_hook(hook(bn)) for conv, bn in _conv_bn_pairs(net)]
+    try:
+        net(x)
+    finally:
+        for h in handles:
+            h.remove()
+    for bn in _residual_bns(net):
+        bn.weight.fill_(residual_gain)
+
+
+@torch.no_grad()
+def init_resnet_(net: nn.Module, gen: torch.Generator) -> None:
+    """The JAX package's init in place: convs kaiming normal (fan_out, relu),
+    BN scale 1, bias 0, running mean 0, running var 1."""
+    for m in net.modules():
+        if isinstance(m, nn.Conv2d):
+            cout, _, kh, kw = m.weight.shape
+            m.weight.normal_(0.0, math.sqrt(2.0 / (kh * kw * cout)), generator=gen)
+        elif isinstance(m, nn.BatchNorm2d):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+            m.num_batches_tracked.zero_()

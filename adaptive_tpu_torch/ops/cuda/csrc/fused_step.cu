@@ -1,0 +1,443 @@
+// Hopper (sm_90a) kernels of one greedy decode step of the adaptive-attention
+// captioner. Built by adaptive_tpu_torch/ops/cuda/build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+// and called through ctypes from adaptive_tpu_torch/ops/fused_step.py, whose
+// plain PyTorch twins define the arithmetic these kernels must reproduce.
+//
+// 1. adaptive_cell_kernel replaces adaptive_tpu/ops/pallas/fused_step.py::
+//    adaptive_decode_cell_fused (body _cell_kernel, beam_w == 1): the LSTM
+//    recurrence, the visual sentinel and adaptive attention over K slots.
+//    Bound on an H100 SXM at batch 1024, bf16: ~75 MB of inputs per step
+//    (V 51 MB, gx 8 MB, pv 5 MB, weights 3 MB) -> ~22 us at 3.35 TB/s, against
+//    ~3.4 GFLOP, which the CUDA cores (fp32, 67 TFLOP/s) need ~50 us for.
+//    Design: one block owns ROWS rows. Their h, x, h_prev are staged in shared
+//    memory as fp32; each thread owns a pair of hidden units and computes the
+//    four gate columns and the sentinel column of both, so c, h and s need no
+//    exchange between threads. The weights (3 MB) stream from L2 once per
+//    block, each weight load feeding ROWS rows. h@Wg and s@Ws (D columns), the
+//    K x D tanh logits, both softmaxes and alpha@V follow from shared memory;
+//    V and pv are read once, with no padding of K or D (masking by bounds
+//    replaces the TPU kernel's 64-lane padding). Simple and right first:
+//    tensor cores (wgmma) and TMA are later work.
+//
+// 2. head_argmax_kernel + head_argmax_reduce replace fused_step.py::
+//    greedy_head_argmax (body _head_argmax_kernel): argmax over the real vocab
+//    of (chat + h) @ W + b, first max on ties, logits never stored.
+//    Bound at batch 1024: 10.7 GFLOP -> ~11 us at the bf16 tensor peak
+//    (989 TFLOP/s), against 10.5 MB of weight, which fits in the 50 MB L2.
+//    Design: blocks cannot carry a running best across a sequential grid as
+//    the TPU kernel does, so pass 1 tiles the product (64 rows x 128 vocab
+//    columns a block, fp32 accumulation on the CUDA cores, operands staged in
+//    shared memory) and writes one (value, index) partial per row and tile;
+//    pass 2 walks each row's tiles in vocab order and keeps a strictly larger
+//    value, so ties go to the first index exactly as jnp.argmax does. The
+//    SIMT product is far from the tensor-core bound; mma/wgmma is later work.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float NEG = -1e30f;
+constexpr int ROWS = 8;       // rows of the batch one cell block owns
+constexpr int CELL_THREADS = 256;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// two consecutive elements (p must be aligned to two elements)
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float sigmoidf_(float v) { return 1.0f / (1.0f + expf(-v)); }
+
+// ---------------------------------------------------------------- decode cell
+template <typename T>
+__global__ void __launch_bounds__(CELL_THREADS)
+adaptive_cell_kernel(const float* __restrict__ gx,   // [B, 4H] fp32
+                     const T* __restrict__ h_in,     // [B, H]
+                     const T* __restrict__ c_in,     // [B, H]
+                     const T* __restrict__ x,        // [B, E2]
+                     const T* __restrict__ h_prev,   // [B, H]
+                     const T* __restrict__ pv,       // [B, K, D]
+                     const T* __restrict__ V,        // [B, K, H]
+                     const T* __restrict__ whh,      // [H, 4H]
+                     const T* __restrict__ bhh,      // [4H]
+                     const T* __restrict__ wx,       // [E2, H]
+                     const T* __restrict__ whs,      // [H, H]
+                     const T* __restrict__ wg,       // [H, D]
+                     const T* __restrict__ ws,       // [H, D]
+                     const T* __restrict__ wh,       // [D]
+                     T* __restrict__ h_out, T* __restrict__ c_out,
+                     T* __restrict__ chat_out,
+                     float* __restrict__ alpha_out,  // [B, K]
+                     float* __restrict__ beta_out,   // [B]
+                     int B, int H, int E2, int K, int D) {
+  extern __shared__ float smem[];
+  float* hs = smem;                 // [ROWS][H]  h_in
+  float* xs = hs + ROWS * H;        // [ROWS][E2] x
+  float* hps = xs + ROWS * E2;      // [ROWS][H]  h_prev
+  float* hn = hps + ROWS * H;       // [ROWS][H]  h_new
+  float* sn = hn + ROWS * H;        // [ROWS][H]  sentinel s
+  float* phs = sn + ROWS * H;       // [ROWS][D]  h_new @ Wg
+  float* sxs = phs + ROWS * D;      // [ROWS][D]  s @ Ws
+  float* zs = sxs + ROWS * D;       // [ROWS][K]  logits, then alpha
+  float* zss = zs + ROWS * K;       // [ROWS]     sentinel logit
+  float* betas = zss + ROWS;        // [ROWS]
+
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * ROWS;
+  const int nrows = min(ROWS, B - r0);
+
+  for (int i = tid; i < ROWS * H; i += blockDim.x) {
+    int r = i / H, k = i - r * H;
+    bool ok = r < nrows;
+    hs[i] = ok ? to_f(h_in[(size_t)(r0 + r) * H + k]) : 0.f;
+    hps[i] = ok ? to_f(h_prev[(size_t)(r0 + r) * H + k]) : 0.f;
+  }
+  for (int i = tid; i < ROWS * E2; i += blockDim.x) {
+    int r = i / E2, k = i - r * E2;
+    xs[i] = r < nrows ? to_f(x[(size_t)(r0 + r) * E2 + k]) : 0.f;
+  }
+  __syncthreads();
+
+  // phase 1: gates (i, f, g, o) and sentinel pre-activation for units u, u+1
+  const int H4 = 4 * H;
+  for (int u = 2 * tid; u < H; u += 2 * blockDim.x) {
+    float2 acc[ROWS][4];
+    float2 sen[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      sen[r] = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) acc[r][g] = make_float2(0.f, 0.f);
+    }
+    for (int k = 0; k < H; ++k) {
+      float2 w[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) w[g] = load2(whh + (size_t)k * H4 + g * H + u);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        float hk = hs[r * H + k];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          acc[r][g].x = fmaf(hk, w[g].x, acc[r][g].x);
+          acc[r][g].y = fmaf(hk, w[g].y, acc[r][g].y);
+        }
+      }
+    }
+    for (int k = 0; k < E2; ++k) {
+      float2 w = load2(wx + (size_t)k * H + u);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        float xk = xs[r * E2 + k];
+        sen[r].x = fmaf(xk, w.x, sen[r].x);
+        sen[r].y = fmaf(xk, w.y, sen[r].y);
+      }
+    }
+    for (int k = 0; k < H; ++k) {
+      float2 w = load2(whs + (size_t)k * H + u);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        float pk = hps[r * H + k];
+        sen[r].x = fmaf(pk, w.x, sen[r].x);
+        sen[r].y = fmaf(pk, w.y, sen[r].y);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (r >= nrows) break;
+      const size_t row = (size_t)(r0 + r);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int uu = u + e;
+        float gt[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float a = e ? acc[r][g].y : acc[r][g].x;
+          gt[g] = gx[row * H4 + g * H + uu] + a + to_f(bhh[g * H + uu]);
+        }
+        float ig = sigmoidf_(gt[0]), fg = sigmoidf_(gt[1]);
+        float gg = tanhf(gt[2]), og = sigmoidf_(gt[3]);
+        float cell = fg * to_f(c_in[row * H + uu]) + ig * gg;
+        float tc = tanhf(cell);
+        float hnew = og * tc;
+        float s = sigmoidf_(e ? sen[r].y : sen[r].x) * tc;
+        hn[r * H + uu] = hnew;
+        sn[r * H + uu] = s;
+        h_out[row * H + uu] = from_f<T>(hnew);
+        c_out[row * H + uu] = from_f<T>(cell);
+      }
+    }
+  }
+  __syncthreads();
+
+  // phase 2: ph = h_new @ Wg and sx = s @ Ws, one thread per (row, column)
+  for (int i = tid; i < nrows * D; i += blockDim.x) {
+    int r = i / D, j = i - r * D;
+    float a = 0.f, b = 0.f;
+    for (int k = 0; k < H; ++k) {
+      a = fmaf(hn[r * H + k], to_f(wg[(size_t)k * D + j]), a);
+      b = fmaf(sn[r * H + k], to_f(ws[(size_t)k * D + j]), b);
+    }
+    phs[r * D + j] = a;
+    sxs[r * D + j] = b;
+  }
+  __syncthreads();
+
+  // phase 3: z[r, i] = sum_j wh[j] tanh(pv[r, i, j] + ph[r, j]); sentinel z_s
+  for (int i = tid; i < nrows * K; i += blockDim.x) {
+    int r = i / K, s = i - r * K;
+    const T* p = pv + ((size_t)(r0 + r) * K + s) * D;
+    float z = 0.f;
+    for (int j = 0; j < D; ++j) z = fmaf(tanhf(to_f(p[j]) + phs[r * D + j]), to_f(wh[j]), z);
+    zs[r * K + s] = z;
+  }
+  for (int r = tid; r < nrows; r += blockDim.x) {
+    float z = 0.f;
+    for (int j = 0; j < D; ++j) z = fmaf(tanhf(sxs[r * D + j] + phs[r * D + j]), to_f(wh[j]), z);
+    zss[r] = z;
+  }
+  __syncthreads();
+
+  // phase 4: softmax over K (alpha) and the sentinel share of the K+1 softmax
+  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  for (int r = warp; r < nrows; r += nwarps) {
+    float m = NEG;
+    for (int s = lane; s < K; s += 32) m = fmaxf(m, zs[r * K + s]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float denom = 0.f;
+    for (int s = lane; s < K; s += 32) denom += expf(zs[r * K + s] - m);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) denom += __shfl_xor_sync(0xffffffffu, denom, o);
+    __syncwarp();
+    for (int s = lane; s < K; s += 32) {
+      float a = expf(zs[r * K + s] - m) / denom;
+      zs[r * K + s] = a;
+      alpha_out[(size_t)(r0 + r) * K + s] = a;
+    }
+    if (lane == 0) {
+      float zsent = zss[r];
+      float m2 = fmaxf(m, zsent);
+      float denom2 = denom * expf(m - m2) + expf(zsent - m2);
+      float beta = expf(zsent - m2) / denom2;
+      betas[r] = beta;
+      beta_out[r0 + r] = beta;
+    }
+  }
+  __syncthreads();
+
+  // phase 5: c_hat = beta s + (1 - beta) alpha @ V, units u, u+1 per thread
+  for (int u = 2 * tid; u < H; u += 2 * blockDim.x) {
+    float2 ctx[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) ctx[r] = make_float2(0.f, 0.f);
+    for (int s = 0; s < K; ++s) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        if (r < nrows) {
+          float a = zs[r * K + s];
+          float2 v = load2(V + ((size_t)(r0 + r) * K + s) * H + u);
+          ctx[r].x = fmaf(a, v.x, ctx[r].x);
+          ctx[r].y = fmaf(a, v.y, ctx[r].y);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (r >= nrows) break;
+      const float beta = betas[r];
+      const size_t o = (size_t)(r0 + r) * H + u;
+      chat_out[o] = from_f<T>(beta * sn[r * H + u] + (1.0f - beta) * ctx[r].x);
+      chat_out[o + 1] = from_f<T>(beta * sn[r * H + u + 1] + (1.0f - beta) * ctx[r].y);
+    }
+  }
+}
+
+// ------------------------------------------------------------- head argmax
+constexpr int BM = 64, BN = 128, BK = 32, HEAD_THREADS = 256;
+
+// (value, index) order: larger value first, then lower index
+__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(HEAD_THREADS)
+head_argmax_kernel(const T* __restrict__ chat, const T* __restrict__ h,  // [B, H]
+                   const T* __restrict__ W,                              // [H, Vp]
+                   const T* __restrict__ bias,                           // [Vp]
+                   float* __restrict__ part_v, int* __restrict__ part_i, // [B, Vp/BN]
+                   int B, int H, int Vp, int vocab_len) {
+  __shared__ float As[BK][BM + 4];
+  __shared__ float Bs[BK][BN];
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;  // 16 x 16 threads, 4 rows x 8 cols each
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < H; k0 += BK) {
+    // A tile: z = (chat + h) rounded to the weight dtype, stored k-major
+    for (int e = tid; e < BM * BK; e += HEAD_THREADS) {
+      int m = e / BK, kk = e - m * BK;
+      int row = m0 + m, k = k0 + kk;
+      float z = 0.f;
+      if (row < B && k < H) {
+        size_t o = (size_t)row * H + k;
+        z = to_f(from_f<T>(to_f(chat[o]) + to_f(h[o])));
+      }
+      As[kk][m] = z;
+    }
+    for (int e = tid; e < BK * BN; e += HEAD_THREADS) {
+      int kk = e / BN, n = e - kk * BN;
+      int k = k0 + kk;
+      Bs[kk][n] = k < H ? to_f(W[(size_t)k * Vp + n0 + n]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], b[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  const int ntiles = Vp / BN;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float bv = NEG;
+    int bi = 0x7fffffff;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      int col = n0 + tx + 16 * j;
+      float v = col < vocab_len ? acc[i][j] + to_f(bias[col]) : NEG;
+      if (better(v, col, bv, bi)) { bv = v; bi = col; }
+    }
+    // reduce over the 16 threads that share this row (one half-warp)
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) {
+      float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (better(ov, oi, bv, bi)) { bv = ov; bi = oi; }
+    }
+    int row = m0 + ty * 4 + i;
+    if (tx == 0 && row < B) {
+      part_v[(size_t)row * ntiles + blockIdx.y] = bv;
+      part_i[(size_t)row * ntiles + blockIdx.y] = bi;
+    }
+  }
+}
+
+// pass 2: tiles in vocab order, strictly larger wins (first max on ties)
+__global__ void head_argmax_reduce(const float* __restrict__ part_v,
+                                   const int* __restrict__ part_i,
+                                   int* __restrict__ out, int B, int ntiles) {
+  int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= B) return;
+  float best = NEG;
+  int arg = 0;
+  for (int t = 0; t < ntiles; ++t) {
+    float v = part_v[(size_t)row * ntiles + t];
+    if (v > best) { best = v; arg = part_i[(size_t)row * ntiles + t]; }
+  }
+  out[row] = arg;
+}
+
+size_t cell_smem_bytes(int H, int E2, int K, int D) {
+  return sizeof(float) * ((size_t)ROWS * (4 * H + E2 + 2 * D + K) + 2 * ROWS);
+}
+
+template <typename T>
+int launch_cell(const void* gx, const void* h, const void* c, const void* x,
+                const void* hp, const void* pv, const void* V, const void* whh,
+                const void* bhh, const void* wx, const void* whs, const void* wg,
+                const void* ws, const void* wh, void* h_out, void* c_out,
+                void* chat_out, void* alpha, void* beta, int B, int H, int E2,
+                int K, int D, cudaStream_t stream) {
+  size_t smem = cell_smem_bytes(H, E2, K, D);
+  cudaError_t err = cudaFuncSetAttribute(adaptive_cell_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((B + ROWS - 1) / ROWS);
+  adaptive_cell_kernel<T><<<grid, CELL_THREADS, smem, stream>>>(
+      (const float*)gx, (const T*)h, (const T*)c, (const T*)x, (const T*)hp,
+      (const T*)pv, (const T*)V, (const T*)whh, (const T*)bhh, (const T*)wx,
+      (const T*)whs, (const T*)wg, (const T*)ws, (const T*)wh, (T*)h_out,
+      (T*)c_out, (T*)chat_out, (float*)alpha, (float*)beta, B, H, E2, K, D);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_head(const void* chat, const void* h, const void* W, const void* b,
+                void* part_v, void* part_i, void* out, int B, int H, int Vp,
+                int vocab_len, cudaStream_t stream) {
+  dim3 grid((B + BM - 1) / BM, Vp / BN);
+  head_argmax_kernel<T><<<grid, HEAD_THREADS, 0, stream>>>(
+      (const T*)chat, (const T*)h, (const T*)W, (const T*)b, (float*)part_v,
+      (int*)part_i, B, H, Vp, vocab_len);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  head_argmax_reduce<<<(B + 255) / 256, 256, 0, stream>>>(
+      (const float*)part_v, (const int*)part_i, (int*)out, B, Vp / BN);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after launch.
+int adaptive_cell_launch(int dtype, const void* gx, const void* h, const void* c,
+                         const void* x, const void* hp, const void* pv,
+                         const void* V, const void* whh, const void* bhh,
+                         const void* wx, const void* whs, const void* wg,
+                         const void* ws, const void* wh, void* h_out, void* c_out,
+                         void* chat_out, void* alpha, void* beta, int B, int H,
+                         int E2, int K, int D, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_cell<float>(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws,
+                              wh, h_out, c_out, chat_out, alpha, beta, B, H, E2,
+                              K, D, st);
+  return launch_cell<__nv_bfloat16>(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg,
+                                    ws, wh, h_out, c_out, chat_out, alpha, beta, B,
+                                    H, E2, K, D, st);
+}
+
+int head_argmax_launch(int dtype, const void* chat, const void* h, const void* W,
+                       const void* b, void* part_v, void* part_i, void* out, int B,
+                       int H, int Vp, int vocab_len, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_head<float>(chat, h, W, b, part_v, part_i, out, B, H, Vp,
+                              vocab_len, st);
+  return launch_head<__nv_bfloat16>(chat, h, W, b, part_v, part_i, out, B, H, Vp,
+                                    vocab_len, st);
+}
+
+}  // extern "C"

@@ -1,0 +1,452 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (adaptive_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py [--profile DIR]
+
+Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
+
+1. prints the card (nvidia-smi name and power limit), torch/CUDA versions
+   and the kernel build time;
+2. holds each kernel against its plain PyTorch twin at the main path's
+   shapes (batch 1024, H 512, 2E 512, K = D = 49, vocab 10123 padded to
+   10240), in fp32 and bf16, and times kernel, twin and library call;
+3. runs the main path end to end in bf16 at full width: build_model ->
+   make_greedy_decoder -> greedy captions for 1024 seeded uint8 256x256
+   images with a seeded random ResNet-152 / H 512 model; checks that each
+   kernel launched exactly once per decode step and that the outputs are
+   well formed, and times the decode and the encoder alone (mean of
+   E2E_REPEATS runs); --profile adds a torch.profiler kernel table;
+4. decodes 8 images in fp32 (TF32 off) on the card and on the CPU (plain
+   twins) and requires equal ids, except where the first differing step's
+   fp32 top-2 logit gap is below 1e-3, and attention and beta within
+   PARITY_ATOL up to that step.
+
+Prints one JSON line of per-kernel numbers, then as its last line
+{"ok": true, "device": {...}}. Any failed check raises: the exit code is
+then non-zero and no result line is printed. Exits 2 without a result where
+there is no CUDA card or the package is not beside this script.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# main-path shapes: adaptive_attention, ResNet-152 at 224 px, embed 256,
+# hidden 512, vocab 10123 (head padded to 10240), 30 steps, batch 1024
+B, H, E2, K, D, VOCAB, VP, STEPS = 1024, 512, 512, 49, 49, 10123, 10240, 30
+SEED = 0
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# Tolerances, kernel vs plain twin on the same inputs. fp32: sums in another
+# order, |err| <= 1e-5 + 1e-5 |ref|. bf16 outputs (h, c, c_hat): one bf16
+# rounding step, |err| <= 1e-5 + 2^-7 |ref|. alpha/beta are fp32 in both.
+TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2.0 ** -7)}
+# head ids may differ only where the row's fp32 top-2 logit gap is below this
+HEAD_GAP_EPS = 1e-3
+PARITY_GAP_EPS = 1e-3  # phase 4: CPU vs card ids
+# phase 4: attention and beta, card vs CPU in fp32 (the repo's bound for the
+# greedy path against the JAX package: sums in another order through the
+# 152-layer encoder and 30 steps)
+PARITY_ATOL = 2e-4
+E2E_REPEATS = 3  # phase 3: timed end-to-end runs after the warm-up
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Mean device time of fn() over iters launches, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(bytes_moved: int, flops: float, dtype: str):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and
+    operations over the peak rate of the inputs' type."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_close(name, got, ref, atol, rtol) -> float:
+    import torch
+
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    bad = err > atol + rtol * r.abs()
+    if bad.any():
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} elements past atol={atol} rtol={rtol}, "
+            f"max abs err {float(err.max()):.3e}")
+    return float(err.max())
+
+
+# ----------------------------------------------------------------- phase 2
+def kernel_checks(dtype_name: str):
+    import torch
+
+    from adaptive_tpu_torch.ops import fused_step as fs
+
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype_name]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    # cell operands at the decode step's scales: LSTM state ~N(0,1), V >= 0
+    gx = r(B, 4 * H)
+    cell_args = [gx] + [t.to(dt).contiguous() for t in (
+        r(B, H, scale=0.5), r(B, H), r(B, E2, scale=0.5), torch.zeros(B, H, device="cuda"),
+        r(B, K, D), r(B, K, H).abs(), r(H, 4 * H, scale=H ** -0.5), r(4 * H, scale=0.1),
+        r(E2, H, scale=E2 ** -0.5), r(H, H, scale=H ** -0.5), r(H, D, scale=H ** -0.5),
+        r(H, D, scale=H ** -0.5), r(D, scale=D ** -0.5))]
+    got = fs.decode_cell(*cell_args)
+    torch.cuda.synchronize()
+    ref = fs.decode_cell_plain(*cell_args)
+    atol, rtol = TOL[dtype_name]
+    cell_err = 0.0
+    for name, a, b in zip(("h", "c", "c_hat", "alpha", "beta"), got, ref):
+        tol = TOL["float32"] if a.dtype == torch.float32 else (atol, rtol)
+        cell_err = max(cell_err, check_close(f"cell {dtype_name} {name}", a, b, *tol))
+    cell_ms = cuda_ms(lambda: fs.decode_cell(*cell_args))
+    cell_plain_ms = cuda_ms(lambda: fs.decode_cell_plain(*cell_args))
+    outs = nbytes(*got)
+    cell_flops = 2.0 * B * (H * 4 * H + E2 * H + H * H + 2 * H * D + K * D + K * H)
+    cell_bound = bound(nbytes(*cell_args) + outs, cell_flops, dtype_name)
+
+    # head operands: c_hat, h ~N(0,1); W at the kaiming scale; padded bias -1e30
+    W = r(H, VP, scale=(2.0 / H) ** 0.5).to(dt)
+    bias = r(VP, scale=0.1)
+    bias[VOCAB:] = fs.NEG
+    bias = bias.to(dt)
+    chat, h = r(B, H).to(dt), r(B, H).to(dt)
+    ids = fs.greedy_head_argmax(W, bias, chat, h, VOCAB)
+    torch.cuda.synchronize()
+    ref_ids = fs.greedy_head_argmax_plain(W, bias, chat, h, VOCAB)
+    logits = (chat + h).to(dt).float() @ W.float() + bias.float()
+    logits[:, VOCAB:] = fs.NEG
+    top2 = logits.topk(2, dim=1).values
+    gap = top2[:, 0] - top2[:, 1]
+    diff = ids != ref_ids
+    # the twin's logit shortfall of the kernel's pick: 0 where the ids agree
+    head_err = float((logits.gather(1, ref_ids[:, None].long())
+                      - logits.gather(1, ids[:, None].long())).abs().max())
+    if (diff & (gap >= HEAD_GAP_EPS)).any():
+        raise AssertionError(
+            f"head {dtype_name}: {int(diff.sum())} ids differ, some at top-2 gap >= {HEAD_GAP_EPS}")
+    head_ms = cuda_ms(lambda: fs.greedy_head_argmax(W, bias, chat, h, VOCAB))
+    head_plain_ms = cuda_ms(lambda: fs.greedy_head_argmax_plain(W, bias, chat, h, VOCAB))
+    z = (chat + h).to(dt)
+    head_lib_ms = cuda_ms(lambda: torch.addmm(bias, z, W).argmax(dim=1))
+    head_bound = bound(nbytes(W, bias, chat, h) + B * 4, 2.0 * B * H * VP, dtype_name)
+    log(f"[kernels {dtype_name}] cell: max_abs_err {cell_err:.3e} kernel {cell_ms:.4f} ms "
+        f"plain {cell_plain_ms:.4f} ms bound {cell_bound[0]:.4f} ms ({cell_bound[1]}) | "
+        f"head: {int(diff.sum())}/{B} ids differ (all at top-2 gap < {HEAD_GAP_EPS}), "
+        f"kernel {head_ms:.4f} ms plain {head_plain_ms:.4f} ms addmm+argmax "
+        f"{head_lib_ms:.4f} ms bound {head_bound[0]:.4f} ms ({head_bound[1]})")
+    return {
+        "adaptive_decode_cell_fused": {
+            "max_abs_err": cell_err, "ms": cell_ms, "plain_ms": cell_plain_ms,
+            "bound_ms": cell_bound[0], "bound_by": cell_bound[1], "library_ms": None},
+        "greedy_head_argmax": {
+            "max_abs_err": head_err,
+            "ids_differ": int(diff.sum()), "ms": head_ms, "plain_ms": head_plain_ms,
+            "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": head_lib_ms},
+    }
+
+
+# ----------------------------------------------------------------- phase 3
+def seeded_images(n, seed, size=256, cells=4):
+    """n uint8 NHWC images from a numpy seed: a random cells x cells grid of
+    colours, blown up to size, plus pixel noise of +-24. Images of i.i.d.
+    noise all look alike to a network; coarse structure sets them apart."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    grid = rng.integers(0, 256, (n, cells, cells, 3), dtype=np.int16)
+    up = grid.repeat(size // cells, axis=1).repeat(size // cells, axis=2)
+    up += rng.integers(-24, 25, up.shape, dtype=np.int16)
+    return np.clip(up, 0, 255).astype(np.uint8)
+
+
+def random_model(cf, device, calib_images):
+    """Seeded random weights; BN statistics calibrated on a batch so the
+    random ResNet-152's activations keep a trained network's scale, with
+    residual branches scaled down so that it is not chaotic
+    (resnet.calibrate_bn_)."""
+    import torch
+
+    from adaptive_tpu_torch.models import build_model
+    from adaptive_tpu_torch.models.resnet import calibrate_bn_
+    from adaptive_tpu_torch.ops.preprocess import eval_preprocess
+
+    model = build_model(cf, device=device)
+    net = model.init(SEED)
+    x = eval_preprocess(torch.as_tensor(calib_images, device=model.device), cf.train_crop_size)
+    calibrate_bn_(net.encoder.resnet_conv, x)
+    return model, net
+
+
+def end_to_end(images_u8, smi, profile_dir=None):
+    import torch
+
+    from adaptive_tpu_torch import Config
+    from adaptive_tpu_torch.decoding import make_greedy_decoder
+    from adaptive_tpu_torch.ops import fused_step as fs
+    from adaptive_tpu_torch.ops.preprocess import eval_preprocess
+
+    cf = Config(compute_dtype="bfloat16")
+    model, net = random_model(cf, "cuda", images_u8[:32])
+    decode = make_greedy_decoder(model, cf)
+    prepared = decode.prepare(net)
+    images = torch.as_tensor(images_u8, device="cuda")
+    decode(net, images)  # warm-up at the full batch: cuDNN plans, allocator
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    fs.reset_launch_counts()
+    out, first_ms = timed(lambda: decode(net, images))
+    launches = {"adaptive_decode_cell_fused": fs.decode_cell.launches,
+                "greedy_head_argmax": fs.greedy_head_argmax.launches}
+    for name, n in launches.items():
+        if n != STEPS:
+            raise AssertionError(f"{name} launched {n} times in the decode, expected {STEPS}")
+    total_ms = [first_ms] + [timed(lambda: decode(net, images))[1] for _ in range(E2E_REPEATS - 1)]
+    with torch.no_grad():
+        enc_ms = [timed(lambda: model.encode_inference(prepared, eval_preprocess(
+            images, cf.train_crop_size, model.compute_dtype)))[1] for _ in range(E2E_REPEATS)]
+
+    ids = out.ids.cpu().numpy()
+    if ids.shape != (B, STEPS) or ids.min() < 0 or ids.max() >= VOCAB:
+        raise AssertionError(f"ids of shape {ids.shape} in [{ids.min()}, {ids.max()}]")
+    att = out.attention.float()
+    if tuple(att.shape) != (B, STEPS, K) or not torch.isfinite(att).all():
+        raise AssertionError("attention maps malformed")
+    if not torch.allclose(att.sum(-1), torch.ones(B, STEPS, device="cuda"), atol=1e-3):
+        raise AssertionError("attention maps do not sum to 1")
+    if not ((out.beta >= 0) & (out.beta <= 1)).all():
+        raise AssertionError("beta outside [0, 1]")
+
+    distinct = len({tuple(r) for r in ids.tolist()})
+    total, enc = sum(total_ms) / len(total_ms), sum(enc_ms) / len(enc_ms)
+    log(f"[end-to-end bf16] {smi}: batch {B}, {STEPS} steps, mean of {E2E_REPEATS} runs: "
+        f"total {total:.3f} ms {total_ms}, encoder (preprocess + ResNet-152 + heads) "
+        f"{enc:.3f} ms {enc_ms}, decode loop {total - enc:.3f} ms, {B / total * 1e3:.1f} "
+        f"captions/s; launches {launches}; {distinct} distinct captions, first: "
+        f"{ids[0, :12].tolist()}")
+    if profile_dir:
+        profile_decode(lambda: decode(net, images), profile_dir, smi)
+    return launches, {"total_ms": total, "encoder_ms": enc, "captions_per_s": B / total * 1e3}
+
+
+def profile_decode(run, out_dir, smi):
+    """torch.profiler over one end-to-end decode: device time by kernel name
+    (all of it to out_dir/profile_e2e.txt, the largest printed) and the
+    device's busy share of the window (union of kernel intervals over the
+    wall time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted((k.time_range.start, k.time_range.end) for k in kernels):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    by_name = {}
+    for k in kernels:
+        us, n = by_name.get(k.name, (0.0, 0))
+        by_name[k.name] = (us + k.time_range.elapsed_us(), n + 1)
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    total = sum(us for us, _ in by_name.values())
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile_e2e.txt"), "w") as f:
+        f.write(f"{smi}; wall {wall_us:.1f} us, busy {busy:.1f} us\n")
+        f.writelines(f"{us:12.1f} us {n:6d}x  {name}\n" for name, (us, n) in rows)
+    log(f"[profile bf16] {smi}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+        f"({busy / wall_us:.4f} of the window), kernel time {total / 1e3:.3f} ms; top: "
+        + "; ".join(f"{name[:70]} {us / 1e3:.3f} ms x{n}" for name, (us, n) in rows[:10]))
+
+
+# ----------------------------------------------------------------- phase 4
+def cpu_gaps(model, prepared, images_u8, cf):
+    """Top-2 logit gap of every row at every step of the CPU's greedy decode,
+    with the head twin's arithmetic; also returns its ids."""
+    import torch
+
+    from adaptive_tpu_torch.models import decoders as Dm
+    from adaptive_tpu_torch.ops.preprocess import eval_preprocess
+
+    with torch.no_grad():
+        V, v_g, h0, c0 = model.encode_inference(prepared, eval_preprocess(
+            torch.as_tensor(images_u8), cf.train_crop_size))
+        dec, (w, b) = prepared["decoder"], prepared["head"]
+        pv = model.precompute_slots(dec, V)
+        st = model.init_decode_state(h0, c0)
+        tok = torch.full((V.shape[0],), cf.decode_start_token, dtype=torch.int32)
+        ids, gaps = [], []
+        for _ in range(STEPS):
+            x = torch.cat([dec["embed"][tok], v_g], dim=-1)
+            h_new, c_new, chat, _, _ = Dm._fused_cell(dec, x, st, False, V, pv)
+            logits = (chat + h_new) @ w + b
+            logits[:, VOCAB:] = -1e30
+            top2 = logits.topk(2, dim=1)
+            gaps.append(top2.values[:, 0] - top2.values[:, 1])
+            tok = top2.indices[:, 0].to(torch.int32)
+            ids.append(tok)
+            st = Dm.DecodeState(h_new, c_new, h_new)
+    return torch.stack(ids, 1), torch.stack(gaps, 1)
+
+
+def cross_device_parity(images_u8):
+    import torch
+
+    from adaptive_tpu_torch import Config
+    from adaptive_tpu_torch.decoding import make_greedy_decoder
+    from adaptive_tpu_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cf = Config(compute_dtype="float32")
+    model_g, net_g = random_model(cf, "cuda", images_u8[:32])
+    model_c = build_model(cf, device="cpu")
+    net_c = model_c.init(SEED)
+    net_c.load_state_dict({k: v.cpu() for k, v in net_g.state_dict().items()})
+    imgs = images_u8[:8]
+    out_g = make_greedy_decoder(model_g, cf)(net_g, imgs)
+    out_c = make_greedy_decoder(model_c, cf)(net_c, imgs)
+    ids_g, ids_c = out_g.ids.cpu(), out_c.ids
+    ref_ids, gaps = cpu_gaps(model_c, model_c.prepare_inference(net_c), imgs, cf)
+    att_err = 0.0
+    for row in range(imgs.shape[0]):
+        diff = (ids_g[row] != ids_c[row]).nonzero()
+        t = int(diff[0]) if len(diff) else STEPS
+        if t < STEPS:
+            gap = float(gaps[row, t])
+            log(f"[parity fp32] row {row} differs from step {t}: CPU top-2 gap there {gap:.3e}")
+            if gap >= PARITY_GAP_EPS or int(ref_ids[row, t]) != int(ids_c[row, t]):
+                raise AssertionError(f"row {row}: ids differ at step {t} with top-2 gap {gap:.3e}")
+        # up to the first differing id both devices decode the same tokens
+        for name, a, b in (("attention", out_g.attention, out_c.attention),
+                           ("beta", out_g.beta, out_c.beta)):
+            att_err = max(att_err, check_close(
+                f"parity {name} row {row}", a[row, :t + 1].cpu(), b[row, :t + 1], PARITY_ATOL, 0.0))
+    n_same = int((ids_g == ids_c).all(1).sum())
+    distinct = len({tuple(r) for r in ids_c.tolist()})
+    log(f"[parity fp32, TF32 off] card vs CPU: {n_same}/{imgs.shape[0]} captions identical "
+        f"({distinct} distinct); attention/beta max abs err {att_err:.3e} (atol {PARITY_ATOL}); "
+        f"min top-2 gap over all steps {float(gaps.min()):.3e}; first: {ids_g[0, :12].tolist()}")
+
+
+def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="also profile one end-to-end decode with torch.profiler; "
+                         "the kernel table goes to DIR/profile_e2e.txt")
+    args = ap.parse_args()
+    if not os.path.isdir(os.path.join(HERE, "adaptive_tpu_torch", "ops", "cuda", "csrc")):
+        print("chip_smoke.py: adaptive_tpu_torch is not beside this script", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import numpy as np
+
+    from adaptive_tpu_torch.ops.cuda import build
+
+    # phase 1: the card, versions, the kernels' build
+    smi = smi_line()
+    log(smi)
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    lib = build.build()
+    build.load()
+    log(f"[build] {os.path.basename(lib)} built/loaded in {time.perf_counter() - t0:.2f} s")
+
+    # phase 2: each kernel against its plain twin at the main path's shapes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    checks = {dt: kernel_checks(dt) for dt in ("float32", "bfloat16")}
+
+    # phase 3: the main path end to end, bf16, full width
+    images_u8 = seeded_images(B, SEED)
+    launches, e2e = end_to_end(images_u8, smi, args.profile)
+
+    # phase 4: fp32 ids on the card equal the CPU's
+    cross_device_parity(images_u8)
+
+    sources = {
+        "adaptive_decode_cell_fused": "adaptive_tpu/ops/pallas/fused_step.py:221",
+        "greedy_head_argmax": "adaptive_tpu/ops/pallas/fused_step.py:354",
+    }
+    kernels = []
+    for name, replaces in sources.items():
+        bf, fp = checks["bfloat16"][name], checks["float32"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "adaptive_tpu_torch/ops/cuda/csrc/fused_step.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],
+            "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
+            "library_ms": bf["library_ms"], "dtype": "bfloat16",
+            "fp32": {k: fp[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+        })
+    log(json.dumps({"kernels": kernels, "end_to_end_bf16": e2e, "card": smi}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

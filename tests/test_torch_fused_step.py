@@ -1,0 +1,173 @@
+"""Plain twins of the port's two decode kernels (adaptive_tpu_torch/ops/
+fused_step.py) against the JAX package's Pallas kernels in interpret mode,
+on the same inputs (mirrors tests/test_pallas.py). The CUDA kernels
+themselves are held against these twins on the card by chip_smoke.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from adaptive_tpu.ops import attention as jatt
+from adaptive_tpu.ops.pallas import fused_step as jfs
+from adaptive_tpu_torch.ops import fused_step as tfs
+
+
+def _cell_inputs(B, K, H, E2, seed=2):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    D = K
+    atten = {"affine_v": {"kernel": f(H, D)}, "affine_g": {"kernel": f(H, D)},
+             "affine_s": {"kernel": f(H, D)}, "affine_h": {"kernel": f(D, 1)}}
+    sentinel = {"affine_x": {"kernel": f(E2, H)}, "affine_h": {"kernel": f(H, H)}}
+    lstm = {"w_ih": f(E2, 4 * H), "w_hh": f(H, 4 * H) * 0.2,
+            "b_ih": f(4 * H) * 0.1, "b_hh": f(4 * H) * 0.1}
+    acts = {"x": f(B, E2), "h": f(B, H), "c": f(B, H), "hp": f(B, H), "V": f(B, K, H)}
+    return lstm, atten, sentinel, acts
+
+
+def _tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _run_both(B, K, H, E2, jdt, tdt, prepad=False):
+    lstm, atten, sentinel, a = _cell_inputs(B, K, H, E2)
+    J = lambda tr: _tree(tr, lambda v: jnp.asarray(v, jdt))  # noqa: E731
+    T = lambda tr: _tree(tr, lambda v: torch.from_numpy(np.array(v)).to(tdt))  # noqa: E731
+    jl, ja, js, jact = J(lstm), J(atten), J(sentinel), J(a)
+    jpv = jatt.precompute_slots(ja, jact["V"])
+    jV = jact["V"]
+    if prepad:
+        jV, jpv = jfs.pad_decode_slots(jV, jpv)
+    want = jfs.adaptive_decode_cell_fused(
+        jl, ja, js, jact["x"], jact["h"], jact["c"], jact["hp"], jV, jpv,
+        real_k=K, interpret=True)
+    tl, ta, ts, tact = T(lstm), T(atten), T(sentinel), T(a)
+    tpv = tact["V"] @ ta["affine_v"]["kernel"]
+    got = tfs.adaptive_decode_cell_fused(
+        tl, ta, ts, tact["x"], tact["h"], tact["c"], tact["hp"], tact["V"], tpv)
+    return got, want
+
+
+NAMES = ("h", "c", "c_hat", "alpha", "beta")
+
+
+@pytest.mark.parametrize("B,K,H,E2", [(3, 4, 16, 8), (8, 49, 32, 12)])
+def test_cell_twin_matches_pallas_fp32(B, K, H, E2):
+    got, want = _run_both(B, K, H, E2, jnp.float32, torch.float32)
+    for name, g, w in zip(NAMES, got, want):
+        assert tuple(g.shape) == w.shape, name
+        assert g.dtype == (torch.float32), name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, err_msg=name)
+
+
+def test_cell_twin_matches_prepadded_pallas():
+    """The TPU kernel's 64-lane slot padding (pad_decode_slots + real_k) is
+    layout only: the unpadded twin at K = 49 gives the same outputs."""
+    got, want = _run_both(5, 49, 32, 12, jnp.float32, torch.float32, prepad=True)
+    for name, g, w in zip(NAMES, got, want):
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, err_msg=name)
+
+
+def test_cell_twin_matches_pallas_bf16():
+    """bf16 operands: h, c and c_hat come back in bf16 (c is rounded to bf16
+    between steps, as in the TPU kernel), alpha and beta in fp32. Stated
+    tolerance: 2 bf16 ulps at |v| <= 4 (0.03) for the bf16 outputs, which may
+    round apart after fp32 math in another order; 1e-3 for alpha and beta."""
+    got, want = _run_both(8, 49, 32, 12, jnp.bfloat16, torch.bfloat16)
+    for name, g, w in zip(NAMES, got, want):
+        expect = torch.bfloat16 if name in ("h", "c", "c_hat") else torch.float32
+        assert g.dtype == expect, name
+        atol = 0.03 if expect == torch.bfloat16 else 1e-3
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w.astype(jnp.float32)),
+                                   atol=atol, err_msg=name)
+
+
+def _pad_head(w, b, vocab):
+    target = -(-vocab // 128) * 128
+    if target > 1280:
+        target = -(-target // 1280) * 1280
+    return np.pad(w, ((0, 0), (0, target - vocab))), np.pad(b, (0, target - vocab))
+
+
+@pytest.mark.parametrize("B,H,vocab", [(4, 16, 37), (5, 32, 1500), (6, 16, 2600)])
+def test_head_twin_matches_pallas(B, H, vocab):
+    rng = np.random.default_rng(5)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    wp, bp = _pad_head(f(H, vocab), f(vocab), vocab)
+    chat, h = f(B, H), f(B, H)
+    want = jfs.greedy_head_argmax(jnp.asarray(wp), jnp.asarray(bp), jnp.asarray(chat),
+                                  jnp.asarray(h), vocab, interpret=True)
+    got = tfs.greedy_head_argmax(*map(torch.from_numpy, (wp, bp, chat, h)), vocab)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_head_twin_matches_pallas_bf16():
+    """bf16: chat + h is added in bf16, the product accumulates in fp32."""
+    rng = np.random.default_rng(6)
+    B, H, vocab = 8, 32, 1500
+    f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    wp, bp = _pad_head(f(H, vocab), f(vocab), vocab)
+    chat, h = f(B, H), f(B, H)
+    want = jfs.greedy_head_argmax(*(jnp.asarray(a, jnp.bfloat16) for a in (wp, bp, chat, h)),
+                                  vocab, interpret=True)
+    got = tfs.greedy_head_argmax(*(torch.from_numpy(a).bfloat16() for a in (wp, bp, chat, h)),
+                                 vocab)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_head_tie_across_chunks_takes_first():
+    """A tie between vocab columns 100 and 1400 (two 1280-wide chunks of the
+    TPU kernel; two tiles of the CUDA kernel) goes to the first index."""
+    H, vocab = 8, 2600
+    w = np.zeros((H, vocab), np.float32)
+    w[0, 100] = w[0, 1400] = 2.0
+    w[0, 2599] = 2.0  # and a third, later
+    b = np.zeros(vocab, np.float32)
+    wp, bp = _pad_head(w, b, vocab)
+    chat = np.full((2, H), 0.5, np.float32)
+    h = np.full((2, H), 0.5, np.float32)
+    want = jfs.greedy_head_argmax(*map(jnp.asarray, (wp, bp, chat, h)), vocab, interpret=True)
+    got = tfs.greedy_head_argmax(*map(torch.from_numpy, (wp, bp, chat, h)), vocab)
+    np.testing.assert_array_equal(np.asarray(want), [100, 100])
+    np.testing.assert_array_equal(got.numpy(), [100, 100])
+
+
+def test_head_masks_columns_past_vocab():
+    """A padded column with the largest logit never wins (the -1e30 mask)."""
+    H, vocab = 4, 37
+    w = np.zeros((H, 128), np.float32)
+    w[0, 50] = 10.0  # past the real vocab
+    w[0, 3] = 1.0
+    b = np.zeros(128, np.float32)
+    chat = np.ones((1, H), np.float32)
+    got = tfs.greedy_head_argmax(*map(torch.from_numpy, (w, b, chat, chat)), vocab)
+    assert got.tolist() == [3]
+
+
+def test_wrappers_run_twins_on_cpu_without_counting():
+    lstm, atten, sentinel, a = _cell_inputs(3, 4, 16, 8)
+    T = lambda tr: _tree(tr, lambda v: torch.from_numpy(np.array(v)))  # noqa: E731
+    tl, ta, ts, t = T(lstm), T(atten), T(sentinel), T(a)
+    pv = t["V"] @ ta["affine_v"]["kernel"]
+    gx = (t["x"] @ tl["w_ih"] + tl["b_ih"]).float()
+    args = (gx, t["h"], t["c"], t["x"], t["hp"], pv, t["V"], *tfs.cell_operands(tl, ta, ts))
+    tfs.reset_launch_counts()
+    for g, w in zip(tfs.decode_cell(*args), tfs.decode_cell_plain(*args)):
+        assert torch.equal(g, w)
+    head = (ta["affine_v"]["kernel"], torch.zeros(4), t["h"], t["c"], 3)
+    assert torch.equal(tfs.greedy_head_argmax(*head), tfs.greedy_head_argmax_plain(*head))
+    assert tfs.decode_cell.launches == 0 and tfs.greedy_head_argmax.launches == 0
+
+
+def test_wrappers_refuse_other_devices():
+    meta = torch.empty((2, 8), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tfs.greedy_head_argmax(torch.empty((8, 128), device="meta"),
+                               torch.empty(128, device="meta"), meta, meta, 10)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tfs.decode_cell(*(meta,) * 14)

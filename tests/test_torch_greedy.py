@@ -1,0 +1,168 @@
+"""The PyTorch port's greedy captioning slice end to end on the CPU, against
+the JAX package's make_greedy_decoder on the same weights and images; plus
+the port's guards (no JAX import, no silent CPU fallback)."""
+
+import copy
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from adaptive_tpu_torch.decoding import make_greedy_decoder
+from adaptive_tpu_torch.models.factory import build_model
+from tests.torch_port_util import jax_weights, port_cf, port_model_and_net
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def setup(tiny_cf):
+    # padded vocab (37 -> 40) exercises the head's -1e30 columns
+    jcf = tiny_cf.replace(vocab_length=37, vocab_pad_multiple=8, decode_max_len=6)
+    _, params, state = jax_weights(jcf.replace(use_pallas="always"), seed=4)
+    # BN statistics away from (0, 1) keep the random trunk's features small
+    # enough that the captions change from step to step
+    rng = np.random.default_rng(0)
+    state = jax.tree.map(lambda x: rng.uniform(2, 8, x.shape).astype(np.float32), state)
+    images = np.random.default_rng(11).integers(0, 255, (3, 72, 72, 3), dtype=np.uint8)
+    return jcf, params, state, images
+
+
+def _jax_decode(jcf, params, state, images, monkeypatch):
+    from jax.experimental.pallas import tpu as pltpu
+
+    from adaptive_tpu.decoding import greedy as jgreedy
+    from adaptive_tpu.decoding import spmd
+    from adaptive_tpu.models.factory import build_model as jax_build
+
+    model = jax_build(jcf)
+    with monkeypatch.context() as m:
+        m.setattr(spmd, "decode_mesh", lambda *_: None)  # single-device program
+        with pltpu.force_tpu_interpret_mode():
+            return jgreedy.make_greedy_decoder(model, jcf)(params, state, jnp.asarray(images))
+
+
+def _port_decode(jcf, params, state, images, **kw):
+    model, net = port_model_and_net(port_cf(jcf, **kw), params, state)
+    return make_greedy_decoder(model, port_cf(jcf, **kw))(net, images)
+
+
+@pytest.mark.parametrize("use_pallas", ["always", "never"])
+@pytest.mark.parametrize("prev_hidden", [False, True])
+def test_greedy_matches_jax(setup, monkeypatch, use_pallas, prev_hidden):
+    """Ids equal; attention and beta within 2e-4 (fp32). 'always' runs the
+    fused path (the kernels' plain twins here, the Pallas kernels in
+    interpret mode on the JAX side); 'never' the op-by-op path."""
+    jcf, params, state, images = setup
+    jcf = jcf.replace(use_pallas=use_pallas, sampler_sentinel_uses_prev_hidden=prev_hidden)
+    want = _jax_decode(jcf, params, state, images, monkeypatch)
+    got = _port_decode(jcf, params, state, images)
+    assert got.ids.dtype == torch.int32 and tuple(got.ids.shape) == want.ids.shape
+    assert len(np.unique(np.asarray(want.ids))) > 2  # a non-degenerate caption
+    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
+    np.testing.assert_allclose(got.attention.numpy(), np.asarray(want.attention), atol=2e-4)
+    np.testing.assert_allclose(got.beta.numpy(), np.asarray(want.beta), atol=2e-4)
+
+
+def _eos_biased(params, eos, boost):
+    p = copy.deepcopy(params)
+    p["decoder"]["adaptive"]["mlp"]["bias"][eos] += boost
+    return p
+
+
+@pytest.mark.parametrize("boost", [0.0, 3.0, 1e4])
+def test_early_exit_ids_equal_fixed_loop(setup, boost):
+    jcf, params, state, images = setup
+    p = _eos_biased(params, jcf.decode_eos_token, boost)
+    fixed = _port_decode(jcf, p, state, images)
+    early = _port_decode(jcf, p, state, images, decode_early_exit=True)
+    np.testing.assert_array_equal(early.ids.numpy(), fixed.ids.numpy())
+    if boost == 1e4:  # every row ends at step 0: the tail is the zero prefill
+        assert (early.ids == jcf.decode_eos_token).all()
+        np.testing.assert_allclose(early.attention[:, 0].sum(-1).numpy(), 1.0, atol=1e-5)
+        assert (early.attention[:, 1:] == 0).all() and (early.beta[:, 1:] == 0).all()
+
+
+def test_decode_step_logits_match_jax(setup):
+    """One decode step's logits, attention, beta and state (fused cell and
+    op-by-op) against the JAX package's decode_step."""
+    from adaptive_tpu.models.factory import build_model as jax_build
+
+    jcf, params, state, _ = setup
+    rng = np.random.default_rng(3)
+    H, E, K, B = jcf.adaptive_lstm_hidden_size, jcf.adaptive_word_embed_size, 4, 4
+    V, v_g = rng.normal(size=(B, K, H)).astype(np.float32), rng.normal(size=(B, E)).astype(np.float32)
+    tok = np.array([1, 2, 3, 39], np.int32)
+    jm = jax_build(jcf.replace(use_pallas="never"))
+    jst = jm.init_decode_state(jnp.zeros((B, H)), jnp.zeros((B, H)))
+    want = jm.decode_step({"decoder": params["decoder"]},
+                          jnp.asarray(tok), jnp.asarray(v_g), jst, jnp.asarray(V))
+    for use_pallas in ("always", "never"):
+        model, net = port_model_and_net(port_cf(jcf, use_pallas=use_pallas), params, state)
+        dec = model.prepare_inference(net)["decoder"]
+        st = model.init_decode_state(torch.zeros(B, H), torch.zeros(B, H))
+        got = model.decode_step(dec, torch.from_numpy(tok), torch.from_numpy(v_g), st,
+                                torch.from_numpy(V))
+        for name, a, b in zip(("logits", "alpha", "beta"), got[:3], want[:3]):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-4, err_msg=name)
+        for name, a, b in zip(("h", "c", "h_prev"), got[3], want[3]):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-4, err_msg=name)
+
+
+def test_prepare_cached_once_per_checkpoint(setup):
+    jcf, params, state, images = setup
+    model, net = port_model_and_net(port_cf(jcf), params, state)
+    decode = make_greedy_decoder(model, port_cf(jcf))
+    decode(net, images)
+    decode(net, images)
+    assert (decode.prepare.misses, decode.prepare.hits) == (1, 1)
+    head_w, head_b = decode.prepare(net)["head"]
+    assert head_w.shape[1] == 128 and (head_b[37:] == -1e30).all()
+
+
+def test_port_imports_no_jax():
+    """A fresh process imports the port and decodes on the CPU without
+    loading jax or any module of the JAX package."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        from adaptive_tpu_torch import Config
+        from adaptive_tpu_torch.models import build_model
+        from adaptive_tpu_torch.decoding import make_greedy_decoder
+        cf = Config(encoder_backbone="resnet18", train_crop_size=64, vocab_length=32,
+                    adaptive_word_embed_size=8, adaptive_lstm_hidden_size=16,
+                    decode_max_len=3)
+        model = build_model(cf, device="cpu")
+        imgs = np.zeros((2, 64, 64, 3), np.uint8)
+        out = make_greedy_decoder(model, cf)(model.init(0), imgs)
+        assert tuple(out.ids.shape) == (2, 3)
+        bad = [m for m in sys.modules
+               if m in ("jax", "adaptive_tpu") or m.startswith(("jax.", "adaptive_tpu."))]
+        print("BAD", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_build_model_defaults_to_cuda(tiny_cf, monkeypatch):
+    """No silent CPU fallback: the default device is CUDA, and it raises
+    where there is no card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        build_model(port_cf(tiny_cf))
+    assert build_model(port_cf(tiny_cf), device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("variant", ["baseline_attention", "rnn_attention"])
+def test_other_variants_not_ported(tiny_cf, variant):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(port_cf(tiny_cf, atten_model_name=variant), device="cpu")
