@@ -1,5 +1,6 @@
-"""Configuration for the PyTorch port: the knobs the greedy captioning path
-reads, with the same names and defaults as ``adaptive_tpu.config.Config``.
+"""Configuration for the PyTorch port: the knobs the greedy and beam
+captioning paths read, with the same names and defaults as
+``adaptive_tpu.config.Config``.
 
 The port keeps its own copy instead of importing the JAX package's module,
 so the two packages can be installed and run apart. Only the fields that the
@@ -19,6 +20,7 @@ class Config:
     atten_model_name: str = "adaptive_attention"  # baseline_attention|adaptive_attention|rnn_attention
     train_crop_size: int = 224
     decode_max_len: int = 30
+    beam_size: int = 1  # 1 = greedy; > 1 is make_beam_decoder's default width
     vocab_length: int = 10123
     # Pad the embedding/head vocab dim to a multiple; padded logits are masked
     # so argmax equals the unpadded model's. 1 = no padding.
@@ -36,8 +38,13 @@ class Config:
     sampler_sentinel_uses_prev_hidden: bool = False
     decode_eos_token: int = 2
     decode_start_token: int = 1
-    # Stop once every row has emitted <end>; ids equal the fixed loop's.
+    # Stop once every row (greedy) or every beam (beam search) has emitted
+    # <end>; ids equal the fixed loop's.
     decode_early_exit: bool = False
+    # Beam decode slot layout on the fused path: True passes V/pv untiled
+    # and the cell kernel maps row r to image r // W (each image's slots are
+    # read once a step); False repeats V/pv per beam row. Same outputs.
+    decode_beam_major: bool = True
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

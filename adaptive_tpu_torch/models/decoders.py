@@ -130,13 +130,17 @@ class DecodeState(NamedTuple):
     h_prev: torch.Tensor  # [B,H] the sentinel's h_{t-1}: previous output, zero at step 0
 
 
-def _fused_cell(params, x, state: DecodeState, sentinel_uses_prev_hidden, V, pv):
+def _fused_cell(params, x, state: DecodeState, sentinel_uses_prev_hidden, V, pv, beam_w=1):
+    """The fused cell kernel. beam_w > 1: V/pv arrive untiled, one row per
+    image, and the kernel shares each image's slots across its beam_w
+    batch-major beam rows (beam-major layout)."""
     block = params["adaptive"]
     hp = state.h_prev if sentinel_uses_prev_hidden else torch.zeros_like(state.h)
     if pv is None:
         pv = V @ block["atten"]["affine_v"]["kernel"]
     return fs.adaptive_decode_cell_fused(
         params["lstm"], block["atten"], block["sentinel"], x, state.h, state.c, hp, V, pv,
+        beam_w=beam_w,
     )
 
 
@@ -201,3 +205,39 @@ def greedy_decode_step(
     logits, alpha, beta, st = decode_step(
         params, spec, token, v_g, state, V, sentinel_uses_prev_hidden, pv=pv, fused=fused)
     return torch.argmax(logits, dim=-1).to(torch.int32), alpha, beta, st
+
+
+@torch.no_grad()
+def beam_decode_step(
+    params: Dict, spec: DecoderSpec, token: torch.Tensor, v_g: torch.Tensor,
+    state: DecodeState, V: torch.Tensor, k: int, sentinel_uses_prev_hidden: bool = False,
+    pv: Optional[torch.Tensor] = None, head=None, fused: bool = False, beam_w: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, DecodeState]:
+    """One BEAM step: token [R] -> (logp_top [R,k] fp32 log-probs, tok_top
+    [R,k] int32, alpha, beta, state').
+
+    Each row's top-k is enough: the global top-k over all beam x vocab
+    candidates holds at most k continuations of one source beam. With fused
+    and a prepared head, the cell and the head + top-k + logsumexp each run
+    as one kernel and the logits are never stored; otherwise top-k of the
+    fp32 log_softmax of decode_step's logits. Ties rank the lower token id
+    first either way (as lax.top_k).
+
+    beam_w > 1: V/pv arrive untiled, one row per image, while token and
+    state carry beam_w batch-major rows per image; the plain path repeats
+    them per row.
+    """
+    if fused and head is not None:
+        x = torch.cat([params["embed"][token], v_g], dim=-1)
+        h_new, c_new, c_hat, alpha, beta = _fused_cell(
+            params, x, state, sentinel_uses_prev_hidden, V, pv, beam_w)
+        topv, topi, lse = fs.beam_head_topk(head[0], head[1], c_hat, h_new, spec.vocab_size, k)
+        return topv - lse, topi, alpha, beta, DecodeState(h_new, c_new, h_new)
+    if beam_w > 1:
+        V = V.repeat_interleave(beam_w, 0)
+        pv = None if pv is None else pv.repeat_interleave(beam_w, 0)
+    logits, alpha, beta, st = decode_step(
+        params, spec, token, v_g, state, V, sentinel_uses_prev_hidden, pv=pv, fused=fused)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    topv, topi = fs.topk_lower_index_first(logp, k)
+    return topv, topi.to(torch.int32), alpha, beta, st

@@ -1,8 +1,8 @@
 """Model factory: config -> CaptionModel (counterpart of
 adaptive_tpu/models/factory.py, adaptive_attention only).
 
-``CaptionModel`` is a static description plus the functions the greedy path
-calls. Its weights live in an ``Encoder2Decoder`` module whose state_dict keys
+``CaptionModel`` is a static description plus the functions the greedy and
+beam paths call. Its weights live in an ``Encoder2Decoder`` module whose state_dict keys
 are the reference checkpoint's; ``prepare_inference`` turns them once per
 checkpoint into the tree the per-batch functions read (BN folded, JAX
 layouts, compute dtype, padded greedy head).
@@ -69,8 +69,8 @@ class CaptionModel(NamedTuple):
 
     def prepare_inference(self, net: Encoder2Decoder) -> Dict:
         """{'encoder': folded, cast encoder tree, 'decoder': JAX-layout decoder
-        params in the compute dtype, 'head': padded greedy head, None unless
-        fused}."""
+        params in the compute dtype, 'head': padded vocab head of the greedy
+        and beam head kernels, None unless fused}."""
         with torch.no_grad():
             enc = prepare_encoder_inference(net.encoder, self.compute_dtype, self.encoder_quant)
             dec = cast_floating(D.decoder_params(net.decoder), self.compute_dtype)
@@ -104,6 +104,15 @@ class CaptionModel(NamedTuple):
         return D.greedy_decode_step(dec_params, self.spec, token, v_g, dstate, V,
                                     sentinel_uses_prev_hidden, pv=pv, head=head,
                                     fused=self.fused)
+
+    def beam_decode_step(self, dec_params, token, v_g, dstate, V, k,
+                         sentinel_uses_prev_hidden=False, pv=None, head=None, beam_w=1):
+        """Each row's top-k log-probs and token ids; the padded head of
+        prepare_greedy_head serves the fused top-k head too. beam_w > 1
+        takes V/pv untiled (beam-major)."""
+        return D.beam_decode_step(dec_params, self.spec, token, v_g, dstate, V, k,
+                                  sentinel_uses_prev_hidden, pv=pv, head=head,
+                                  fused=self.fused, beam_w=beam_w)
 
 
 def build_model(cf, device="cuda") -> CaptionModel:

@@ -3,8 +3,10 @@ with a plain C interface, loaded with ctypes.
 
 The library is built at first use from the sources under ``csrc/`` into
 ``build/`` beside this file (listed in .gitignore), named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads
-from disk. Nothing here runs at import time.
+sources, headers and flags, so an edited source rebuilds and an unchanged one
+loads from disk. Each ``*.cu`` compiles to an object in its own ``nvcc``
+process, all started together, and one more links them. Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -21,13 +23,14 @@ HERE = Path(__file__).resolve().parent
 CSRC = HERE / "csrc"
 BUILD_DIR = HERE / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures in csrc/fused_step.cu
+# C signatures in csrc/fused_step.cu and csrc/head_topk.cu
 SIGNATURES = {
-    "adaptive_cell_launch": [_I] + [_P] * 19 + [_I] * 5 + [_P],
+    "adaptive_cell_launch": [_I] + [_P] * 19 + [_I] * 6 + [_P],
     "head_argmax_launch": [_I] + [_P] * 7 + [_I] * 4 + [_P],
+    "head_topk_launch": [_I] + [_P] * 10 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()
@@ -51,7 +54,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libadaptive_kernels_{h.hexdigest()[:12]}.so"
@@ -63,11 +66,26 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(_sources(), objs)]
+    failed = []
+    for src, proc in zip(_sources(), procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    link = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                           "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     return out
 

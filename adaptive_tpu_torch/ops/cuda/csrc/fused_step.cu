@@ -1,12 +1,13 @@
-// Hopper (sm_90a) kernels of one greedy decode step of the adaptive-attention
-// captioner. Built by adaptive_tpu_torch/ops/cuda/build.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+// Hopper (sm_90a) kernels of one greedy or beam decode step of the
+// adaptive-attention captioner (the beam head's top-W is in head_topk.cu).
+// Built by adaptive_tpu_torch/ops/cuda/build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC
 // and called through ctypes from adaptive_tpu_torch/ops/fused_step.py, whose
 // plain PyTorch twins define the arithmetic these kernels must reproduce.
 //
 // 1. adaptive_cell_kernel replaces adaptive_tpu/ops/pallas/fused_step.py::
-//    adaptive_decode_cell_fused (body _cell_kernel, beam_w == 1): the LSTM
-//    recurrence, the visual sentinel and adaptive attention over K slots.
+//    adaptive_decode_cell_fused (body _cell_kernel): the LSTM recurrence,
+//    the visual sentinel and adaptive attention over K slots.
 //    Bound on an H100 SXM at batch 1024, bf16: ~75 MB of inputs per step
 //    (V 51 MB, gx 8 MB, pv 5 MB, weights 3 MB) -> ~22 us at 3.35 TB/s, against
 //    ~3.4 GFLOP, which the CUDA cores (fp32, 67 TFLOP/s) need ~50 us for.
@@ -19,6 +20,15 @@
 //    V and pv are read once, with no padding of K or D (masking by bounds
 //    replaces the TPU kernel's 64-lane padding). Simple and right first:
 //    tensor cores (wgmma) and TMA are later work.
+//    Beam-major (W > 1, the TPU kernel's beam_w branches): rows are
+//    batch-major beam copies, row r belongs to image r / W, and V and pv
+//    come untiled, one copy per image. Only the two slot reads (pv in
+//    phase 3, V in phase 5) index by image; the rest stays per row. A block still
+//    owns 8 rows, so an image's W rows may straddle two blocks: its slots are
+//    then read from HBM by one and from L2 by the other. At W = 3 and batch
+//    1024 (bf16) that is ~108 MB a step against ~210 MB with V/pv tiled.
+//    W = 1 is the greedy layout: its own instance (kBeam false), the same
+//    code and bits as the greedy-only kernel.
 //
 // 2. head_argmax_kernel + head_argmax_reduce replace fused_step.py::
 //    greedy_head_argmax (body _head_argmax_kernel): argmax over the real vocab
@@ -33,45 +43,27 @@
 //    value, so ties go to the first index exactly as jnp.argmax does. The
 //    SIMT product is far from the tensor-core bound; mma/wgmma is later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "kernel_common.cuh"
 
 namespace {
 
-constexpr float NEG = -1e30f;
 constexpr int ROWS = 8;       // rows of the batch one cell block owns
 constexpr int CELL_THREADS = 256;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// two consecutive elements (p must be aligned to two elements)
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.0f / (1.0f + expf(-v)); }
 
 // ---------------------------------------------------------------- decode cell
-template <typename T>
+// kBeam: row r reads image r / W of V and pv; false (W == 1) compiles the
+// greedy kernel with no division in its slot reads.
+template <typename T, bool kBeam>
 __global__ void __launch_bounds__(CELL_THREADS)
 adaptive_cell_kernel(const float* __restrict__ gx,   // [B, 4H] fp32
                      const T* __restrict__ h_in,     // [B, H]
                      const T* __restrict__ c_in,     // [B, H]
                      const T* __restrict__ x,        // [B, E2]
                      const T* __restrict__ h_prev,   // [B, H]
-                     const T* __restrict__ pv,       // [B, K, D]
-                     const T* __restrict__ V,        // [B, K, H]
+                     const T* __restrict__ pv,       // [B / W, K, D]
+                     const T* __restrict__ V,        // [B / W, K, H]
                      const T* __restrict__ whh,      // [H, 4H]
                      const T* __restrict__ bhh,      // [4H]
                      const T* __restrict__ wx,       // [E2, H]
@@ -83,7 +75,7 @@ adaptive_cell_kernel(const float* __restrict__ gx,   // [B, 4H] fp32
                      T* __restrict__ chat_out,
                      float* __restrict__ alpha_out,  // [B, K]
                      float* __restrict__ beta_out,   // [B]
-                     int B, int H, int E2, int K, int D) {
+                     int B, int W, int H, int E2, int K, int D) {
   extern __shared__ float smem[];
   float* hs = smem;                 // [ROWS][H]  h_in
   float* xs = hs + ROWS * H;        // [ROWS][E2] x
@@ -199,7 +191,8 @@ adaptive_cell_kernel(const float* __restrict__ gx,   // [B, 4H] fp32
   // phase 3: z[r, i] = sum_j wh[j] tanh(pv[r, i, j] + ph[r, j]); sentinel z_s
   for (int i = tid; i < nrows * K; i += blockDim.x) {
     int r = i / K, s = i - r * K;
-    const T* p = pv + ((size_t)(r0 + r) * K + s) * D;
+    const int img = kBeam ? (r0 + r) / W : r0 + r;
+    const T* p = pv + ((size_t)img * K + s) * D;
     float z = 0.f;
     for (int j = 0; j < D; ++j) z = fmaf(tanhf(to_f(p[j]) + phs[r * D + j]), to_f(wh[j]), z);
     zs[r * K + s] = z;
@@ -249,7 +242,8 @@ adaptive_cell_kernel(const float* __restrict__ gx,   // [B, 4H] fp32
       for (int r = 0; r < ROWS; ++r) {
         if (r < nrows) {
           float a = zs[r * K + s];
-          float2 v = load2(V + ((size_t)(r0 + r) * K + s) * H + u);
+          const int img = kBeam ? (r0 + r) / W : r0 + r;
+          float2 v = load2(V + ((size_t)img * K + s) * H + u);
           ctx[r].x = fmaf(a, v.x, ctx[r].x);
           ctx[r].y = fmaf(a, v.y, ctx[r].y);
         }
@@ -267,13 +261,6 @@ adaptive_cell_kernel(const float* __restrict__ gx,   // [B, 4H] fp32
 }
 
 // ------------------------------------------------------------- head argmax
-constexpr int BM = 64, BN = 128, BK = 32, HEAD_THREADS = 256;
-
-// (value, index) order: larger value first, then lower index
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
-
 template <typename T>
 __global__ void __launch_bounds__(HEAD_THREADS)
 head_argmax_kernel(const T* __restrict__ chat, const T* __restrict__ h,  // [B, H]
@@ -281,50 +268,11 @@ head_argmax_kernel(const T* __restrict__ chat, const T* __restrict__ h,  // [B, 
                    const T* __restrict__ bias,                           // [Vp]
                    float* __restrict__ part_v, int* __restrict__ part_i, // [B, Vp/BN]
                    int B, int H, int Vp, int vocab_len) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN];
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;  // 16 x 16 threads, 4 rows x 8 cols each
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-
   float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < H; k0 += BK) {
-    // A tile: z = (chat + h) rounded to the weight dtype, stored k-major
-    for (int e = tid; e < BM * BK; e += HEAD_THREADS) {
-      int m = e / BK, kk = e - m * BK;
-      int row = m0 + m, k = k0 + kk;
-      float z = 0.f;
-      if (row < B && k < H) {
-        size_t o = (size_t)row * H + k;
-        z = to_f(from_f<T>(to_f(chat[o]) + to_f(h[o])));
-      }
-      As[kk][m] = z;
-    }
-    for (int e = tid; e < BK * BN; e += HEAD_THREADS) {
-      int kk = e / BN, n = e - kk * BN;
-      int k = k0 + kk;
-      Bs[kk][n] = k < H ? to_f(W[(size_t)k * Vp + n0 + n]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  head_tile_product<T>(chat, h, W, B, H, Vp, m0, n0, acc);
 
   const int ntiles = Vp / BN;
 #pragma unroll
@@ -376,19 +324,19 @@ int launch_cell(const void* gx, const void* h, const void* c, const void* x,
                 const void* hp, const void* pv, const void* V, const void* whh,
                 const void* bhh, const void* wx, const void* whs, const void* wg,
                 const void* ws, const void* wh, void* h_out, void* c_out,
-                void* chat_out, void* alpha, void* beta, int B, int H, int E2,
-                int K, int D, cudaStream_t stream) {
+                void* chat_out, void* alpha, void* beta, int B, int W, int H,
+                int E2, int K, int D, cudaStream_t stream) {
   size_t smem = cell_smem_bytes(H, E2, K, D);
-  cudaError_t err = cudaFuncSetAttribute(adaptive_cell_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = W == 1 ? adaptive_cell_kernel<T, false> : adaptive_cell_kernel<T, true>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((B + ROWS - 1) / ROWS);
-  adaptive_cell_kernel<T><<<grid, CELL_THREADS, smem, stream>>>(
+  kernel<<<grid, CELL_THREADS, smem, stream>>>(
       (const float*)gx, (const T*)h, (const T*)c, (const T*)x, (const T*)hp,
       (const T*)pv, (const T*)V, (const T*)whh, (const T*)bhh, (const T*)wx,
       (const T*)whs, (const T*)wg, (const T*)ws, (const T*)wh, (T*)h_out,
-      (T*)c_out, (T*)chat_out, (float*)alpha, (float*)beta, B, H, E2, K, D);
+      (T*)c_out, (T*)chat_out, (float*)alpha, (float*)beta, B, W, H, E2, K, D);
   return (int)cudaGetLastError();
 }
 
@@ -411,22 +359,23 @@ int launch_head(const void* chat, const void* h, const void* W, const void* b,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after launch.
+// dtype: 0 = float32, 1 = bfloat16. B rows, W beam rows per image of V/pv
+// (1 = one image per row). Returns cudaGetLastError() after launch.
 int adaptive_cell_launch(int dtype, const void* gx, const void* h, const void* c,
                          const void* x, const void* hp, const void* pv,
                          const void* V, const void* whh, const void* bhh,
                          const void* wx, const void* whs, const void* wg,
                          const void* ws, const void* wh, void* h_out, void* c_out,
-                         void* chat_out, void* alpha, void* beta, int B, int H,
-                         int E2, int K, int D, void* stream) {
+                         void* chat_out, void* alpha, void* beta, int B, int W,
+                         int H, int E2, int K, int D, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_cell<float>(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws,
-                              wh, h_out, c_out, chat_out, alpha, beta, B, H, E2,
-                              K, D, st);
+                              wh, h_out, c_out, chat_out, alpha, beta, B, W, H,
+                              E2, K, D, st);
   return launch_cell<__nv_bfloat16>(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg,
                                     ws, wh, h_out, c_out, chat_out, alpha, beta, B,
-                                    H, E2, K, D, st);
+                                    W, H, E2, K, D, st);
 }
 
 int head_argmax_launch(int dtype, const void* chat, const void* h, const void* W,

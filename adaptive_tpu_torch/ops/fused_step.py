@@ -1,17 +1,22 @@
-"""The two kernels of a greedy decode step, with their plain twins
-(counterpart of adaptive_tpu/ops/pallas/fused_step.py, beam_w == 1).
+"""The kernels of a greedy or beam decode step, with their plain twins
+(counterpart of adaptive_tpu/ops/pallas/fused_step.py).
 
 * ``decode_cell``: LSTM recurrence + visual sentinel + adaptive attention,
-  given the input projection gx = x @ W_ih + b_ih computed outside.
+  given the input projection gx = x @ W_ih + b_ih computed outside. With
+  beam_w > 1 the rows are batch-major beam copies (row r belongs to image
+  r // beam_w) and V/pv come untiled, one copy per image (beam-major).
 * ``greedy_head_argmax``: argmax over the real vocab of (chat + h) @ W + b,
   first max on ties, logits never stored.
+* ``beam_head_topk``: the same head's top-W values and ids per row, lower
+  id first on ties (as lax.top_k), and the row's logsumexp.
 
 Each wrapper launches its CUDA kernel (ops/cuda/csrc/fused_step.cu) for CUDA
 tensors, after checking device, dtype, shape, contiguity and alignment, and
 raises on anything the kernel does not take. For CPU tensors it runs the
 plain PyTorch twin beside it, which is the arithmetic the kernel must
 reproduce: fp32 inside, the same casts, the same -1e30 mask. Each wrapper
-counts its kernel launches in a plain int attribute, ``<wrapper>.launches``.
+counts its kernel launches in a plain int attribute, ``<wrapper>.launches``
+(``decode_cell.launches_beam`` for the beam-major cell, beam_w > 1).
 """
 
 from __future__ import annotations
@@ -53,11 +58,14 @@ def _raise_on(err: int, what: str):
 
 
 # ----------------------------------------------------------------- decode cell
-def decode_cell_plain(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh):
-    """Plain twin of the cell kernel. gx [B,4H] fp32; h, c, hp [B,H]; x
-    [B,E2]; pv [B,K,D]; V [B,K,H]; whh [H,4H]; bhh [4H]; wx [E2,H]; whs
-    [H,H]; wg, ws [H,D]; wh [D]. Returns (h', c', c_hat) in h's dtype and
-    (alpha [B,K], beta [B,1]) in fp32."""
+def decode_cell_plain(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh, beam_w=1):
+    """Plain twin of the cell kernel. gx [R,4H] fp32; h, c, hp [R,H]; x
+    [R,E2]; pv [R/beam_w,K,D]; V [R/beam_w,K,H]; whh [H,4H]; bhh [4H]; wx
+    [E2,H]; whs [H,H]; wg, ws [H,D]; wh [D]. Row r reads image r // beam_w
+    of V and pv. Returns (h', c', c_hat) in h's dtype and (alpha [R,K],
+    beta [R,1]) in fp32."""
+    if beam_w > 1:
+        V, pv = V.repeat_interleave(beam_w, 0), pv.repeat_interleave(beam_w, 0)
     f = lambda t: t.float()  # noqa: E731
     gates = f(gx) + f(h) @ f(whh) + f(bhh)
     i, fg, g, o = torch.chunk(gates, 4, dim=-1)
@@ -79,16 +87,31 @@ def decode_cell_plain(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh):
     return h_new.to(dt), cell.to(dt), chat.to(dt), alpha, beta
 
 
-def decode_cell(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh):
+def _check_beam_rows(R: int, V, pv, beam_w: int):
+    if beam_w < 1:
+        raise ValueError(f"beam_w must be >= 1, got {beam_w}")
+    for name, t in (("V", V), ("pv", pv)):
+        if t.shape[0] * beam_w != R:
+            raise ValueError(
+                f"{name} holds {t.shape[0]} images; times beam_w {beam_w} that must equal the "
+                f"row count {R}: beam-major rows are batch-major beam copies "
+                "(repeat_interleave layout) and V/pv come untiled")
+
+
+def decode_cell(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh, beam_w=1):
     """One fused decode cell (arguments as decode_cell_plain). Launches the
-    CUDA kernel for CUDA tensors; runs the plain twin for CPU tensors."""
+    CUDA kernel for CUDA tensors; runs the plain twin for CPU tensors.
+    Counts a launch in decode_cell.launches (beam_w == 1) or
+    decode_cell.launches_beam (beam_w > 1, the beam-major kernel)."""
+    _check_beam_rows(h.shape[0], V, pv, beam_w)
     if gx.device.type == "cpu":
-        return decode_cell_plain(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh)
+        return decode_cell_plain(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh, beam_w)
     if gx.device.type != "cuda":
         raise ValueError(f"decode_cell runs on cuda or cpu, not {gx.device}")
     from adaptive_tpu_torch.ops.cuda import build
 
-    B, H = h.shape
+    R, H = h.shape
+    B = R // beam_w
     E2 = x.shape[1]
     K, D = pv.shape[1], pv.shape[2]
     dt = h.dtype
@@ -97,8 +120,8 @@ def decode_cell(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh):
     if H % 2:
         raise ValueError(f"decode_cell needs an even hidden size, got {H}")
     for name, t, shape in (
-        ("gx", gx, (B, 4 * H)), ("c", c, (B, H)), ("x", x, (B, E2)),
-        ("h_prev", hp, (B, H)), ("pv", pv, (B, K, D)), ("V", V, (B, K, H)),
+        ("gx", gx, (R, 4 * H)), ("c", c, (R, H)), ("x", x, (R, E2)),
+        ("h_prev", hp, (R, H)), ("pv", pv, (B, K, D)), ("V", V, (B, K, H)),
         ("w_hh", whh, (H, 4 * H)), ("b_hh", bhh, (4 * H,)), ("w_x", wx, (E2, H)),
         ("w_hs", whs, (H, H)), ("w_g", wg, (H, D)), ("w_s", ws, (H, D)), ("w_h", wh, (D,)),
     ):
@@ -108,22 +131,26 @@ def decode_cell(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh):
         ("h", "c", "x", "h_prev", "pv", "V", "w_hh", "b_hh", "w_x", "w_hs", "w_g", "w_s", "w_h"),
         (h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh), dt, gx.device,
     )
-    h_out, c_out, chat = (torch.empty((B, H), dtype=dt, device=gx.device) for _ in range(3))
-    alpha = torch.empty((B, K), dtype=torch.float32, device=gx.device)
-    beta = torch.empty((B, 1), dtype=torch.float32, device=gx.device)
+    h_out, c_out, chat = (torch.empty((R, H), dtype=dt, device=gx.device) for _ in range(3))
+    alpha = torch.empty((R, K), dtype=torch.float32, device=gx.device)
+    beta = torch.empty((R, 1), dtype=torch.float32, device=gx.device)
     lib = build.load()
     with torch.cuda.device(gx.device):  # the launch goes to the current device
         err = lib.adaptive_cell_launch(
             _DTYPE_CODE[dt], *map(_ptr, (gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh,
                                          h_out, c_out, chat, alpha, beta)),
-            B, H, E2, K, D, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+            R, beam_w, H, E2, K, D, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _raise_on(err, "decode_cell")
-    decode_cell.launches += 1
+    if beam_w == 1:
+        decode_cell.launches += 1
+    else:
+        decode_cell.launches_beam += 1
     return h_out, c_out, chat, alpha, beta
 
 
 decode_cell.launches = 0
+decode_cell.launches_beam = 0
 
 
 def cell_operands(lstm: Dict, atten: Dict, sentinel: Dict) -> Tuple[torch.Tensor, ...]:
@@ -135,15 +162,18 @@ def cell_operands(lstm: Dict, atten: Dict, sentinel: Dict) -> Tuple[torch.Tensor
 
 
 def adaptive_decode_cell_fused(lstm: Dict, atten: Dict, sentinel: Dict, x, h_in,
-                               c_in, h_prev, V, pv):
-    """LSTM + sentinel + adaptive attention for one token (beam_w == 1).
+                               c_in, h_prev, V, pv, beam_w: int = 1):
+    """LSTM + sentinel + adaptive attention for one token.
 
-    x [B,2E], h_in/c_in/h_prev [B,H], V [B,K,H], pv [B,K,D]. Returns
-    (h [B,H], c [B,H], c_hat [B,H], alpha [B,K] fp32, beta [B,1] fp32). The
-    input projection stays a full-batch matmul outside the kernel, computed
-    in the compute dtype and then cast to fp32, as the JAX package does."""
+    x [R,2E], h_in/c_in/h_prev [R,H], V [R/beam_w,K,H], pv [R/beam_w,K,D].
+    Returns (h [R,H], c [R,H], c_hat [R,H], alpha [R,K] fp32, beta [R,1]
+    fp32). beam_w > 1 is the beam-major layout: row r belongs to image
+    r // beam_w. The input projection stays a full-batch matmul outside the
+    kernel, computed in the compute dtype and then cast to fp32, as the JAX
+    package does."""
     gx = (x @ lstm["w_ih"] + lstm["b_ih"]).float()
-    return decode_cell(gx, h_in, c_in, x, h_prev, pv, V, *cell_operands(lstm, atten, sentinel))
+    return decode_cell(gx, h_in, c_in, x, h_prev, pv, V, *cell_operands(lstm, atten, sentinel),
+                       beam_w=beam_w)
 
 
 # ------------------------------------------------------------- head argmax
@@ -157,6 +187,24 @@ def greedy_head_argmax_plain(head_kernel, head_bias, chat, h, vocab_len: int):
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+def _check_head(what, head_kernel, head_bias, chat, h, vocab_len: int):
+    """Checks shared by the two head wrappers on CUDA tensors."""
+    B, H = chat.shape
+    Vp = head_kernel.shape[1]
+    dt = head_kernel.dtype
+    if dt not in _DTYPE_CODE:
+        raise ValueError(f"{what} takes float32 or bfloat16, not {dt}")
+    if Vp % HEAD_TILE:
+        raise ValueError(f"padded vocab {Vp} must be a multiple of {HEAD_TILE}")
+    if not 0 < vocab_len <= Vp:
+        raise ValueError(f"vocab_len {vocab_len} outside (0, {Vp}]")
+    _check_shape("h", h, (B, H))
+    _check_shape("head_kernel", head_kernel, (H, Vp))
+    _check_shape("head_bias", head_bias, (Vp,))
+    _check_cuda(("chat", "h", "head_kernel", "head_bias"),
+                (chat, h, head_kernel, head_bias), dt, chat.device)
+
+
 def greedy_head_argmax(head_kernel, head_bias, chat, h, vocab_len: int):
     """argmax((chat + h) @ W + b) over the real vocab -> [B] int32.
     head_kernel [H, Vp] / head_bias [Vp] come padded from prepare_greedy_head
@@ -168,20 +216,10 @@ def greedy_head_argmax(head_kernel, head_bias, chat, h, vocab_len: int):
         raise ValueError(f"greedy_head_argmax runs on cuda or cpu, not {chat.device}")
     from adaptive_tpu_torch.ops.cuda import build
 
+    _check_head("greedy_head_argmax", head_kernel, head_bias, chat, h, vocab_len)
     B, H = chat.shape
     Vp = head_kernel.shape[1]
     dt = head_kernel.dtype
-    if dt not in _DTYPE_CODE:
-        raise ValueError(f"greedy_head_argmax takes float32 or bfloat16, not {dt}")
-    if Vp % HEAD_TILE:
-        raise ValueError(f"padded vocab {Vp} must be a multiple of {HEAD_TILE}")
-    if not 0 < vocab_len <= Vp:
-        raise ValueError(f"vocab_len {vocab_len} outside (0, {Vp}]")
-    _check_shape("h", h, (B, H))
-    _check_shape("head_kernel", head_kernel, (H, Vp))
-    _check_shape("head_bias", head_bias, (Vp,))
-    _check_cuda(("chat", "h", "head_kernel", "head_bias"),
-                (chat, h, head_kernel, head_bias), dt, chat.device)
     ntiles = Vp // HEAD_TILE
     part_v = torch.empty((B, ntiles), dtype=torch.float32, device=chat.device)
     part_i = torch.empty((B, ntiles), dtype=torch.int32, device=chat.device)
@@ -199,9 +237,76 @@ def greedy_head_argmax(head_kernel, head_bias, chat, h, vocab_len: int):
 
 greedy_head_argmax.launches = 0
 
-KERNEL_WRAPPERS = (decode_cell, greedy_head_argmax)
+
+# ------------------------------------------------------------- head top-W
+def topk_lower_index_first(x, k: int):
+    """(values, int64 indices) of the k largest entries along the last dim,
+    in descending order with equal values in ascending index order, as
+    lax.top_k gives them. torch.topk does not promise the order of equal
+    values, so this takes a stable descending sort."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def beam_head_topk_plain(head_kernel, head_bias, chat, h, vocab_len: int, W: int):
+    """Plain twin of the top-W head kernel: (chat + h) rounded to the weight
+    dtype, fp32 product and bias, columns >= vocab_len set to -1e30; then
+    the row's top-W (lower index first on ties) and its logsumexp, where the
+    masked columns add exp(-1e30 - max) = 0. Returns (topv [R,W] fp32,
+    topi [R,W] int32, lse [R,1] fp32)."""
+    z = (chat + h).to(head_kernel.dtype).float()
+    logits = z @ head_kernel.float() + head_bias.float()
+    col = torch.arange(logits.shape[1], device=logits.device)
+    logits = torch.where(col < vocab_len, logits, torch.full_like(logits, NEG))
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    topv, topi = topk_lower_index_first(logits, W)
+    return topv, topi.to(torch.int32), lse
+
+
+def beam_head_topk(head_kernel, head_bias, chat, h, vocab_len: int, W: int):
+    """Top-W of (chat + h) @ W + b over the real vocab, and the row's
+    logsumexp, so topv - lse are the rows' top-W log-probs. Same operands
+    as greedy_head_argmax; 1 <= W <= HEAD_TILE (one vocab tile holds each
+    row's tile list). Launches the CUDA kernel for CUDA tensors; runs the
+    plain twin for CPU tensors."""
+    if not 1 <= W <= HEAD_TILE:
+        raise ValueError(f"beam_head_topk takes 1 <= W <= {HEAD_TILE}, got W={W}")
+    if chat.device.type == "cpu":
+        return beam_head_topk_plain(head_kernel, head_bias, chat, h, vocab_len, W)
+    if chat.device.type != "cuda":
+        raise ValueError(f"beam_head_topk runs on cuda or cpu, not {chat.device}")
+    from adaptive_tpu_torch.ops.cuda import build
+
+    _check_head("beam_head_topk", head_kernel, head_bias, chat, h, vocab_len)
+    R, H = chat.shape
+    Vp = head_kernel.shape[1]
+    dt = head_kernel.dtype
+    ntiles = Vp // HEAD_TILE
+    dev = chat.device
+    part_v = torch.empty((R, ntiles, W), dtype=torch.float32, device=dev)
+    part_i = torch.empty((R, ntiles, W), dtype=torch.int32, device=dev)
+    part_ms = torch.empty((R, ntiles, 2), dtype=torch.float32, device=dev)
+    topv = torch.empty((R, W), dtype=torch.float32, device=dev)
+    topi = torch.empty((R, W), dtype=torch.int32, device=dev)
+    lse = torch.empty((R, 1), dtype=torch.float32, device=dev)
+    lib = build.load()
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        err = lib.head_topk_launch(
+            _DTYPE_CODE[dt], *map(_ptr, (chat, h, head_kernel, head_bias, part_v, part_i,
+                                         part_ms, topv, topi, lse)),
+            R, H, Vp, vocab_len, W, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    _raise_on(err, "beam_head_topk")
+    beam_head_topk.launches += 1
+    return topv, topi, lse
+
+
+beam_head_topk.launches = 0
+
+KERNEL_WRAPPERS = (decode_cell, greedy_head_argmax, beam_head_topk)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    decode_cell.launches_beam = 0

@@ -7,19 +7,31 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
 
 1. prints the card (nvidia-smi name and power limit), torch/CUDA versions
    and the kernel build time;
-2. holds each kernel against its plain PyTorch twin at the main path's
-   shapes (batch 1024, H 512, 2E 512, K = D = 49, vocab 10123 padded to
-   10240), in fp32 and bf16, and times kernel, twin and library call;
-3. runs the main path end to end in bf16 at full width: build_model ->
+2. holds the greedy kernels (the cell, the argmax head) against their plain
+   PyTorch twins at the greedy path's shapes (batch 1024, H 512, 2E 512,
+   K = D = 49, vocab 10123 padded to 10240), in fp32 and bf16, and times
+   kernel, twin and library call;
+2b. does the same for the beam kernels (the beam-major cell, the top-W
+   head) at the beam path's shapes: 1024 images x beam 3 = 3072 rows, V/pv
+   one copy per image; plus a correctness-only pass at beam 5;
+3. runs the greedy path end to end in bf16 at full width: build_model ->
    make_greedy_decoder -> greedy captions for 1024 seeded uint8 256x256
    images with a seeded random ResNet-152 / H 512 model; checks that each
    kernel launched exactly once per decode step and that the outputs are
    well formed, and times the decode and the encoder alone (mean of
    E2E_REPEATS runs); --profile adds a torch.profiler kernel table;
-4. decodes 8 images in fp32 (TF32 off) on the card and on the CPU (plain
-   twins) and requires equal ids, except where the first differing step's
-   fp32 top-2 logit gap is below 1e-3, and attention and beta within
-   PARITY_ATOL up to that step.
+3b. runs beam search (beam 3) end to end on the same model and images:
+   make_beam_decoder; checks that the beam kernels launched once per step
+   and the greedy ones not at all, that ids, scores, attention and beta are
+   well formed, and times it as phase 3 does (--profile: a second table);
+4. decodes 8 images greedily in fp32 (TF32 off) on the card and on the CPU
+   (plain twins) and requires equal ids, except where the first differing
+   step's fp32 top-2 logit gap is below 1e-3, and attention and beta within
+   PARITY_ATOL up to that step;
+4b. beam-decodes the same 8 images (beam 3) on both and requires equal
+   beams, except for an image whose CPU decode had two adjacent flat
+   candidates (of the top W+1) within PARITY_GAP_EPS at some step; scores
+   within 1e-3 and attention and beta within PARITY_ATOL where equal.
 
 Prints one JSON line of per-kernel numbers, then as its last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
@@ -40,6 +52,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # main-path shapes: adaptive_attention, ResNet-152 at 224 px, embed 256,
 # hidden 512, vocab 10123 (head padded to 10240), 30 steps, batch 1024
 B, H, E2, K, D, VOCAB, VP, STEPS = 1024, 512, 512, 49, 49, 10123, 10240, 30
+BEAM = 3  # beam path: B images x BEAM rows (bench.py --beam 3)
 SEED = 0
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -50,7 +63,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2.0 ** -7)}
 # head ids may differ only where the row's fp32 top-2 logit gap is below this
 HEAD_GAP_EPS = 1e-3
-PARITY_GAP_EPS = 1e-3  # phase 4: CPU vs card ids
+PARITY_GAP_EPS = 1e-3  # phases 4 and 4b: CPU vs card ids
+BEAM_SCORE_ATOL = 1e-3  # phase 4b: summed fp32 log-probs over 30 steps
+LSE_RTOL = 1e-5  # top-W head's logsumexp, kernel vs twin
 # phase 4: attention and beta, card vs CPU in fp32 (the repo's bound for the
 # greedy path against the JAX package: sums in another order through the
 # 152-layer encoder and 30 steps)
@@ -187,6 +202,114 @@ def kernel_checks(dtype_name: str):
     }
 
 
+# ---------------------------------------------------------------- phase 2b
+def topk_checks(name, got, ref, logits, W):
+    """Top-W head, kernel against twin: ids may differ only where two
+    adjacent fp32 logits of the twin's sorted row (top W+1) lie within
+    HEAD_GAP_EPS; values on agreeing rows within the fp32 TOL, lse within
+    LSE_RTOL. Returns (max abs err of values and lse, rows that differ)."""
+    import torch
+
+    tv, ti, lse = got
+    rv, ri, rlse = ref
+    top = logits.sort(dim=1, descending=True).values[:, :W + 1]
+    gaps = top[:, :-1] - top[:, 1:]
+    near = gaps < HEAD_GAP_EPS
+    near[:, 1:] |= gaps[:, :-1] < HEAD_GAP_EPS
+    diff = ti != ri
+    if (diff & ~near).any():
+        raise AssertionError(f"{name}: top-W ids differ at adjacent logit gaps >= {HEAD_GAP_EPS}")
+    same = ~diff.any(1)
+    err = check_close(f"{name} topv", tv[same], rv[same], *TOL["float32"])
+    return max(err, check_close(f"{name} lse", lse, rlse, 0.0, LSE_RTOL)), int((~same).sum())
+
+
+def beam_kernel_checks(dtype_name: str, W: int, timed: bool = True):
+    """Kernels 3 and 4 against their twins at the beam path's shapes: B
+    images x W beam rows, V/pv one copy per image."""
+    import torch
+
+    from adaptive_tpu_torch.ops import fused_step as fs
+
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype_name]
+    g = torch.Generator(device="cuda").manual_seed(SEED + W)
+    R = B * W
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    cell_args = [r(R, 4 * H)] + [t.to(dt).contiguous() for t in (
+        r(R, H, scale=0.5), r(R, H), r(R, E2, scale=0.5), torch.zeros(R, H, device="cuda"),
+        r(B, K, D), r(B, K, H).abs(), r(H, 4 * H, scale=H ** -0.5), r(4 * H, scale=0.1),
+        r(E2, H, scale=E2 ** -0.5), r(H, H, scale=H ** -0.5), r(H, D, scale=H ** -0.5),
+        r(H, D, scale=H ** -0.5), r(D, scale=D ** -0.5))]
+    got = fs.decode_cell(*cell_args, beam_w=W)
+    torch.cuda.synchronize()
+    ref = fs.decode_cell_plain(*cell_args, beam_w=W)
+    cell_err = 0.0
+    for name, a, b in zip(("h", "c", "c_hat", "alpha", "beta"), got, ref):
+        tol = TOL["float32"] if a.dtype == torch.float32 else TOL[dtype_name]
+        cell_err = max(cell_err, check_close(f"beam cell W={W} {dtype_name} {name}", a, b, *tol))
+
+    Wt = r(H, VP, scale=(2.0 / H) ** 0.5).to(dt)
+    bias = r(VP, scale=0.1)
+    bias[VOCAB:] = fs.NEG
+    bias = bias.to(dt)
+    chat, h = r(R, H).to(dt), r(R, H).to(dt)
+    top = fs.beam_head_topk(Wt, bias, chat, h, VOCAB, W)
+    torch.cuda.synchronize()
+    ref_top = fs.beam_head_topk_plain(Wt, bias, chat, h, VOCAB, W)
+    logits = (chat + h).to(dt).float() @ Wt.float() + bias.float()
+    logits[:, VOCAB:] = fs.NEG
+    head_err, rows_differ = topk_checks(f"topk head W={W} {dtype_name}", top, ref_top, logits, W)
+    log(f"[beam kernels {dtype_name} W={W}] cell: max_abs_err {cell_err:.3e} | top-W head: "
+        f"max_abs_err {head_err:.3e}, {rows_differ}/{R} rows' ids differ (all at adjacent "
+        f"gaps < {HEAD_GAP_EPS})")
+    if not timed:
+        return None
+
+    cell_ms = cuda_ms(lambda: fs.decode_cell(*cell_args, beam_w=W))
+    cell_plain_ms = cuda_ms(lambda: fs.decode_cell_plain(*cell_args, beam_w=W))
+    # the tiled layout on the same inputs: kernel 1 over V/pv repeated per
+    # beam row does the same arithmetic and reads the slots W times
+    tiled_args = list(cell_args)
+    tiled_args[5] = cell_args[5].repeat_interleave(W, 0)
+    tiled_args[6] = cell_args[6].repeat_interleave(W, 0)
+    tiled_err = 0.0
+    for name, a, b in zip(("h", "c", "c_hat", "alpha", "beta"), fs.decode_cell(*tiled_args), got):
+        tol = TOL["float32"] if a.dtype == torch.float32 else TOL[dtype_name]
+        tiled_err = max(tiled_err, check_close(f"tiled vs beam-major W={W} {dtype_name} {name}",
+                                               a, b, *tol))
+    tiled_ms = cuda_ms(lambda: fs.decode_cell(*tiled_args))
+    cell_flops = 2.0 * R * (H * 4 * H + E2 * H + H * H + 2 * H * D + K * D + K * H)
+    cell_bound = bound(nbytes(*cell_args) + nbytes(*got), cell_flops, dtype_name)
+    head_ms = cuda_ms(lambda: fs.beam_head_topk(Wt, bias, chat, h, VOCAB, W))
+    head_plain_ms = cuda_ms(lambda: fs.beam_head_topk_plain(Wt, bias, chat, h, VOCAB, W))
+    z = (chat + h).to(dt)
+
+    def library():
+        lg = torch.addmm(bias, z, Wt)
+        return lg.topk(W, dim=1), torch.logsumexp(lg, dim=1)
+
+    head_lib_ms = cuda_ms(library)
+    head_bound = bound(nbytes(Wt, bias, chat, h, *top), 2.0 * R * H * VP, dtype_name)
+    log(f"[beam kernels {dtype_name} W={W}] cell: kernel {cell_ms:.4f} ms plain "
+        f"{cell_plain_ms:.4f} ms bound {cell_bound[0]:.4f} ms ({cell_bound[1]}), tiled layout "
+        f"(kernel 1, V/pv repeated; max abs diff {tiled_err:.3e}) {tiled_ms:.4f} ms | top-W head: "
+        f"kernel {head_ms:.4f} ms plain {head_plain_ms:.4f} ms addmm+topk+logsumexp "
+        f"{head_lib_ms:.4f} ms bound {head_bound[0]:.4f} ms ({head_bound[1]})")
+    return {
+        "adaptive_decode_cell_fused_beam": {
+            "max_abs_err": cell_err, "ms": cell_ms, "plain_ms": cell_plain_ms,
+            "bound_ms": cell_bound[0], "bound_by": cell_bound[1], "library_ms": None,
+            "tiled_ms": tiled_ms},
+        "beam_head_topk": {
+            "max_abs_err": head_err, "rows_differ": rows_differ, "ms": head_ms,
+            "plain_ms": head_plain_ms, "bound_ms": head_bound[0], "bound_by": head_bound[1],
+            "library_ms": head_lib_ms},
+    }
+
+
 # ----------------------------------------------------------------- phase 3
 def seeded_images(n, seed, size=256, cells=4):
     """n uint8 NHWC images from a numpy seed: a random cells x cells grid of
@@ -219,20 +342,27 @@ def random_model(cf, device, calib_images):
     return model, net
 
 
-def end_to_end(images_u8, smi, profile_dir=None):
+def launch_counts():
+    from adaptive_tpu_torch.ops import fused_step as fs
+
+    return {"adaptive_decode_cell_fused": fs.decode_cell.launches,
+            "greedy_head_argmax": fs.greedy_head_argmax.launches,
+            "adaptive_decode_cell_fused_beam": fs.decode_cell.launches_beam,
+            "beam_head_topk": fs.beam_head_topk.launches}
+
+
+def timed_decodes(decode, net, model, cf, images, expect):
+    """Warm-up at the full batch (cuDNN plans, allocator), then E2E_REPEATS
+    timed decodes, the first with every launch count set to 0 just before
+    and read just after; expect: {kernel: launches}. Then E2E_REPEATS timed
+    encoder runs. Returns (first output, launches, total ms, encoder ms)."""
     import torch
 
-    from adaptive_tpu_torch import Config
-    from adaptive_tpu_torch.decoding import make_greedy_decoder
     from adaptive_tpu_torch.ops import fused_step as fs
     from adaptive_tpu_torch.ops.preprocess import eval_preprocess
 
-    cf = Config(compute_dtype="bfloat16")
-    model, net = random_model(cf, "cuda", images_u8[:32])
-    decode = make_greedy_decoder(model, cf)
     prepared = decode.prepare(net)
-    images = torch.as_tensor(images_u8, device="cuda")
-    decode(net, images)  # warm-up at the full batch: cuDNN plans, allocator
+    decode(net, images)
     torch.cuda.synchronize()
 
     def timed(fn):
@@ -243,26 +373,46 @@ def end_to_end(images_u8, smi, profile_dir=None):
 
     fs.reset_launch_counts()
     out, first_ms = timed(lambda: decode(net, images))
-    launches = {"adaptive_decode_cell_fused": fs.decode_cell.launches,
-                "greedy_head_argmax": fs.greedy_head_argmax.launches}
-    for name, n in launches.items():
-        if n != STEPS:
-            raise AssertionError(f"{name} launched {n} times in the decode, expected {STEPS}")
+    launches = launch_counts()
+    for name, n in expect.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times in the decode, "
+                                 f"expected {n}")
     total_ms = [first_ms] + [timed(lambda: decode(net, images))[1] for _ in range(E2E_REPEATS - 1)]
     with torch.no_grad():
         enc_ms = [timed(lambda: model.encode_inference(prepared, eval_preprocess(
             images, cf.train_crop_size, model.compute_dtype)))[1] for _ in range(E2E_REPEATS)]
+    return out, {k: launches[k] for k in expect if expect[k]}, total_ms, enc_ms
+
+
+def check_maps(out, lead):
+    """Attention maps [*lead, STEPS, K] finite and summing to 1, beta in [0, 1]."""
+    import torch
+
+    att = out.attention.float()
+    if tuple(att.shape) != (*lead, STEPS, K) or not torch.isfinite(att).all():
+        raise AssertionError("attention maps malformed")
+    if not torch.allclose(att.sum(-1), torch.ones(*lead, STEPS, device=att.device), atol=1e-3):
+        raise AssertionError("attention maps do not sum to 1")
+    if not ((out.beta >= 0) & (out.beta <= 1)).all():
+        raise AssertionError("beta outside [0, 1]")
+
+
+def end_to_end(model, net, cf, images_u8, smi, profile_dir=None):
+    import torch
+
+    from adaptive_tpu_torch.decoding import make_greedy_decoder
+
+    decode = make_greedy_decoder(model, cf)
+    images = torch.as_tensor(images_u8, device="cuda")
+    expect = {"adaptive_decode_cell_fused": STEPS, "greedy_head_argmax": STEPS,
+              "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0}
+    out, launches, total_ms, enc_ms = timed_decodes(decode, net, model, cf, images, expect)
 
     ids = out.ids.cpu().numpy()
     if ids.shape != (B, STEPS) or ids.min() < 0 or ids.max() >= VOCAB:
         raise AssertionError(f"ids of shape {ids.shape} in [{ids.min()}, {ids.max()}]")
-    att = out.attention.float()
-    if tuple(att.shape) != (B, STEPS, K) or not torch.isfinite(att).all():
-        raise AssertionError("attention maps malformed")
-    if not torch.allclose(att.sum(-1), torch.ones(B, STEPS, device="cuda"), atol=1e-3):
-        raise AssertionError("attention maps do not sum to 1")
-    if not ((out.beta >= 0) & (out.beta <= 1)).all():
-        raise AssertionError("beta outside [0, 1]")
+    check_maps(out, (B,))
 
     distinct = len({tuple(r) for r in ids.tolist()})
     total, enc = sum(total_ms) / len(total_ms), sum(enc_ms) / len(enc_ms)
@@ -272,13 +422,57 @@ def end_to_end(images_u8, smi, profile_dir=None):
         f"captions/s; launches {launches}; {distinct} distinct captions, first: "
         f"{ids[0, :12].tolist()}")
     if profile_dir:
-        profile_decode(lambda: decode(net, images), profile_dir, smi)
+        profile_decode(lambda: decode(net, images), profile_dir, smi, "greedy")
     return launches, {"total_ms": total, "encoder_ms": enc, "captions_per_s": B / total * 1e3}
 
 
-def profile_decode(run, out_dir, smi):
+# ---------------------------------------------------------------- phase 3b
+def beam_end_to_end(model, net, cf, images_u8, smi, profile_dir=None):
+    import torch
+
+    from adaptive_tpu_torch.decoding import make_beam_decoder
+
+    decode = make_beam_decoder(model, cf, beam_size=BEAM)
+    images = torch.as_tensor(images_u8, device="cuda")
+    expect = {"adaptive_decode_cell_fused": 0, "greedy_head_argmax": 0,
+              "adaptive_decode_cell_fused_beam": STEPS, "beam_head_topk": STEPS}
+    out, launches, total_ms, enc_ms = timed_decodes(decode, net, model, cf, images, expect)
+
+    all_ids = out.all_ids.cpu().numpy()
+    ids = out.ids.cpu().numpy()
+    if all_ids.shape != (B, BEAM, STEPS) or all_ids.min() < 0 or all_ids.max() >= VOCAB:
+        raise AssertionError(f"all_ids of shape {all_ids.shape} in [{all_ids.min()}, "
+                             f"{all_ids.max()}]")
+    if ids.shape != (B, STEPS) or ids.min() < 0 or ids.max() >= VOCAB:
+        raise AssertionError(f"ids of shape {ids.shape} in [{ids.min()}, {ids.max()}]")
+    check_maps(out, (B,))
+    scores = out.all_scores
+    if tuple(scores.shape) != (B, BEAM) or not torch.isfinite(scores).all():
+        raise AssertionError("all_scores malformed")
+    best = scores.argmax(1)
+    img = torch.arange(B, device=scores.device)
+    if not torch.equal(out.score, scores[img, best]):
+        raise AssertionError("score is not all_scores at the best beam")
+    if not torch.equal(out.ids, out.all_ids[img, best]):
+        raise AssertionError("ids are not all_ids at the best beam")
+    if not (scores[:, :-1] >= scores[:, 1:]).all():
+        raise AssertionError("beams are not sorted by score")
+
+    distinct = len({tuple(r) for r in ids.tolist()})
+    total, enc = sum(total_ms) / len(total_ms), sum(enc_ms) / len(enc_ms)
+    log(f"[end-to-end beam {BEAM} bf16] {smi}: batch {B}, {STEPS} steps, mean of {E2E_REPEATS} "
+        f"runs: total {total:.3f} ms {total_ms}, encoder {enc:.3f} ms {enc_ms}, decode loop "
+        f"{total - enc:.3f} ms, {B / total * 1e3:.1f} captions/s; launches {launches}; "
+        f"{distinct} distinct best captions, first: {ids[0, :12].tolist()} score "
+        f"{float(out.score[0]):.4f}")
+    if profile_dir:
+        profile_decode(lambda: decode(net, images), profile_dir, smi, f"beam{BEAM}")
+    return launches, {"total_ms": total, "encoder_ms": enc, "captions_per_s": B / total * 1e3}
+
+
+def profile_decode(run, out_dir, smi, tag):
     """torch.profiler over one end-to-end decode: device time by kernel name
-    (all of it to out_dir/profile_e2e.txt, the largest printed) and the
+    (all of it to out_dir/profile_e2e_<tag>.txt, the largest printed) and the
     device's busy share of the window (union of kernel intervals over the
     wall time)."""
     import torch
@@ -303,10 +497,10 @@ def profile_decode(run, out_dir, smi):
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     total = sum(us for us, _ in by_name.values())
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_e2e.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_e2e_{tag}.txt"), "w") as f:
         f.write(f"{smi}; wall {wall_us:.1f} us, busy {busy:.1f} us\n")
         f.writelines(f"{us:12.1f} us {n:6d}x  {name}\n" for name, (us, n) in rows)
-    log(f"[profile bf16] {smi}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+    log(f"[profile {tag} bf16] {smi}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
         f"({busy / wall_us:.4f} of the window), kernel time {total / 1e3:.3f} ms; top: "
         + "; ".join(f"{name[:70]} {us / 1e3:.3f} ms x{n}" for name, (us, n) in rows[:10]))
 
@@ -341,11 +535,11 @@ def cpu_gaps(model, prepared, images_u8, cf):
     return torch.stack(ids, 1), torch.stack(gaps, 1)
 
 
-def cross_device_parity(images_u8):
+def fp32_models(images_u8):
+    """The fp32 model on the card and the same weights on the CPU."""
     import torch
 
     from adaptive_tpu_torch import Config
-    from adaptive_tpu_torch.decoding import make_greedy_decoder
     from adaptive_tpu_torch.models import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -355,6 +549,12 @@ def cross_device_parity(images_u8):
     model_c = build_model(cf, device="cpu")
     net_c = model_c.init(SEED)
     net_c.load_state_dict({k: v.cpu() for k, v in net_g.state_dict().items()})
+    return cf, model_g, net_g, model_c, net_c
+
+
+def cross_device_parity(cf, model_g, net_g, model_c, net_c, images_u8):
+    from adaptive_tpu_torch.decoding import make_greedy_decoder
+
     imgs = images_u8[:8]
     out_g = make_greedy_decoder(model_g, cf)(net_g, imgs)
     out_c = make_greedy_decoder(model_c, cf)(net_c, imgs)
@@ -379,6 +579,94 @@ def cross_device_parity(images_u8):
     log(f"[parity fp32, TF32 off] card vs CPU: {n_same}/{imgs.shape[0]} captions identical "
         f"({distinct} distinct); attention/beta max abs err {att_err:.3e} (atol {PARITY_ATOL}); "
         f"min top-2 gap over all steps {float(gaps.min()):.3e}; first: {ids_g[0, :12].tolist()}")
+
+
+# ---------------------------------------------------------------- phase 4b
+def cpu_beam_gaps(model, prepared, images_u8, cf, W):
+    """The CPU's beam decode (fused path, plain twins) step by step, with
+    each row's top W+1 tokens: the flat top W+1 of the beam x token
+    candidates holds every candidate that could take one of the W slots,
+    and the smallest gap between two adjacent ones says how near a swap
+    was. Returns (all_ids [n, W, STEPS], per-step min gap [n, STEPS])."""
+    import torch
+
+    from adaptive_tpu_torch.models.decoders import DecodeState
+    from adaptive_tpu_torch.ops.fused_step import topk_lower_index_first
+    from adaptive_tpu_torch.ops.preprocess import eval_preprocess
+
+    with torch.no_grad():
+        V, v_g, h0, c0 = model.encode_inference(prepared, eval_preprocess(
+            torch.as_tensor(images_u8), cf.train_crop_size))
+        dec, head = prepared["decoder"], prepared["head"]
+        pv = model.precompute_slots(dec, V)
+        n, k = V.shape[0], W + 1
+        st = model.init_decode_state(h0.repeat_interleave(W, 0), c0.repeat_interleave(W, 0))
+        vg = v_g.repeat_interleave(W, 0)
+        dead = torch.tensor([0.0] + [-1e9] * W)
+        scores = dead[:W].expand(n, W)
+        tok = torch.full((n, W), cf.decode_start_token, dtype=torch.int32)
+        finished = torch.zeros((n, W), dtype=torch.bool)
+        img = torch.arange(n)[:, None]
+        toks, parents, gaps = [], [], []
+        for _ in range(STEPS):
+            lp, tk, _, _, st = model.beam_decode_step(dec, tok.reshape(-1), vg, st, V, k,
+                                                      pv=pv, head=head, beam_w=W)
+            lp = torch.where(finished[..., None], dead, lp.reshape(n, W, k))
+            tk = tk.reshape(n, W, k).masked_fill(finished[..., None], cf.decode_eos_token)
+            top, idx = topk_lower_index_first((scores[..., None] + lp).reshape(n, W * k), k)
+            gaps.append((top[:, :-1] - top[:, 1:]).min(1).values)
+            scores, idx = top[:, :W], idx[:, :W]
+            src = idx // k
+            tok = tk.reshape(n, W * k).gather(1, idx)
+            st = DecodeState(*(x.reshape(n, W, -1)[img, src].reshape(n * W, -1) for x in st))
+            finished = finished.gather(1, src) | (tok == cf.decode_eos_token)
+            toks.append(tok)
+            parents.append(src)
+        ptr, ids = torch.arange(W).expand(n, W), []
+        for tok_t, par_t in zip(reversed(toks), reversed(parents)):
+            ids.append(tok_t.gather(1, ptr))
+            ptr = par_t.gather(1, ptr)
+    return torch.stack(ids[::-1], 2), torch.stack(gaps, 1)
+
+
+def beam_parity(cf, model_g, net_g, model_c, net_c, images_u8):
+    import torch
+
+    from adaptive_tpu_torch.decoding import make_beam_decoder
+
+    imgs = images_u8[:8]
+    out_g = make_beam_decoder(model_g, cf, beam_size=BEAM)(net_g, imgs)
+    out_c = make_beam_decoder(model_c, cf, beam_size=BEAM)(net_c, imgs)
+    ref_ids, gaps = cpu_beam_gaps(model_c, model_c.prepare_inference(net_c), imgs, cf, BEAM)
+    if not torch.equal(ref_ids, out_c.all_ids):
+        raise AssertionError("the step-by-step CPU beam decode disagrees with make_beam_decoder")
+    err = 0.0
+    n_same = 0
+    for row in range(imgs.shape[0]):
+        gap = float(gaps[row].min())
+        if not torch.equal(out_g.all_ids[row].cpu(), out_c.all_ids[row]):
+            log(f"[beam parity fp32] image {row}: beams differ; CPU min adjacent flat-candidate "
+                f"gap over the steps {gap:.3e}")
+            if gap >= PARITY_GAP_EPS:
+                raise AssertionError(f"image {row}: beams differ with candidate gaps >= {gap:.3e}")
+            continue
+        n_same += 1
+        err = max(err, check_close(f"beam parity all_scores image {row}",
+                                   out_g.all_scores[row].cpu(), out_c.all_scores[row],
+                                   BEAM_SCORE_ATOL, 0.0))
+        if not torch.equal(out_g.ids[row].cpu(), out_c.ids[row]):
+            log(f"[beam parity fp32] image {row}: another best beam (scores "
+                f"{out_c.all_scores[row].tolist()})")
+            continue
+        for name, a, b in (("attention", out_g.attention, out_c.attention),
+                           ("beta", out_g.beta, out_c.beta)):
+            err = max(err, check_close(f"beam parity {name} image {row}", a[row].cpu(), b[row],
+                                       PARITY_ATOL, 0.0))
+    distinct = len({tuple(r) for r in out_c.ids.tolist()})
+    log(f"[beam parity fp32, TF32 off] beam {BEAM}, card vs CPU: {n_same}/{imgs.shape[0]} images' "
+        f"beams identical ({distinct} distinct best captions); scores/attention/beta max abs "
+        f"err {err:.3e} (atol {BEAM_SCORE_ATOL}/{PARITY_ATOL}); min adjacent candidate gap "
+        f"{float(gaps.min()):.3e}; first: {out_g.ids[0, :12].tolist()}")
 
 
 def main() -> int:
@@ -417,23 +705,45 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     checks = {dt: kernel_checks(dt) for dt in ("float32", "bfloat16")}
 
-    # phase 3: the main path end to end, bf16, full width
+    # phase 2b: the beam kernels against their twins, beam 3 timed, beam 5 checked
+    for dt in ("float32", "bfloat16"):
+        checks[dt].update(beam_kernel_checks(dt, BEAM))
+        beam_kernel_checks(dt, 5, timed=False)
+
+    # phase 3: the greedy path end to end, bf16, full width
+    from adaptive_tpu_torch import Config
+
     images_u8 = seeded_images(B, SEED)
-    launches, e2e = end_to_end(images_u8, smi, args.profile)
+    cf = Config(compute_dtype="bfloat16")
+    model, net = random_model(cf, "cuda", images_u8[:32])
+    launches, e2e = end_to_end(model, net, cf, images_u8, smi, args.profile)
 
-    # phase 4: fp32 ids on the card equal the CPU's
-    cross_device_parity(images_u8)
+    # phase 3b: beam search end to end on the same model and images
+    beam_launches, e2e_beam = beam_end_to_end(model, net, cf, images_u8, smi, args.profile)
+    launches.update(beam_launches)
+    del model, net
+    torch.cuda.empty_cache()
 
+    # phases 4 and 4b: fp32 greedy ids and beams on the card equal the CPU's
+    fp32 = fp32_models(images_u8)
+    cross_device_parity(*fp32, images_u8)
+    beam_parity(*fp32, images_u8)
+
+    csrc = "adaptive_tpu_torch/ops/cuda/csrc/"
     sources = {
-        "adaptive_decode_cell_fused": "adaptive_tpu/ops/pallas/fused_step.py:221",
-        "greedy_head_argmax": "adaptive_tpu/ops/pallas/fused_step.py:354",
+        "adaptive_decode_cell_fused": ("adaptive_tpu/ops/pallas/fused_step.py:221",
+                                       csrc + "fused_step.cu"),
+        "greedy_head_argmax": ("adaptive_tpu/ops/pallas/fused_step.py:354",
+                               csrc + "fused_step.cu"),
+        "adaptive_decode_cell_fused_beam": ("adaptive_tpu/ops/pallas/fused_step.py:221",
+                                            csrc + "fused_step.cu"),
+        "beam_head_topk": ("adaptive_tpu/ops/pallas/fused_step.py:448", csrc + "head_topk.cu"),
     }
     kernels = []
-    for name, replaces in sources.items():
+    for name, (replaces, source) in sources.items():
         bf, fp = checks["bfloat16"][name], checks["float32"][name]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "adaptive_tpu_torch/ops/cuda/csrc/fused_step.cu",
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
@@ -441,7 +751,8 @@ def main() -> int:
             "fp32": {k: fp[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
         })
-    log(json.dumps({"kernels": kernels, "end_to_end_bf16": e2e, "card": smi}))
+    log(json.dumps({"kernels": kernels, "end_to_end_bf16": e2e,
+                    f"end_to_end_beam{BEAM}_bf16": e2e_beam, "card": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

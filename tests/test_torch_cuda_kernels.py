@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain twins on the card, at shapes
-that chip_smoke.py does not reach: row blocks cut short, widths below a
-tile, a planted tie across vocab tiles. Each test skips where there is no
-card. On a machine with one:
+that chip_smoke.py does not reach: row blocks cut short, beam groups that
+straddle blocks, widths below a tile, planted ties across vocab tiles. Each
+test skips where there is no card. On a machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from adaptive_tpu_torch import Config
-from adaptive_tpu_torch.decoding import make_greedy_decoder
+from adaptive_tpu_torch.decoding import make_beam_decoder, make_greedy_decoder
 from adaptive_tpu_torch.models import build_model
 from adaptive_tpu_torch.ops import fused_step as fs
 
@@ -64,6 +64,26 @@ def test_cell_kernel_matches_twin(cuda, dtype, B, H, E2, K):
         torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol, msg=name)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W", [2, 3, 5, 9])
+@pytest.mark.parametrize("B", [1, 3, 23])
+def test_beam_major_cell_kernel_matches_twin(cuda, dtype, W, B):
+    """B images x W beam rows: a block of 8 rows holds part of a beam group
+    (W = 3, 5, 9) or a short last block. V and pv hold one copy per image."""
+    H, E2, K = 64, 32, 49
+    args = _cell_args(B * W, H, E2, K, dtype, cuda)
+    args[5], args[6] = args[5][:B].contiguous(), args[6][:B].contiguous()
+    fs.reset_launch_counts()
+    got = fs.decode_cell(*args, beam_w=W)
+    torch.cuda.synchronize()
+    assert (fs.decode_cell.launches, fs.decode_cell.launches_beam) == (0, 1)
+    want = fs.decode_cell_plain(*args, beam_w=W)
+    for name, g, w in zip(("h", "c", "c_hat", "alpha", "beta"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        atol, rtol = TOL[g.dtype]
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol, msg=name)
+
+
 def _head_args(B, H, vocab, dtype, device, seed=1):
     rng = np.random.default_rng(seed)
     vp = -(-vocab // 128) * 128
@@ -105,6 +125,53 @@ def test_head_kernel_tie_across_tiles_takes_first(cuda):
     assert got.tolist() == [100, 100, 100]
 
 
+def _masked_logits(w, b, chat, h, vocab):
+    logits = (chat + h).to(w.dtype).float() @ w.float() + b.float()
+    logits[:, vocab:] = fs.NEG
+    return logits
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W", [1, 3, 5, 9])
+@pytest.mark.parametrize("B,H,vocab", [(70, 48, 1500), (3, 512, 10123), (5, 16, 37)])
+def test_topk_head_kernel_matches_twin(cuda, dtype, W, B, H, vocab):
+    """Top-W ids equal, except where two adjacent fp32 logits of the row lie
+    within 1e-3 (sums in another order may swap them); values within fp32
+    sum-order tolerance, lse within 1e-5 relative."""
+    w, b, chat, h = _head_args(B, H, vocab, dtype, cuda)
+    fs.reset_launch_counts()
+    tv, ti, lse = fs.beam_head_topk(w, b, chat, h, vocab, W)
+    torch.cuda.synchronize()
+    assert fs.beam_head_topk.launches == 1
+    rv, ri, rlse = fs.beam_head_topk_plain(w, b, chat, h, vocab, W)
+    assert ti.dtype == torch.int32 and tv.shape == ti.shape == (B, W) and lse.shape == (B, 1)
+    top = _masked_logits(w, b, chat, h, vocab).sort(dim=1, descending=True).values[:, :W + 1]
+    gaps = top[:, :-1] - top[:, 1:]
+    near = torch.zeros_like(ti, dtype=torch.bool)
+    near[:, :] = gaps < 1e-3
+    near[:, 1:] |= gaps[:, :-1] < 1e-3
+    assert ((ti == ri) | near).all()
+    assert (ti < vocab).all() and (ti >= 0).all()
+    same = (ti == ri).all(1)
+    torch.testing.assert_close(tv[same], rv[same], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, rlse, atol=0, rtol=1e-5)
+
+
+def test_topk_head_kernel_tie_across_tiles_ranks_lower_id_first(cuda):
+    """Equal logits at ids 1400, 100 and 2599 (three vocab tiles), one
+    larger at 700: the list is 700, then the tied ids in ascending order."""
+    H, vocab = 8, 2600
+    w = torch.zeros(H, 2688)
+    w[0, [100, 1400, 2599]] = 2.0
+    w[0, 700] = 3.0
+    b = torch.zeros(2688)
+    b[vocab:] = fs.NEG
+    chat = torch.full((3, H), 0.5)
+    _, topi, _ = fs.beam_head_topk(*(t.to(cuda) for t in (w, b, chat, chat)), vocab, 5)
+    assert topi[:, :4].tolist() == [[700, 100, 1400, 2599]] * 3
+    assert topi[:, 4].tolist() == [0] * 3  # then the zero logits, lowest id first
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     w, b, chat, h = _head_args(4, 16, 37, torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -113,9 +180,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fs.greedy_head_argmax(w, b, chat.bfloat16(), h, 37)
     with pytest.raises(ValueError, match="multiple"):
         fs.greedy_head_argmax(w[:, :100].contiguous(), b[:100], chat, h, 37)
+    with pytest.raises(ValueError, match="W="):
+        fs.beam_head_topk(w, b, chat, h, 37, 129)
+    with pytest.raises(ValueError, match="dtype"):
+        fs.beam_head_topk(w, b.bfloat16(), chat, h, 37, 3)
     args = _cell_args(4, 16, 8, 4, torch.float32, cuda)
     with pytest.raises(ValueError, match="shape"):
         fs.decode_cell(*args[:6], args[6][:, :3].contiguous(), *args[7:])
+    with pytest.raises(ValueError, match="beam-major"):
+        fs.decode_cell(*args, beam_w=3)
 
 
 def test_greedy_decode_on_the_card_matches_cpu(cuda):
@@ -136,5 +209,29 @@ def test_greedy_decode_on_the_card_matches_cpu(cuda):
     assert fs.decode_cell.launches == fs.greedy_head_argmax.launches == cf.decode_max_len
     out_c = make_greedy_decoder(model_c, cf)(net_c, images)
     np.testing.assert_array_equal(out_g.ids.cpu().numpy(), out_c.ids.numpy())
+    torch.testing.assert_close(out_g.attention.cpu(), out_c.attention, atol=2e-4, rtol=0)
+    torch.testing.assert_close(out_g.beta.cpu(), out_c.beta, atol=2e-4, rtol=0)
+
+
+def test_beam_decode_on_the_card_matches_cpu(cuda):
+    """A small model decodes the same fp32 beams (W = 3) on the card,
+    through the beam-major cell and the top-W head, as on the CPU."""
+    cf = Config(encoder_backbone="resnet18", train_crop_size=64, vocab_length=37,
+                vocab_pad_multiple=8, adaptive_word_embed_size=16,
+                adaptive_lstm_hidden_size=32, decode_max_len=8, beam_size=3)
+    images = np.random.default_rng(2).integers(0, 256, (6, 72, 72, 3), dtype=np.uint8)
+    model_g = build_model(cf, device=cuda)
+    net_g = model_g.init(0)
+    model_c = build_model(cf, device="cpu")
+    net_c = model_c.init(0)
+    net_c.load_state_dict({k: v.cpu() for k, v in net_g.state_dict().items()})
+    fs.reset_launch_counts()
+    out_g = make_beam_decoder(model_g, cf)(net_g, images)
+    torch.cuda.synchronize()
+    assert fs.decode_cell.launches_beam == fs.beam_head_topk.launches == cf.decode_max_len
+    assert fs.decode_cell.launches == fs.greedy_head_argmax.launches == 0
+    out_c = make_beam_decoder(model_c, cf)(net_c, images)
+    np.testing.assert_array_equal(out_g.all_ids.cpu().numpy(), out_c.all_ids.numpy())
+    torch.testing.assert_close(out_g.all_scores.cpu(), out_c.all_scores, atol=1e-3, rtol=0)
     torch.testing.assert_close(out_g.attention.cpu(), out_c.attention, atol=2e-4, rtol=0)
     torch.testing.assert_close(out_g.beta.cpu(), out_c.beta, atol=2e-4, rtol=0)

@@ -1,7 +1,8 @@
-"""Plain twins of the port's two decode kernels (adaptive_tpu_torch/ops/
-fused_step.py) against the JAX package's Pallas kernels in interpret mode,
-on the same inputs (mirrors tests/test_pallas.py). The CUDA kernels
-themselves are held against these twins on the card by chip_smoke.py."""
+"""Plain twins of the port's decode kernels (adaptive_tpu_torch/ops/
+fused_step.py: the cell, greedy and beam-major; the greedy head; the top-W
+beam head) against the JAX package's Pallas kernels in interpret mode, on
+the same inputs (mirrors tests/test_pallas.py). The CUDA kernels themselves
+are held against these twins on the card by chip_smoke.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -149,6 +150,86 @@ def test_head_masks_columns_past_vocab():
     assert got.tolist() == [3]
 
 
+@pytest.mark.parametrize("W", [2, 3, 5])
+def test_beam_major_cell_twin_matches_pallas(W):
+    """beam_w > 1: rows are batch-major beam copies with their own states,
+    V/pv one copy per image. The JAX kernel gets them pre-padded by
+    pad_decode_slots, as its beam decoder passes them; the twin unpadded."""
+    B, K, H, E2 = 3, 49, 32, 12
+    R = B * W
+    lstm, atten, sentinel, a = _cell_inputs(R, K, H, E2, seed=11)
+    V = a["V"][:B]
+    J = lambda tr: _tree(tr, jnp.asarray)  # noqa: E731
+    T = lambda tr: _tree(tr, lambda v: torch.from_numpy(np.array(v)))  # noqa: E731
+    jl, ja, js = J(lstm), J(atten), J(sentinel)
+    jV = jnp.asarray(V)
+    jVp, jpvp = jfs.pad_decode_slots(jV, jatt.precompute_slots(ja, jV), beam_w=W)
+    want = jfs.adaptive_decode_cell_fused(
+        jl, ja, js, *(jnp.asarray(a[n]) for n in ("x", "h", "c", "hp")), jVp, jpvp,
+        real_k=K, beam_w=W, interpret=True)
+    tl, ta, ts, t = T(lstm), T(atten), T(sentinel), T(a)
+    tV = torch.from_numpy(V)
+    got = tfs.adaptive_decode_cell_fused(
+        tl, ta, ts, t["x"], t["h"], t["c"], t["hp"], tV, tV @ ta["affine_v"]["kernel"],
+        beam_w=W)
+    for name, g, w in zip(NAMES, got, want):
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, err_msg=name)
+
+
+def test_beam_major_cell_refuses_wrong_row_count():
+    """5 rows cannot be 2 images x beam 3: a tiled-V mistake fails loudly,
+    as the TPU kernel's check does (tests/test_pallas.py)."""
+    z = lambda *s: torch.zeros(s)  # noqa: E731
+    atten = {k: {"kernel": z(8, 8)} for k in ("affine_v", "affine_g", "affine_s")}
+    atten["affine_h"] = {"kernel": z(8, 1)}
+    sentinel = {"affine_x": {"kernel": z(4, 8)}, "affine_h": {"kernel": z(8, 8)}}
+    lstm = {"w_ih": z(4, 32), "w_hh": z(8, 32), "b_ih": z(32), "b_hh": z(32)}
+    with pytest.raises(ValueError, match="beam-major"):
+        tfs.adaptive_decode_cell_fused(lstm, atten, sentinel, z(5, 4), z(5, 8), z(5, 8),
+                                       z(5, 8), z(2, 8, 8), z(2, 8, 8), beam_w=3)
+
+
+@pytest.mark.parametrize("B,H,vocab,W", [(4, 16, 37, 3), (5, 32, 1500, 5), (3, 16, 200, 1)])
+def test_beam_head_twin_matches_pallas(B, H, vocab, W):
+    """Ids equal (tie order included); topv - lse and lse within 2e-5, as
+    tests/test_pallas.py holds the TPU kernel against lax.top_k."""
+    rng = np.random.default_rng(11)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    wp, bp = _pad_head(f(H, vocab), f(vocab), vocab)
+    chat, h = f(B, H), f(B, H)
+    jv, ji, jl = jfs.beam_head_topk(*map(jnp.asarray, (wp, bp, chat, h)), vocab, W,
+                                    interpret=True)
+    tv, ti, tl = tfs.beam_head_topk(*map(torch.from_numpy, (wp, bp, chat, h)), vocab, W)
+    assert ti.dtype == torch.int32 and tv.dtype == tl.dtype == torch.float32
+    assert tuple(tv.shape) == (B, W) and tuple(tl.shape) == (B, 1)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose((tv - tl).numpy(), np.asarray(jv - jl), atol=2e-5)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-5)
+
+
+def test_beam_head_tie_order():
+    """Equal logits at ids 10 and 40 rank by ascending id, after id 5."""
+    H, vocab, W = 8, 64, 4
+    w = np.zeros((H, 128), np.float32)
+    w[0, [10, 40]] = 2.0
+    w[0, 5] = 3.0
+    b = np.zeros(128, np.float32)
+    chat = np.full((2, H), 0.5, np.float32)
+    args = tuple(map(torch.from_numpy, (w, b, chat, chat)))
+    _, topi, _ = tfs.beam_head_topk(*args, vocab, W)
+    np.testing.assert_array_equal(topi[:, :3].numpy(), [[5, 10, 40]] * 2)
+    _, jtopi, _ = jfs.beam_head_topk(*map(jnp.asarray, (w, b, chat, chat)), vocab, W,
+                                     interpret=True)
+    np.testing.assert_array_equal(topi.numpy(), np.asarray(jtopi))
+
+
+def test_topk_lower_index_first_keeps_tied_ids_in_order():
+    x = torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0], [0.0, 0.0, 0.0, 0.0, 0.0]])
+    v, i = tfs.topk_lower_index_first(x, 3)
+    assert i.tolist() == [[1, 2, 4], [0, 1, 2]] and v[0].tolist() == [3.0, 3.0, 3.0]
+
+
 def test_wrappers_run_twins_on_cpu_without_counting():
     lstm, atten, sentinel, a = _cell_inputs(3, 4, 16, 8)
     T = lambda tr: _tree(tr, lambda v: torch.from_numpy(np.array(v)))  # noqa: E731
@@ -161,7 +242,15 @@ def test_wrappers_run_twins_on_cpu_without_counting():
         assert torch.equal(g, w)
     head = (ta["affine_v"]["kernel"], torch.zeros(4), t["h"], t["c"], 3)
     assert torch.equal(tfs.greedy_head_argmax(*head), tfs.greedy_head_argmax_plain(*head))
+    for g, w in zip(tfs.beam_head_topk(*head, 2), tfs.beam_head_topk_plain(*head, 2)):
+        assert torch.equal(g, w)
+    beam_args = list(args)
+    beam_args[5], beam_args[6] = pv[:1], t["V"][:1]  # 3 rows = 1 image x beam 3
+    for g, w in zip(tfs.decode_cell(*beam_args, beam_w=3),
+                    tfs.decode_cell_plain(*beam_args, beam_w=3)):
+        assert torch.equal(g, w)
     assert tfs.decode_cell.launches == 0 and tfs.greedy_head_argmax.launches == 0
+    assert tfs.decode_cell.launches_beam == 0 and tfs.beam_head_topk.launches == 0
 
 
 def test_wrappers_refuse_other_devices():
@@ -171,3 +260,14 @@ def test_wrappers_refuse_other_devices():
                                torch.empty(128, device="meta"), meta, meta, 10)
     with pytest.raises(ValueError, match="cuda or cpu"):
         tfs.decode_cell(*(meta,) * 14)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tfs.beam_head_topk(torch.empty((8, 128), device="meta"),
+                           torch.empty(128, device="meta"), meta, meta, 10, 3)
+
+
+@pytest.mark.parametrize("W", [0, 129])
+def test_beam_head_refuses_widths_past_one_tile(W):
+    """The top-W head takes 1 <= W <= 128 (one vocab tile) on every device."""
+    z = torch.zeros((2, 4))
+    with pytest.raises(ValueError, match="W="):
+        tfs.beam_head_topk(torch.zeros((4, 256)), torch.zeros(256), z, z, 200, W)

@@ -127,21 +127,24 @@ def test_prepare_cached_once_per_checkpoint(setup):
 
 
 def test_port_imports_no_jax():
-    """A fresh process imports the port and decodes on the CPU without
-    loading jax or any module of the JAX package."""
+    """A fresh process imports the port and decodes on the CPU, greedy and
+    beam, without loading jax or any module of the JAX package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
         from adaptive_tpu_torch import Config
         from adaptive_tpu_torch.models import build_model
-        from adaptive_tpu_torch.decoding import make_greedy_decoder
+        from adaptive_tpu_torch.decoding import make_beam_decoder, make_greedy_decoder
         cf = Config(encoder_backbone="resnet18", train_crop_size=64, vocab_length=32,
                     adaptive_word_embed_size=8, adaptive_lstm_hidden_size=16,
-                    decode_max_len=3)
+                    decode_max_len=3, beam_size=2)
         model = build_model(cf, device="cpu")
         imgs = np.zeros((2, 64, 64, 3), np.uint8)
-        out = make_greedy_decoder(model, cf)(model.init(0), imgs)
+        net = model.init(0)
+        out = make_greedy_decoder(model, cf)(net, imgs)
         assert tuple(out.ids.shape) == (2, 3)
+        beams = make_beam_decoder(model, cf)(net, imgs)
+        assert tuple(beams.all_ids.shape) == (2, 2, 3)
         bad = [m for m in sys.modules
                if m in ("jax", "adaptive_tpu") or m.startswith(("jax.", "adaptive_tpu."))]
         print("BAD", bad)
