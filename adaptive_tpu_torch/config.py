@@ -32,7 +32,20 @@ class Config:
     # auto|always: the decode step runs the fused kernels (ops/fused_step.py);
     # never: the plain op-by-op path (ops/lstm.py + ops/attention.py).
     use_pallas: str = "auto"
-    encoder_quant: str = "none"  # none|int8 (int8 is not ported yet)
+    # Inference-only encoder quantization: 'int8' runs the BN-folded convs as
+    # int8 products (int32 accumulation) on the s8 residual carry, with
+    # calibrated static activation scales (models/infer.py::calibrate_model)
+    # or, uncalibrated, dynamic per-tensor ones.
+    encoder_quant: str = "none"  # none|int8
+    # int8 activation-scale granularity: 'channel' calibrates one scale per
+    # input channel and folds it into the conv kernels (models/infer.py::
+    # _quant_conv_weight); 'tensor' is one scale per conv input, which the
+    # fused block and tail kernels (ops/fused_block.py, ops/fused_tail.py)
+    # require.
+    encoder_quant_granularity: str = "channel"  # channel|tensor
+    # Sequential per-channel bias correction at calibration time
+    # (models/infer.py::calibrate_int8_bias); zero runtime cost.
+    encoder_quant_bias_correct: bool = False
     # The reference sampler feeds the sentinel h_{t-1}=0 at every step; True
     # uses the true previous hidden instead.
     sampler_sentinel_uses_prev_hidden: bool = False
@@ -45,6 +58,15 @@ class Config:
     # and the cell kernel maps row r to image r // W (each image's slots are
     # read once a step); False repeats V/pv per beam row. Same outputs.
     decode_beam_major: bool = True
+
+    def __post_init__(self):
+        if self.encoder_quant not in ("none", "int8"):
+            raise ValueError(f"encoder_quant={self.encoder_quant!r} — must be none|int8")
+        if self.encoder_quant_granularity not in ("channel", "tensor"):
+            raise ValueError(
+                f"encoder_quant_granularity={self.encoder_quant_granularity!r} — "
+                "must be channel|tensor"
+            )
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -10,7 +10,7 @@ layouts, compute dtype, padded greedy head).
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Any, Dict, NamedTuple
 
 import torch
 import torch.nn as nn
@@ -19,7 +19,7 @@ from adaptive_tpu_torch.config import VARIANTS
 from adaptive_tpu_torch.models import decoders as D
 from adaptive_tpu_torch.models.encoder import AttentiveCNN
 from adaptive_tpu_torch.models.infer import (
-    INT8_TODO, cast_floating, encoder_apply_inference, prepare_encoder_inference,
+    cast_floating, encoder_apply_inference, prepare_encoder_inference,
 )
 from adaptive_tpu_torch.ops import attention as att
 
@@ -54,7 +54,24 @@ class CaptionModel(NamedTuple):
     compute_dtype: torch.dtype
     device: torch.device
     fused: bool = True  # decode through the kernels of ops/fused_step.py
-    encoder_quant: str = "none"
+    encoder_quant: str = "none"  # none | int8 (post-training quantisation, inference only)
+    # Calibrated {conv_name: scale} int8 input scales (models/infer.py::
+    # calibrate_model attaches them); None -> dynamic per-batch scales.
+    int8_scales: Any = None
+    # Per-out-channel bias corrections from calibrate_int8_bias, added into
+    # the conv biases (encoder_quant_bias_correct).
+    int8_bias_corr: Any = None
+    # Layers whose identity bottleneck blocks run the fused block kernel
+    # (ops/fused_block.py); "auto" resolves to (), a tuple of layer names
+    # overrides.
+    int8_fused_layers: Any = "auto"
+    # Layers whose identity-block tails fuse with the next block's conv1
+    # (ops/fused_tail.py); the same "auto" contract.
+    int8_fused_tails: Any = "auto"
+    # Space-to-depth stem on the int8 carry (the 7x7/s2 conv1 as s2d + a
+    # 4x4/s1 conv, bit-exact); "auto" = on for even crops, True/False
+    # overrides.
+    int8_stem_s2d: Any = "auto"
 
     def init(self, seed: int = 0) -> Encoder2Decoder:
         """Random weights on self.device, drawn from torch.Generator(seed)
@@ -67,21 +84,45 @@ class CaptionModel(NamedTuple):
         net.decoder.init_(gen)
         return net
 
+    def _resolved_fusion(self):
+        """(fused_layers, fused_tails, stem_s2d) with 'auto' resolved, as
+        the JAX package resolves them: no fused layers or tails by default
+        (both measured a net loss on the TPU, and the port's kernels are not
+        faster yet either), the s2d stem on for even crops."""
+        fused = () if self.int8_fused_layers == "auto" else self.int8_fused_layers
+        tails = () if self.int8_fused_tails == "auto" else self.int8_fused_tails
+        s2d = self.int8_stem_s2d
+        if s2d == "auto":
+            s2d = self.crop_size % 2 == 0  # s2d packs 2x2 pixel blocks
+        elif s2d and self.crop_size % 2:
+            raise ValueError(
+                "int8_stem_s2d=True requires an even input size (space-to-"
+                f"depth packs 2x2 pixel blocks) but crop_size={self.crop_size}"
+                " is odd — use an even train_crop_size or int8_stem_s2d=False"
+            )
+        return fused, tails, bool(s2d)
+
     def prepare_inference(self, net: Encoder2Decoder) -> Dict:
-        """{'encoder': folded, cast encoder tree, 'decoder': JAX-layout decoder
+        """{'encoder': folded encoder tree (cast to the compute dtype, or
+        int8-quantised once with int8_scales), 'decoder': JAX-layout decoder
         params in the compute dtype, 'head': padded vocab head of the greedy
         and beam head kernels, None unless fused}."""
+        _, _, s2d = self._resolved_fusion()
         with torch.no_grad():
-            enc = prepare_encoder_inference(net.encoder, self.compute_dtype, self.encoder_quant)
+            enc = prepare_encoder_inference(
+                net.encoder, self.compute_dtype, self.encoder_quant, scales=self.int8_scales,
+                stem_s2d=s2d, bias_corr=self.int8_bias_corr)
             dec = cast_floating(D.decoder_params(net.decoder), self.compute_dtype)
             head = self.prepare_greedy_head(dec)
         return {"encoder": enc, "decoder": dec, "head": head}
 
     def encode_inference(self, prepared: Dict, images: torch.Tensor):
         """Preprocessed float NHWC images -> (V, v_g, h0, c0)."""
+        fused, tails, s2d = self._resolved_fusion()
         return encoder_apply_inference(
             None, images, self.arch, self.compute_dtype, self.encoder_quant,
-            prepared=prepared["encoder"])
+            scales=self.int8_scales, fused_layers=fused, fused_tails=tails, stem_s2d=s2d,
+            prepared=prepared["encoder"], bias_corr=self.int8_bias_corr)
 
     def prepare_greedy_head(self, dec_params: Dict):
         if not self.fused:
@@ -120,8 +161,6 @@ def build_model(cf, device="cuda") -> CaptionModel:
         raise ValueError(f"unknown atten_model_name {cf.atten_model_name!r}")
     if cf.atten_model_name != "adaptive_attention":
         raise NotImplementedError(D.NOT_PORTED.format(cf.atten_model_name))
-    if cf.encoder_quant == "int8":
-        raise NotImplementedError(INT8_TODO)
     dev = resolve_device(device)
     num_slots = (cf.train_crop_size // 32) ** 2  # 49 at 224 (7x7 map)
     m = max(1, cf.vocab_pad_multiple)

@@ -25,12 +25,14 @@ BUILD_DIR = HERE / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures in csrc/fused_step.cu and csrc/head_topk.cu
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures in csrc/fused_step.cu, head_topk.cu, fused_block.cu, fused_tail.cu
 SIGNATURES = {
     "adaptive_cell_launch": [_I] + [_P] * 19 + [_I] * 6 + [_P],
     "head_argmax_launch": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     "head_topk_launch": [_I] + [_P] * 10 + [_I] * 5 + [_P],
+    "bottleneck_block_launch": [_P] * 11 + [_F] * 4 + [_I] * 5 + [_P],
+    "tail_conv1_launch": [_P] * 10 + [_F] * 3 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

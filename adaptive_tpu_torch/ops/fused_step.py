@@ -47,6 +47,13 @@ def _check_cuda(names, tensors, dtype, device):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _check_device(names, tensors, device):
+    """Every operand on x's device, which picks the kernel or the twin."""
+    for name, t in zip(names, tensors):
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device} (where x is)")
+
+
 def _check_shape(name, t, shape):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")

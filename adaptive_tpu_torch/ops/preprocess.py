@@ -46,7 +46,10 @@ def eval_preprocess(images_u8: torch.Tensor, size: int, dtype=torch.float32) -> 
     JAX package (its preprocess.py:85); fp32 mode keeps the exact path.
     """
     work = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
-    x = images_u8.to(work) / 255.0
+    # a true division on every device: CUDA multiplies by the reciprocal of
+    # a Python scalar divisor, which moves the card's pixels by an ulp from
+    # the CPU's (and an int8 requant tie with them)
+    x = images_u8.to(work) / torch.full((), 255.0, dtype=work, device=images_u8.device)
     if images_u8.shape[1] != size:
         x = _resize(x, size)
     mean = torch.tensor(IMAGENET_MEAN, dtype=work, device=x.device)

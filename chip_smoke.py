@@ -14,6 +14,11 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
 2b. does the same for the beam kernels (the beam-major cell, the top-W
    head) at the beam path's shapes: 1024 images x beam 3 = 3072 rows, V/pv
    one copy per image; plus a correctness-only pass at beam 5;
+2c. holds the int8 encoder's kernels (the fused identity bottleneck block,
+   the fused tail + next conv1) against their twins and against the int8
+   carry's own unfused code at ResNet-152's four bottleneck layer shapes at
+   batch 1024 (seeded s8 inputs), timing kernel, twin and unfused segment
+   beside the bound; plus a correctness-only pass at 3 images of 13 x 13;
 3. runs the greedy path end to end in bf16 at full width: build_model ->
    make_greedy_decoder -> greedy captions for 1024 seeded uint8 256x256
    images with a seeded random ResNet-152 / H 512 model; checks that each
@@ -24,6 +29,15 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    make_beam_decoder; checks that the beam kernels launched once per step
    and the greedy ones not at all, that ids, scores, attention and beta are
    well formed, and times it as phase 3 does (--profile: a second table);
+5. runs the int8 encoder end to end in bf16 on the same model and images:
+   build_model(encoder_quant="int8") -> calibrate_model (32 images) ->
+   make_greedy_decoder, in mode (a) per-channel scales, s2d stem, no fused
+   kernels (the bench's default); (b) per-tensor scales with every
+   layer's identity blocks through the fused block kernel (45 launches a
+   decode); (c) per-tensor scales with every layer's tails through the
+   fused tail kernel (45 launches); and (t) per-tensor scales without
+   kernels, the control against which (b)'s and (c)'s features are held;
+   each timed as phase 3 (--profile: a table for mode (a));
 4. decodes 8 images greedily in fp32 (TF32 off) on the card and on the CPU
    (plain twins) and requires equal ids, except where the first differing
    step's fp32 top-2 logit gap is below 1e-3, and attention and beta within
@@ -31,7 +45,13 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
 4b. beam-decodes the same 8 images (beam 3) on both and requires equal
    beams, except for an image whose CPU decode had two adjacent flat
    candidates (of the top W+1) within PARITY_GAP_EPS at some step; scores
-   within 1e-3 and attention and beta within PARITY_ATOL where equal.
+   within 1e-3 and attention and beta within PARITY_ATOL where equal;
+6. runs the int8 encoder in fp32 on 8 seeded images at the crop size on
+   the card and on the CPU, in modes (a) and (c) with the card's scales
+   handed to both: trunk features within phase 5's bound (0 elements should
+   differ), greedy ids under phase 4's rule.
+
+Phases run in the order 1, 2, 2b, 3, 3b, 2c, 5, 4, 4b, 6.
 
 Prints one JSON line of per-kernel numbers, then as its last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
@@ -56,7 +76,7 @@ BEAM = 3  # beam path: B images x BEAM rows (bench.py --beam 3)
 SEED = 0
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 # Tolerances, kernel vs plain twin on the same inputs. fp32: sums in another
 # order, |err| <= 1e-5 + 1e-5 |ref|. bf16 outputs (h, c, c_hat): one bf16
 # rounding step, |err| <= 1e-5 + 2^-7 |ref|. alpha/beta are fp32 in both.
@@ -71,6 +91,19 @@ LSE_RTOL = 1e-5  # top-W head's logsumexp, kernel vs twin
 # 152-layer encoder and 30 steps)
 PARITY_ATOL = 2e-4
 E2E_REPEATS = 3  # phase 3: timed end-to-end runs after the warm-up
+# int8 encoder (phases 2c, 5, 6): ResNet-152's bottleneck layers as (H = W,
+# C, M, identity blocks that are not the last block = launches of kernel 5,
+# and of kernel 6, in one decode: 2 + 7 + 35 + 1 = 45)
+INT8_LAYERS = ((56, 256, 64, 2), (28, 512, 128, 7), (14, 1024, 256, 35), (7, 2048, 512, 1))
+INT8_FUSED = ("layer1", "layer2", "layer3", "layer4")
+INT8_LAUNCHES = sum(n for *_, n in INT8_LAYERS)
+INT8_ITERS = 5  # timed launches of each int8 kernel and its twin (ms each)
+INT8_CALIB = 32  # images that calibrate_model sees
+# kernels 5 and 6 against their twins: +/-1 quantum on under 0.2% of
+# elements, the JAX package's bound for its Pallas kernels against XLA
+# (tests/test_pallas.py); the port's epilogues are uncontracted, so 0 is
+# expected
+QUANTUM_SHARE = 2e-3
 
 
 def log(msg):
@@ -310,6 +343,131 @@ def beam_kernel_checks(dtype_name: str, W: int, timed: bool = True):
     }
 
 
+# ---------------------------------------------------------------- phase 2c
+def quanta(name, got, want):
+    """Elements of two s8 outputs that differ: at most 1 quantum, on under
+    QUANTUM_SHARE of them. Returns (count, max |d|)."""
+    d = (got.int() - want.int()).abs()
+    n, worst = int((d > 0).sum()), int(d.max())
+    if worst > 1 or n >= QUANTUM_SHARE * d.numel():
+        raise AssertionError(f"{name}: {n}/{d.numel()} elements differ, max |d| {worst}")
+    return n, worst
+
+
+def int8_kernel_checks():
+    """Kernels 5 and 6 against their twins at the four bottleneck layers'
+    shapes at batch B, with seeded s8 activations and weights and epilogue
+    rows that keep the outputs inside the s8 range. Times kernel, twin and
+    the unfused segment (the carry's own _acc_i8 + epilogue code, the path
+    that runs with the kernel off); then one correctness-only pass at an
+    odd shape (3 images of 13 x 13)."""
+    import torch
+
+    from adaptive_tpu_torch.models import infer as I
+    from adaptive_tpu_torch.ops import fused_block as fb
+    from adaptive_tpu_torch.ops import fused_tail as ft
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 100)
+    relu = torch.relu
+
+    def s8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+
+    def rows(n, k):  # acc * sc + b at O(1): an int8 product of depth k spreads ~127^2 sqrt(k) / 3
+        sc = (torch.rand(n, generator=g, device="cuda") + 0.5) * (3.0 / (127 ** 2 * k ** 0.5))
+        return sc, torch.randn(n, generator=g, device="cuda") * 0.3
+
+    def conv(w, kh, sc, b):  # a prepared conv dict of the carry, w [O, kh*kh*I] (ky, kx, i)
+        O = w.shape[0]
+        return {"wq": w.reshape(O, kh, kh, -1).permute(0, 3, 1, 2), "scale": sc, "bias": b}
+
+    def carry_block(x4, c1, c2, c3, s2, s3, s_in, s_out):  # _resnet_int8_carry's ops
+        acc, sc = I._acc_i8(x4, c1, None)
+        z = I._requant(relu(acc.float() * sc + c1["bias"]), s2)
+        acc, sc = I._acc_i8(z, c2, None)
+        z = I._requant(relu(acc.float() * sc + c2["bias"]), s3)
+        acc, sc = I._acc_i8(z, c3, None)
+        tail = acc.float() * sc + c3["bias"]
+        return I._requant(relu(tail + x4.float() * I.f32(s_in, tail)), s_out)
+
+    def carry_tail(x4, z2, c3, c1, s_in, s_out, s_next):
+        acc, sc = I._acc_i8(z2, c3, None)
+        out = I._requant(relu(acc.float() * sc + c3["bias"] + x4.float() * I.f32(s_in, acc)), s_out)
+        acc, sc = I._acc_i8(out, c1, None)
+        return out, I._requant(relu(acc.float() * sc + c1["bias"]), s_next)
+
+    S5, S6 = (0.034, 0.057, 0.021, 0.026), (0.024, 0.027, 0.042)
+    res = {"bottleneck_identity_int8": [], "tail_conv1_int8": []}
+    shapes = [(B, H, C, M, M, n) for H, C, M, n in INT8_LAYERS] + [(3, 13, 256, 64, 128, 0)]
+    for nb, H, C, M, M2, n in shapes:
+        N = nb * H * H
+        timed = n > 0
+        where = f"layer{[l[0] for l in INT8_LAYERS].index(H) + 1}" if timed else "odd"
+        x = s8(N, C)
+        w1, w2, w3 = s8(M, C), s8(M, 9 * M), s8(C, M)
+        r1, r2, r3 = rows(M, C), rows(M, 9 * M), rows(C, M)
+        a5 = (x, H, H, w1, w2, w3, *r1, *r2, *r3, *S5)
+        got = fb.bottleneck_identity_int8(*a5)
+        torch.cuda.synchronize()
+        n5, d5 = quanta(f"block {where}", got, fb.bottleneck_identity_int8_plain(*a5))
+        x4 = x.reshape(nb, H, H, C)
+        c5 = (conv(w1, 1, *r1), conv(w2, 3, *r2), conv(w3, 1, *r3))
+        u5 = quanta(f"block {where} vs the carry", got.reshape(nb, H, H, C),
+                    carry_block(x4, *c5, *S5))[0]
+
+        z2, w1n = s8(N, M), s8(M2, C)
+        r1n = rows(M2, C)
+        a6 = (x, z2, w3, *r3, w1n, *r1n, *S6)
+        out, z1 = ft.tail_conv1_int8(*a6)
+        torch.cuda.synchronize()
+        p_out, p_z1 = ft.tail_conv1_int8_plain(*a6)
+        n6, d6 = quanta(f"tail {where} carry", out, p_out)
+        n6b, d6b = quanta(f"tail {where} conv1", z1, p_z1)
+        c6 = (conv(w3, 1, *r3), conv(w1n, 1, *r1n))
+        z24 = z2.reshape(nb, H, H, M)
+        u6 = quanta(f"tail {where} vs the carry", z1.reshape(nb, H, H, M2),
+                    carry_tail(x4, z24, *c6, *S6)[1])[0]
+        line = (f"[int8 kernels {where}] B {nb} H=W {H} C {C} M {M}: block {n5}/{got.numel()} "
+                f"elements differ from the twin (max |d| {d5}), {u5} from the carry; tail "
+                f"{n6 + n6b}/{out.numel() + z1.numel()} (max |d| {max(d6, d6b)}), {u6} from the carry")
+        if not timed:
+            log(line)
+            continue
+        k5 = cuda_ms(lambda: fb.bottleneck_identity_int8(*a5), INT8_ITERS, 1)
+        p5 = cuda_ms(lambda: fb.bottleneck_identity_int8_plain(*a5), INT8_ITERS, 1)
+        f5 = cuda_ms(lambda: carry_block(x4, *c5, *S5), INT8_ITERS, 1)
+        b5 = bound(2 * nbytes(x) + nbytes(w1, w2, w3, *r1, *r2, *r3),
+                   2.0 * N * (C * M + 9 * M * M + M * C), "int8")
+        k6 = cuda_ms(lambda: ft.tail_conv1_int8(*a6), INT8_ITERS, 1)
+        p6 = cuda_ms(lambda: ft.tail_conv1_int8_plain(*a6), INT8_ITERS, 1)
+        f6 = cuda_ms(lambda: carry_tail(x4, z24, *c6, *S6), INT8_ITERS, 1)
+        b6 = bound(nbytes(x, z2, out, z1, w3, w1n, *r3, *r1n), 2.0 * N * (M * C + C * M2), "int8")
+        log(line + f" | block: kernel {k5:.4f} ms plain {p5:.4f} ms unfused {f5:.4f} ms bound "
+            f"{b5[0]:.4f} ms ({b5[1]}) | tail: kernel {k6:.4f} ms plain {p6:.4f} ms unfused "
+            f"{f6:.4f} ms bound {b6[0]:.4f} ms ({b6[1]}); launches a decode {n}")
+        for name, nd, dmax, ms, pl, un, bd in (
+                ("bottleneck_identity_int8", n5, d5, k5, p5, f5, b5),
+                ("tail_conv1_int8", n6 + n6b, max(d6, d6b), k6, p6, f6, b6)):
+            res[name].append({"layer": where, "B": nb, "H": H, "C": C, "M": M, "launches": n,
+                              "elements_differ": nd, "max_abs_err": dmax, "ms": ms,
+                              "plain_ms": pl, "unfused_ms": un, "bound_ms": bd[0],
+                              "bound_by": bd[1]})
+        del a5, a6, x4, z24, c5, c6, got, out, z1, p_out, p_z1
+        torch.cuda.empty_cache()
+    return res
+
+
+def int8_summary(per_layer):
+    """One decode's launch-weighted sums over the layers of a kernel's rows."""
+    tot = {k: sum(r["launches"] * r[k] for r in per_layer)
+           for k in ("ms", "plain_ms", "unfused_ms", "bound_ms")}
+    by = {}
+    for r in per_layer:
+        by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["launches"] * r["bound_ms"]
+    return {**tot, "bound_by": max(by, key=by.get),
+            "max_abs_err": max(r["max_abs_err"] for r in per_layer)}
+
+
 # ----------------------------------------------------------------- phase 3
 def seeded_images(n, seed, size=256, cells=4):
     """n uint8 NHWC images from a numpy seed: a random cells x cells grid of
@@ -343,12 +501,25 @@ def random_model(cf, device, calib_images):
 
 
 def launch_counts():
+    from adaptive_tpu_torch.ops import fused_block as fb
     from adaptive_tpu_torch.ops import fused_step as fs
+    from adaptive_tpu_torch.ops import fused_tail as ft
 
     return {"adaptive_decode_cell_fused": fs.decode_cell.launches,
             "greedy_head_argmax": fs.greedy_head_argmax.launches,
             "adaptive_decode_cell_fused_beam": fs.decode_cell.launches_beam,
-            "beam_head_topk": fs.beam_head_topk.launches}
+            "beam_head_topk": fs.beam_head_topk.launches,
+            "bottleneck_identity_int8": fb.bottleneck_identity_int8.launches,
+            "tail_conv1_int8": ft.tail_conv1_int8.launches}
+
+
+def reset_launch_counts():
+    from adaptive_tpu_torch.ops import fused_block as fb
+    from adaptive_tpu_torch.ops import fused_step as fs
+    from adaptive_tpu_torch.ops import fused_tail as ft
+
+    fs.reset_launch_counts()
+    fb.bottleneck_identity_int8.launches = ft.tail_conv1_int8.launches = 0
 
 
 def timed_decodes(decode, net, model, cf, images, expect):
@@ -358,7 +529,6 @@ def timed_decodes(decode, net, model, cf, images, expect):
     encoder runs. Returns (first output, launches, total ms, encoder ms)."""
     import torch
 
-    from adaptive_tpu_torch.ops import fused_step as fs
     from adaptive_tpu_torch.ops.preprocess import eval_preprocess
 
     prepared = decode.prepare(net)
@@ -371,7 +541,7 @@ def timed_decodes(decode, net, model, cf, images, expect):
         torch.cuda.synchronize()
         return res, (time.perf_counter() - t0) * 1e3
 
-    fs.reset_launch_counts()
+    reset_launch_counts()
     out, first_ms = timed(lambda: decode(net, images))
     launches = launch_counts()
     for name, n in expect.items():
@@ -406,7 +576,8 @@ def end_to_end(model, net, cf, images_u8, smi, profile_dir=None):
     decode = make_greedy_decoder(model, cf)
     images = torch.as_tensor(images_u8, device="cuda")
     expect = {"adaptive_decode_cell_fused": STEPS, "greedy_head_argmax": STEPS,
-              "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0}
+              "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0,
+              "bottleneck_identity_int8": 0, "tail_conv1_int8": 0}
     out, launches, total_ms, enc_ms = timed_decodes(decode, net, model, cf, images, expect)
 
     ids = out.ids.cpu().numpy()
@@ -435,7 +606,8 @@ def beam_end_to_end(model, net, cf, images_u8, smi, profile_dir=None):
     decode = make_beam_decoder(model, cf, beam_size=BEAM)
     images = torch.as_tensor(images_u8, device="cuda")
     expect = {"adaptive_decode_cell_fused": 0, "greedy_head_argmax": 0,
-              "adaptive_decode_cell_fused_beam": STEPS, "beam_head_topk": STEPS}
+              "adaptive_decode_cell_fused_beam": STEPS, "beam_head_topk": STEPS,
+              "bottleneck_identity_int8": 0, "tail_conv1_int8": 0}
     out, launches, total_ms, enc_ms = timed_decodes(decode, net, model, cf, images, expect)
 
     all_ids = out.all_ids.cpu().numpy()
@@ -468,6 +640,138 @@ def beam_end_to_end(model, net, cf, images_u8, smi, profile_dir=None):
     if profile_dir:
         profile_decode(lambda: decode(net, images), profile_dir, smi, f"beam{BEAM}")
     return launches, {"total_ms": total, "encoder_ms": enc, "captions_per_s": B / total * 1e3}
+
+
+# ----------------------------------------------------------------- phase 5
+def feature_check(name, got, ref):
+    """Encoder features against a reference run: the bound of the JAX
+    package's fused-kernel integration tests (tests/test_pallas.py:522-526),
+    max |d| < 0.05 max |ref| and cosine > 0.9999. Returns the count of
+    elements that differ."""
+    import torch
+
+    g, r = got.double(), ref.double()
+    if g.shape != r.shape or not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: features of shape {tuple(g.shape)}, or not finite")
+    err, scale = float((g - r).abs().max()), float(r.abs().max())
+    cos = float((g * r).sum() / (g.norm() * r.norm()))
+    if not (err < 0.05 * scale and cos > 0.9999):
+        raise AssertionError(f"{name}: max |d| {err:.3e} against max |ref| {scale:.3e}, cos {cos}")
+    return int((g != r).sum())
+
+
+def int8_end_to_end(net, cf, images_u8, smi, profile_dir=None):
+    """The int8 encoder end to end in bf16 at batch B on phase 3's model and
+    images: build_model(encoder_quant="int8") -> calibrate_model (INT8_CALIB
+    images) -> make_greedy_decoder, in three modes: (a) the bench's default
+    (per-channel scales, s2d stem, no fused kernels), (b) per-tensor scales
+    with every layer's identity blocks through kernel 5, (c) per-tensor
+    scales with every layer's tails through kernel 6; and (t), per-tensor
+    scales without kernels, the control of (b) and (c), whose features are
+    held against its."""
+    import torch
+
+    from adaptive_tpu_torch.decoding import make_greedy_decoder
+    from adaptive_tpu_torch.models import build_model
+    from adaptive_tpu_torch.models.infer import calibrate_model
+    from adaptive_tpu_torch.ops.preprocess import eval_preprocess
+
+    images = torch.as_tensor(images_u8, device="cuda")
+    cf_a = cf.replace(encoder_quant="int8")
+    cf_t = cf_a.replace(encoder_quant_granularity="tensor")
+    t0 = time.perf_counter()
+    model_a = calibrate_model(build_model(cf_a), cf_a, net, images_u8[:INT8_CALIB])
+    model_t = calibrate_model(build_model(cf_t), cf_t, net, images_u8[:INT8_CALIB])
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    base = {"adaptive_decode_cell_fused": STEPS, "greedy_head_argmax": STEPS,
+            "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0}
+    none = {"bottleneck_identity_int8": 0, "tail_conv1_int8": 0}
+    modes = {
+        "a": (model_a, cf_a, none),
+        "t": (model_t, cf_t, none),  # the control of (b) and (c): no kernels
+        "b": (model_t._replace(int8_fused_layers=INT8_FUSED), cf_t,
+              {"bottleneck_identity_int8": INT8_LAUNCHES, "tail_conv1_int8": 0}),
+        "c": (model_t._replace(int8_fused_tails=INT8_FUSED), cf_t,
+              {"bottleneck_identity_int8": 0, "tail_conv1_int8": INT8_LAUNCHES}),
+    }
+    with torch.no_grad():
+        x = eval_preprocess(images, cf.train_crop_size, model_t.compute_dtype)
+        ref = model_t.encode_inference(model_t.prepare_inference(net), x)[0]
+    results, launches = {}, {}
+    for tag, (model, mcf, extra) in modes.items():
+        decode = make_greedy_decoder(model, mcf)
+        out, got, total_ms, enc_ms = timed_decodes(decode, net, model, mcf, images,
+                                                   {**base, **extra})
+        launches[tag] = got
+        ids = out.ids.cpu().numpy()
+        if ids.shape != (B, STEPS) or ids.min() < 0 or ids.max() >= VOCAB:
+            raise AssertionError(f"int8 {tag}: ids of shape {ids.shape} in [{ids.min()}, {ids.max()}]")
+        check_maps(out, (B,))
+        differ = ""
+        if tag in "bc":
+            with torch.no_grad():
+                V = model.encode_inference(decode.prepare(net), x)[0]
+            differ = (f"; V against per-tensor scales without kernels: "
+                      f"{feature_check(f'int8 {tag}', V, ref)}/{V.numel()} elements differ")
+        distinct = len({tuple(r) for r in ids.tolist()})
+        total, enc = sum(total_ms) / len(total_ms), sum(enc_ms) / len(enc_ms)
+        log(f"[end-to-end int8 {tag} bf16] {smi}: {mcf.encoder_quant_granularity} scales, fused "
+            f"layers {model.int8_fused_layers}, tails {model.int8_fused_tails}, s2d stem "
+            f"{model._resolved_fusion()[2]}; batch {B}, mean of {E2E_REPEATS} runs: total "
+            f"{total:.3f} ms {total_ms}, encoder {enc:.3f} ms {enc_ms}, decode loop "
+            f"{total - enc:.3f} ms, {B / total * 1e3:.1f} captions/s; launches {got}; "
+            f"{distinct} distinct captions, first: {ids[0, :12].tolist()}{differ}")
+        results[tag] = {"total_ms": total, "encoder_ms": enc, "captions_per_s": B / total * 1e3}
+        if profile_dir and tag == "a":
+            profile_decode(lambda: decode(net, images), profile_dir, smi, "int8_a")
+        del decode, out
+        torch.cuda.empty_cache()
+    log(f"[int8 calibration] two calibrate_model calls on {INT8_CALIB} images: {calib_s:.2f} s")
+    return launches, results
+
+
+# ----------------------------------------------------------------- phase 6
+def int8_parity(cf, net_g, net_c):
+    """int8 in fp32 on 8 images, card against CPU, in modes (a) and (c):
+    scales calibrated once on the card and handed to both. The images are
+    at the crop size (224 px, no resize: the card's antialiased resize rounds
+    otherwise than the CPU's). The trunk features (the int8 ResNet's output)
+    are held to phase 5's bound, 0 differing elements expected (exact
+    products, the same IEEE epilogues, a device-exact BN fold); greedy ids
+    under phase 4's top-2 gap rule."""
+    import torch
+
+    from adaptive_tpu_torch.models import build_model
+    from adaptive_tpu_torch.models import infer as I
+    from adaptive_tpu_torch.models.infer import calibrate_model
+    from adaptive_tpu_torch.ops.preprocess import eval_preprocess
+
+    imgs = seeded_images(8, SEED + 1, size=cf.train_crop_size)
+
+    def trunk(model, net, dev):
+        fused, tails, s2d = model._resolved_fusion()
+        x = eval_preprocess(torch.as_tensor(imgs, device=dev), cf.train_crop_size)
+        with torch.no_grad():
+            return I.resnet_apply_folded_int8(model.prepare_inference(net)["encoder"]["resnet"], x,
+                                              model.arch, model.int8_scales, fused, tails,
+                                              stem_s2d=s2d)
+
+    for tag, gran, kw in (("a", "channel", {}), ("c", "tensor", {"int8_fused_tails": INT8_FUSED})):
+        cf_i = cf.replace(encoder_quant="int8", encoder_quant_granularity=gran)
+        mg = calibrate_model(build_model(cf_i), cf_i, net_g, imgs)._replace(**kw)
+        mc = build_model(cf_i, device="cpu")._replace(int8_scales=mg.int8_scales, **kw)
+        reset_launch_counts()
+        Ag = trunk(mg, net_g, "cuda").cpu()
+        n6 = launch_counts()["tail_conv1_int8"]
+        if n6 != (INT8_LAUNCHES if kw else 0):
+            raise AssertionError(f"int8 parity {tag}: kernel 6 launched {n6} times")
+        Ac = trunk(mc, net_c, "cpu")
+        differ = feature_check(f"int8 parity {tag}", Ag, Ac)
+        log(f"[int8 parity fp32 {tag}] {gran} scales, fused tails {mg.int8_fused_tails}: trunk "
+            f"features card vs CPU: {differ}/{Ac.numel()} elements differ, max abs diff "
+            f"{float((Ag - Ac).abs().max()):.3e}")
+        cross_device_parity(cf_i, mg, net_g, mc, net_c, imgs, tag=f"int8 parity fp32 {tag}")
 
 
 def profile_decode(run, out_dir, smi, tag):
@@ -552,7 +856,7 @@ def fp32_models(images_u8):
     return cf, model_g, net_g, model_c, net_c
 
 
-def cross_device_parity(cf, model_g, net_g, model_c, net_c, images_u8):
+def cross_device_parity(cf, model_g, net_g, model_c, net_c, images_u8, tag="parity fp32"):
     from adaptive_tpu_torch.decoding import make_greedy_decoder
 
     imgs = images_u8[:8]
@@ -566,7 +870,7 @@ def cross_device_parity(cf, model_g, net_g, model_c, net_c, images_u8):
         t = int(diff[0]) if len(diff) else STEPS
         if t < STEPS:
             gap = float(gaps[row, t])
-            log(f"[parity fp32] row {row} differs from step {t}: CPU top-2 gap there {gap:.3e}")
+            log(f"[{tag}] row {row} differs from step {t}: CPU top-2 gap there {gap:.3e}")
             if gap >= PARITY_GAP_EPS or int(ref_ids[row, t]) != int(ids_c[row, t]):
                 raise AssertionError(f"row {row}: ids differ at step {t} with top-2 gap {gap:.3e}")
         # up to the first differing id both devices decode the same tokens
@@ -576,7 +880,7 @@ def cross_device_parity(cf, model_g, net_g, model_c, net_c, images_u8):
                 f"parity {name} row {row}", a[row, :t + 1].cpu(), b[row, :t + 1], PARITY_ATOL, 0.0))
     n_same = int((ids_g == ids_c).all(1).sum())
     distinct = len({tuple(r) for r in ids_c.tolist()})
-    log(f"[parity fp32, TF32 off] card vs CPU: {n_same}/{imgs.shape[0]} captions identical "
+    log(f"[{tag}, TF32 off] card vs CPU: {n_same}/{imgs.shape[0]} captions identical "
         f"({distinct} distinct); attention/beta max abs err {att_err:.3e} (atol {PARITY_ATOL}); "
         f"min top-2 gap over all steps {float(gaps.min()):.3e}; first: {ids_g[0, :12].tolist()}")
 
@@ -674,8 +978,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also profile one end-to-end decode with torch.profiler; "
-                         "the kernel table goes to DIR/profile_e2e.txt")
+                    help="also profile one end-to-end decode of each path with "
+                         "torch.profiler; the kernel tables go to DIR/profile_e2e_<path>.txt")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "adaptive_tpu_torch", "ops", "cuda", "csrc")):
         print("chip_smoke.py: adaptive_tpu_torch is not beside this script", file=sys.stderr)
@@ -721,13 +1025,28 @@ def main() -> int:
     # phase 3b: beam search end to end on the same model and images
     beam_launches, e2e_beam = beam_end_to_end(model, net, cf, images_u8, smi, args.profile)
     launches.update(beam_launches)
-    del model, net
+
+    # phase 2c, run after the exact paths so that phases 3 and 3b meet the
+    # card fresh from the decode kernels' checks: the int8 kernels against
+    # their twins
+    del model
+    torch.cuda.empty_cache()
+    int8_checks = int8_kernel_checks()
+
+    # phase 5: the int8 encoder end to end, modes (a), (t), (b), (c)
+    int8_launches, e2e_int8 = int8_end_to_end(net, cf, images_u8, smi, args.profile)
+    launches["bottleneck_identity_int8"] = int8_launches["b"]["bottleneck_identity_int8"]
+    launches["tail_conv1_int8"] = int8_launches["c"]["tail_conv1_int8"]
+    del net
     torch.cuda.empty_cache()
 
     # phases 4 and 4b: fp32 greedy ids and beams on the card equal the CPU's
     fp32 = fp32_models(images_u8)
     cross_device_parity(*fp32, images_u8)
     beam_parity(*fp32, images_u8)
+
+    # phase 6: int8 in fp32, card vs CPU, modes (a) and (c)
+    int8_parity(fp32[0], fp32[2], fp32[4])
 
     csrc = "adaptive_tpu_torch/ops/cuda/csrc/"
     sources = {
@@ -751,8 +1070,21 @@ def main() -> int:
             "fp32": {k: fp[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
         })
+    int8_sources = {
+        "bottleneck_identity_int8": ("adaptive_tpu/ops/pallas/fused_block.py:137",
+                                     csrc + "fused_block.cu"),
+        "tail_conv1_int8": ("adaptive_tpu/ops/pallas/fused_tail.py:91", csrc + "fused_tail.cu"),
+    }
+    for name, (replaces, source) in int8_sources.items():
+        # per decode: the launch-weighted sums over the four layers' shapes
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], **int8_summary(int8_checks[name]), "library_ms": None,
+            "dtype": "int8", "per_layer": int8_checks[name]})
     log(json.dumps({"kernels": kernels, "end_to_end_bf16": e2e,
-                    f"end_to_end_beam{BEAM}_bf16": e2e_beam, "card": smi}))
+                    f"end_to_end_beam{BEAM}_bf16": e2e_beam,
+                    **{f"end_to_end_int8_{t}_bf16": v for t, v in e2e_int8.items()},
+                    "card": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

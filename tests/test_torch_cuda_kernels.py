@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain twins on the card, at shapes
 that chip_smoke.py does not reach: row blocks cut short, beam groups that
-straddle blocks, widths below a tile, planted ties across vocab tiles. Each
-test skips where there is no card. On a machine with one:
+straddle blocks, widths below a tile, planted ties across vocab tiles, int8
+images of odd sizes and row counts off the tiles. Each test skips where
+there is no card. On a machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
@@ -235,3 +236,141 @@ def test_beam_decode_on_the_card_matches_cpu(cuda):
     torch.testing.assert_close(out_g.all_scores.cpu(), out_c.all_scores, atol=1e-3, rtol=0)
     torch.testing.assert_close(out_g.attention.cpu(), out_c.attention, atol=2e-4, rtol=0)
     torch.testing.assert_close(out_g.beta.cpu(), out_c.beta, atol=2e-4, rtol=0)
+
+
+# ------------------------------------------------- int8 kernels 5 and 6
+def _i8(rng, *shape):
+    return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+
+
+def _epilogue_rows(rng, n, k):
+    """(scale, bias) fp32 rows that put acc * scale + bias at O(1): an int8
+    product of depth k has a spread of ~127^2 sqrt(k) / 3."""
+    sc = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32) * 3.0 / (127 ** 2 * k ** 0.5))
+    return sc, torch.from_numpy(rng.normal(0, 0.3, n).astype(np.float32))
+
+
+def _block_args(B, H, W, C, M, device, seed=0):
+    rng = np.random.default_rng(seed)
+    x, w1, w2, w3 = _i8(rng, B * H * W, C), _i8(rng, M, C), _i8(rng, M, 9 * M), _i8(rng, C, M)
+    rows = (*_epilogue_rows(rng, M, C), *_epilogue_rows(rng, M, 9 * M), *_epilogue_rows(rng, C, M))
+    return ([t.to(device) for t in (x,)] + [H, W] + [t.to(device) for t in (w1, w2, w3, *rows)]
+            + [0.034, 0.057, 0.021, 0.026])
+
+
+@pytest.mark.parametrize("B,H,W,C,M", [(1, 4, 4, 16, 16), (3, 7, 7, 24, 24), (3, 8, 8, 64, 16),
+                                       (1, 7, 7, 16, 64), (3, 4, 8, 24, 64), (2, 13, 5, 64, 24)])
+def test_fused_block_kernel_matches_twin(cuda, B, H, W, C, M):
+    """Kernel 5 against its twin: the same s8 output, bit for bit (int32
+    products, the same IEEE epilogue operations; the bound allowed is +/-1
+    quantum on under 0.2% of elements, as on the TPU)."""
+    from adaptive_tpu_torch.ops import fused_block as fb
+
+    args = _block_args(B, H, W, C, M, cuda)
+    fb.bottleneck_identity_int8.launches = 0
+    got = fb.bottleneck_identity_int8(*args)
+    torch.cuda.synchronize()
+    assert fb.bottleneck_identity_int8.launches == 1
+    want = fb.bottleneck_identity_int8_plain(*args)
+    assert got.dtype == torch.int8 and got.shape == want.shape
+    assert (want != 0).float().mean() > 0.2  # the epilogue rows keep outputs alive
+    d = (got.int() - want.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 2e-3
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("N,C,M,M2", [(3 * 49, 24, 16, 24), (1 * 16, 16, 64, 16), (3 * 64, 64, 24, 64),
+                                      (3 * 49 + 1, 16, 16, 16), (200, 64, 16, 24)])
+def test_fused_tail_kernel_matches_twin(cuda, N, C, M, M2):
+    """Kernel 6 against its twin: carry and next conv1, bit for bit, at row
+    counts that are no multiple of its 64-row tile."""
+    from adaptive_tpu_torch.ops import fused_tail as ft
+
+    rng = np.random.default_rng(1)
+    x, z2, w3, w1 = _i8(rng, N, C), _i8(rng, N, M), _i8(rng, C, M), _i8(rng, M2, C)
+    sc3, b3 = _epilogue_rows(rng, C, M)
+    sc1, b1 = _epilogue_rows(rng, M2, C)
+    args = [t.to(cuda) for t in (x, z2, w3, sc3, b3, w1, sc1, b1)] + [0.024, 0.027, 0.042]
+    ft.tail_conv1_int8.launches = 0
+    out, z1 = ft.tail_conv1_int8(*args)
+    torch.cuda.synchronize()
+    assert ft.tail_conv1_int8.launches == 1
+    want_out, want_z1 = ft.tail_conv1_int8_plain(*args)
+    assert (want_out != 0).float().mean() > 0.2 and (want_z1 != 0).float().mean() > 0.2
+    assert torch.equal(out, want_out) and torch.equal(z1, want_z1)
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from adaptive_tpu_torch.ops import fused_block as fb
+    from adaptive_tpu_torch.ops import fused_tail as ft
+
+    args = _block_args(2, 4, 4, 16, 16, cuda)
+    bad = list(args)
+    bad[0] = args[0].float()
+    with pytest.raises(ValueError, match="dtype"):
+        fb.bottleneck_identity_int8(*bad)
+    bad = list(args)
+    bad[6] = args[6].double()  # sc1
+    with pytest.raises(ValueError, match="dtype"):
+        fb.bottleneck_identity_int8(*bad)
+    bad = list(args)
+    bad[3] = args[3].T.contiguous().T  # w1, a transposed view
+    with pytest.raises(ValueError, match="contiguous"):
+        fb.bottleneck_identity_int8(*bad)
+    bad = list(args)
+    bad[0] = args[0].cpu()  # x on the CPU picks the twin, which the CUDA weights refuse
+    with pytest.raises(ValueError, match="w1 is on cuda"):
+        fb.bottleneck_identity_int8(*bad)
+    rng = np.random.default_rng(2)
+    x, z2, w3, w1 = (t.to(cuda) for t in (_i8(rng, 32, 16), _i8(rng, 32, 8), _i8(rng, 16, 8),
+                                          _i8(rng, 8, 16)))
+    sc3, b3, sc1, b1 = (t.to(cuda) for t in (*_epilogue_rows(rng, 16, 8), *_epilogue_rows(rng, 8, 16)))
+    with pytest.raises(ValueError, match="contiguous"):
+        ft.tail_conv1_int8(x, z2.T.contiguous().T, w3, sc3, b3, w1, sc1, b1, 0.1, 0.1, 0.1)
+    with pytest.raises(ValueError, match="dtype"):
+        ft.tail_conv1_int8(x, z2, w3, sc3.bfloat16(), b3, w1, sc1, b1, 0.1, 0.1, 0.1)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ft.tail_conv1_int8(x[:, :12].contiguous(), z2, w3[:12].contiguous(), sc3[:12], b3[:12],
+                           w1[:, :12].contiguous(), sc1, b1, 0.1, 0.1, 0.1)
+
+
+@pytest.mark.parametrize("scheme", ["none", "fused_layers", "fused_tails"])
+def test_int8_greedy_decode_on_the_card_matches_cpu(cuda, scheme):
+    """A small int8 model (ResNet-50 at 64 px, H 32; per-tensor scales
+    calibrated on the card and handed to both) decodes the same fp32 ids on
+    the card as on the CPU, with layer3's identity blocks or tails through
+    kernel 5 or 6 (launched 5 times) or none. The int8 trunk gives the same
+    bits on both; V within 1e-5 (the fp32 heads' sums in another order)."""
+    from adaptive_tpu_torch.models.infer import calibrate_model
+    from adaptive_tpu_torch.models.resnet import calibrate_bn_
+    from adaptive_tpu_torch.ops import fused_block as fb
+    from adaptive_tpu_torch.ops import fused_tail as ft
+    from adaptive_tpu_torch.ops.preprocess import eval_preprocess
+
+    cf = Config(encoder_backbone="resnet50", train_crop_size=64, vocab_length=37,
+                vocab_pad_multiple=8, adaptive_word_embed_size=16,
+                adaptive_lstm_hidden_size=32, decode_max_len=8, encoder_quant="int8",
+                encoder_quant_granularity="tensor")
+    images = np.random.default_rng(2).integers(0, 256, (3, 64, 64, 3), dtype=np.uint8)
+    model_g = build_model(cf, device=cuda)
+    net_g = model_g.init(0)
+    calibrate_bn_(net_g.encoder.resnet_conv, eval_preprocess(torch.as_tensor(images, device=cuda), 64))
+    model_g = calibrate_model(model_g, cf, net_g, images)
+    kw = {} if scheme == "none" else {f"int8_{scheme}": ("layer3",)}
+    model_g = model_g._replace(**kw)
+    model_c = build_model(cf, device="cpu")._replace(int8_scales=model_g.int8_scales, **kw)
+    net_c = model_c.init(0)
+    net_c.load_state_dict({k: v.cpu() for k, v in net_g.state_dict().items()})
+    fb.bottleneck_identity_int8.launches = ft.tail_conv1_int8.launches = 0
+    feats_g = model_g.encode_inference(model_g.prepare_inference(net_g),
+                                       eval_preprocess(torch.as_tensor(images, device=cuda), 64))
+    torch.cuda.synchronize()
+    launches = (fb.bottleneck_identity_int8.launches, ft.tail_conv1_int8.launches)
+    assert launches == {"none": (0, 0), "fused_layers": (5, 0), "fused_tails": (0, 5)}[scheme]
+    feats_c = model_c.encode_inference(model_c.prepare_inference(net_c),
+                                       eval_preprocess(torch.as_tensor(images), 64))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(feats_g[0].cpu(), feats_c[0], atol=1e-5, rtol=1e-5)
+    out_g = make_greedy_decoder(model_g, cf)(net_g, images)
+    out_c = make_greedy_decoder(model_c, cf)(net_c, images)
+    np.testing.assert_array_equal(out_g.ids.cpu().numpy(), out_c.ids.numpy())

@@ -87,8 +87,3 @@ def test_calibrate_bn_sets_batch_statistics(tiny_cf):
     gains = [bn.weight for bn in _residual_bns(rn)]
     assert len(gains) == 8 and all(bool((g == 0.2).all()) for g in gains)  # resnet18: 8 blocks
     assert torch.isfinite(rn(x)).all()
-
-
-def test_int8_encoder_not_ported(tiny_cf):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(port_cf(tiny_cf, encoder_quant="int8"), device="cpu")
