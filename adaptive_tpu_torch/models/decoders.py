@@ -171,9 +171,12 @@ def decode_step(
 
 def prepare_greedy_head(params: Dict, spec: DecoderSpec):
     """Padded vocab head (kernel [H, Vp'], bias [Vp']) for the fused head
-    kernel, made once per checkpoint: Vp' is a multiple of 128, and of 1280
+    kernels, made once per checkpoint: Vp' is a multiple of 128, and of 1280
     past 1280, as in the JAX package; every bias column past the real vocab
-    is -1e30, so padded columns never win."""
+    is -1e30, so padded columns never win. The pair comes as a
+    fs.PreparedHead, whose kernel_t is the kernel once more, transposed and
+    tiled (fs.head_kernel_tiles), where the heads' tensor-core instance will
+    read it (bfloat16, H a multiple of 8 up to 512), else None."""
     w = params["adaptive"]["mlp"]["kernel"]
     b = params["adaptive"]["mlp"]["bias"]
     vp = w.shape[1]
@@ -184,7 +187,8 @@ def prepare_greedy_head(params: Dict, spec: DecoderSpec):
     b_p = torch.nn.functional.pad(b, (0, target - vp))
     col = torch.arange(target, device=b.device)
     b_p = torch.where(col < spec.vocab_size, b_p, torch.full_like(b_p, fs.NEG))
-    return w_p, b_p
+    w_t = fs.head_kernel_tiles(w_p) if fs.head_instance(w_p.dtype, w_p.shape[0]) == "mma" else None
+    return fs.PreparedHead(w_p, b_p, w_t)
 
 
 @torch.no_grad()
@@ -200,7 +204,8 @@ def greedy_decode_step(
         x = torch.cat([params["embed"][token], v_g], dim=-1)
         h_new, c_new, c_hat, alpha, beta = _fused_cell(
             params, x, state, sentinel_uses_prev_hidden, V, pv)
-        nxt = fs.greedy_head_argmax(head[0], head[1], c_hat, h_new, spec.vocab_size)
+        nxt = fs.greedy_head_argmax(*head, c_hat, h_new, spec.vocab_size,
+                                    head_kernel_t=head.kernel_t)
         return nxt, alpha, beta, DecodeState(h_new, c_new, h_new)
     logits, alpha, beta, st = decode_step(
         params, spec, token, v_g, state, V, sentinel_uses_prev_hidden, pv=pv, fused=fused)
@@ -231,7 +236,8 @@ def beam_decode_step(
         x = torch.cat([params["embed"][token], v_g], dim=-1)
         h_new, c_new, c_hat, alpha, beta = _fused_cell(
             params, x, state, sentinel_uses_prev_hidden, V, pv, beam_w)
-        topv, topi, lse = fs.beam_head_topk(head[0], head[1], c_hat, h_new, spec.vocab_size, k)
+        topv, topi, lse = fs.beam_head_topk(*head, c_hat, h_new, spec.vocab_size, k,
+                                            head_kernel_t=head.kernel_t)
         return topv - lse, topi, alpha, beta, DecodeState(h_new, c_new, h_new)
     if beam_w > 1:
         V = V.repeat_interleave(beam_w, 0)

@@ -30,18 +30,29 @@
 //    W = 1 is the greedy layout: its own instance (kBeam false), the same
 //    code and bits as the greedy-only kernel.
 //
-// 2. head_argmax_kernel + head_argmax_reduce replace fused_step.py::
-//    greedy_head_argmax (body _head_argmax_kernel): argmax over the real vocab
-//    of (chat + h) @ W + b, first max on ties, logits never stored.
-//    Bound at batch 1024: 10.7 GFLOP -> ~11 us at the bf16 tensor peak
+// 2. head_argmax_mma_kernel (bf16) or head_argmax_kernel (fp32), then
+//    head_argmax_reduce, replace fused_step.py::greedy_head_argmax (body
+//    _head_argmax_kernel): argmax over the real vocab of (chat + h) @ W + b,
+//    first max on ties, logits never stored.
+//    Bound at batch 1024, bf16: 10.7 GFLOP -> ~11 us at the bf16 tensor peak
 //    (989 TFLOP/s), against 10.5 MB of weight, which fits in the 50 MB L2.
-//    Design: blocks cannot carry a running best across a sequential grid as
-//    the TPU kernel does, so pass 1 tiles the product (64 rows x 128 vocab
-//    columns a block, fp32 accumulation on the CUDA cores, operands staged in
-//    shared memory) and writes one (value, index) partial per row and tile;
-//    pass 2 walks each row's tiles in vocab order and keeps a strictly larger
-//    value, so ties go to the first index exactly as jnp.argmax does. The
-//    SIMT product is far from the tensor-core bound; mma/wgmma is later work.
+//    Design (bf16): blocks cannot carry a running best across a sequential
+//    grid as the TPU kernel does, so a block owns a band of 128 rows and a
+//    split of the vocab (8 bands x 16 splits of 640 columns at batch 1024:
+//    one wave of the 132 SMs). It forms z = chat + h once for its band,
+//    keeps it in shared memory, and walks over its split's 128-column tiles
+//    with the tensor-core band of kernel_common.cuh (wgmma by two
+//    warpgroups of 64 rows on a 6-stage ring that a producer warp fills with
+//    bulk asynchronous copies of the tiled weight). The selection runs on the
+//    accumulators: a thread carries the running first max of its two rows
+//    across the split's tiles (strictly larger wins, so the first column
+//    stays), the four lanes that share a row fold in the order of better(),
+//    and one (value, index) partial a row and split is written. Pass 2 walks
+//    each row's splits in vocab order and keeps a strictly larger value, so
+//    ties go to the first index exactly as jnp.argmax does.
+//    fp32 has no exact tensor-core product: its instance keeps the SIMT tile
+//    (64 rows x 128 columns a block, one partial a row and tile), bounded by
+//    the CUDA cores' 67 TFLOP/s (0.16 ms), and is not on the bf16 main path.
 
 #include "kernel_common.cuh"
 
@@ -300,17 +311,81 @@ head_argmax_kernel(const T* __restrict__ chat, const T* __restrict__ h,  // [B, 
   }
 }
 
-// pass 2: tiles in vocab order, strictly larger wins (first max on ties)
+// tensor-core instance: one block a (split, band); epilogue on the accumulators
+constexpr int ARGMAX_STAGES = 6;
+constexpr int ARGMAX_THREADS = 2 * WG_THREADS + PRODUCER_THREADS;
+
+struct ArgmaxEpilogue {
+  const __nv_bfloat16* bias;
+  int vocab_len, q;  // q: the thread's place among the 4 lanes of its rows
+  float bv[2];
+  int bi[2];
+  __device__ __forceinline__ void tile(float (&acc)[64], int n0) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = n0 + 8 * j + 2 * q;
+      const float2 b = load2(bias + col);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (col + e < vocab_len) {  // columns ascend with (j, e): > keeps the first
+          const float be = e ? b.y : b.x;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float v = acc[4 * j + 2 * r + e] + be;
+            if (v > bv[r]) { bv[r] = v; bi[r] = col + e; }
+          }
+        }
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(ARGMAX_THREADS, 1)
+head_argmax_mma_kernel(const __nv_bfloat16* __restrict__ chat,
+                       const __nv_bfloat16* __restrict__ h,      // [B, H]
+                       const __nv_bfloat16* __restrict__ Wtiles, // [Vp/128, KB, 128, 64]
+                       const __nv_bfloat16* __restrict__ bias,   // [Vp]
+                       float* __restrict__ part_v, int* __restrict__ part_i,  // [B, nsplit]
+                       int B, int H, int vocab_len, int ntiles, int tiles_per_split) {
+  extern __shared__ uint8_t smem_raw[];
+  const int split = blockIdx.x, nsplit = gridDim.x;
+  const int m0 = blockIdx.y * 2 * WG_ROWS;
+  const int tile0 = split * tiles_per_split;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  ArgmaxEpilogue epi{bias, vocab_len, lane & 3, {NEG, NEG}, {NO_ID, NO_ID}};
+  if (!head_mma_band<2, ARGMAX_STAGES>(chat, h, Wtiles, B, H, m0, tile0,
+                                       min(tiles_per_split, ntiles - tile0),
+                                       align_1024(smem_raw), epi))
+    return;  // the producer warp
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float bv = epi.bv[r];
+    int bi = epi.bi[r];
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {  // the 4 lanes that share the row
+      const float ov = __shfl_xor_sync(FULL, bv, o);
+      const int oi = __shfl_xor_sync(FULL, bi, o);
+      if (better(ov, oi, bv, bi)) { bv = ov; bi = oi; }
+    }
+    const int row = m0 + warp * 16 + (lane >> 2) + 8 * r;
+    if ((lane & 3) == 0 && row < B) {
+      part_v[(size_t)row * nsplit + split] = bv;
+      part_i[(size_t)row * nsplit + split] = bi;
+    }
+  }
+}
+
+// pass 2: partials in vocab order, strictly larger wins (first max on ties)
 __global__ void head_argmax_reduce(const float* __restrict__ part_v,
                                    const int* __restrict__ part_i,
-                                   int* __restrict__ out, int B, int ntiles) {
+                                   int* __restrict__ out, int B, int nparts) {
   int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= B) return;
   float best = NEG;
   int arg = 0;
-  for (int t = 0; t < ntiles; ++t) {
-    float v = part_v[(size_t)row * ntiles + t];
-    if (v > best) { best = v; arg = part_i[(size_t)row * ntiles + t]; }
+  for (int t = 0; t < nparts; ++t) {
+    float v = part_v[(size_t)row * nparts + t];
+    if (v > best) { best = v; arg = part_i[(size_t)row * nparts + t]; }
   }
   out[row] = arg;
 }
@@ -355,6 +430,25 @@ int launch_head(const void* chat, const void* h, const void* W, const void* b,
   return (int)cudaGetLastError();
 }
 
+int launch_head_mma(const void* chat, const void* h, const void* Wtiles, const void* b,
+                    void* part_v, void* part_i, void* out, int B, int H, int Vp,
+                    int vocab_len, int nsplit, int tiles_per_split, cudaStream_t stream) {
+  const size_t smem = head_mma_smem_bytes(H, 2, ARGMAX_STAGES);
+  cudaError_t err = cudaFuncSetAttribute(
+      head_argmax_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(nsplit, (B + 2 * WG_ROWS - 1) / (2 * WG_ROWS));
+  head_argmax_mma_kernel<<<grid, ARGMAX_THREADS, smem, stream>>>(
+      (const __nv_bfloat16*)chat, (const __nv_bfloat16*)h, (const __nv_bfloat16*)Wtiles,
+      (const __nv_bfloat16*)b, (float*)part_v, (int*)part_i, B, H, vocab_len, Vp / MMA_BN,
+      tiles_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  head_argmax_reduce<<<(B + 255) / 256, 256, 0, stream>>>(
+      (const float*)part_v, (const int*)part_i, (int*)out, B, nsplit);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -378,10 +472,20 @@ int adaptive_cell_launch(int dtype, const void* gx, const void* h, const void* c
                                     W, H, E2, K, D, st);
 }
 
+// Wtiles given: the tensor-core instance (bf16 only) over the tiled weight
+// [Vp / 128, KB, 128, 64] (kernel_common.cuh), nsplit vocab splits of
+// tiles_per_split 128-column tiles; Wtiles null: the SIMT instance over W
+// [H, Vp], a split a tile (nsplit = Vp / 128). Partials [B, nsplit].
 int head_argmax_launch(int dtype, const void* chat, const void* h, const void* W,
-                       const void* b, void* part_v, void* part_i, void* out, int B,
-                       int H, int Vp, int vocab_len, void* stream) {
+                       const void* Wtiles, const void* b, void* part_v, void* part_i,
+                       void* out, int B, int H, int Vp, int vocab_len, int nsplit,
+                       int tiles_per_split, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (Wtiles != nullptr) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return launch_head_mma(chat, h, Wtiles, b, part_v, part_i, out, B, H, Vp, vocab_len,
+                           nsplit, tiles_per_split, st);
+  }
   if (dtype == 0)
     return launch_head<float>(chat, h, W, b, part_v, part_i, out, B, H, Vp,
                               vocab_len, st);

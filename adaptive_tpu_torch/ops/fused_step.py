@@ -10,29 +10,46 @@
 * ``beam_head_topk``: the same head's top-W values and ids per row, lower
   id first on ties (as lax.top_k), and the row's logsumexp.
 
-Each wrapper launches its CUDA kernel (ops/cuda/csrc/fused_step.cu) for CUDA
-tensors, after checking device, dtype, shape, contiguity and alignment, and
-raises on anything the kernel does not take. For CPU tensors it runs the
-plain PyTorch twin beside it, which is the arithmetic the kernel must
-reproduce: fp32 inside, the same casts, the same -1e30 mask. Each wrapper
-counts its kernel launches in a plain int attribute, ``<wrapper>.launches``
-(``decode_cell.launches_beam`` for the beam-major cell, beam_w > 1).
+Each wrapper launches its CUDA kernel (ops/cuda/csrc/fused_step.cu,
+head_topk.cu) for CUDA tensors, after checking device, dtype, shape,
+contiguity and alignment, and raises on anything the kernel does not take.
+For CPU tensors it runs the plain PyTorch twin beside it, which is the
+arithmetic the kernel must reproduce: fp32 inside, the same casts, the same
+-1e30 mask. Each wrapper counts its kernel launches in a plain int
+attribute, ``<wrapper>.launches`` (``decode_cell.launches_beam`` for the
+beam-major cell, beam_w > 1).
+
+The two heads share one product, in two instances picked by
+``head_instance``: in bf16 the tensor-core instance (wgmma on a ring of
+shared-memory tiles that bulk asynchronous copies fill from the tiled
+weight of ``head_kernel_tiles``, which ``PreparedHead.kernel_t`` carries;
+z = chat + h formed once a band of rows; the selection on the
+accumulators, one partial a row and vocab split, ``head_plan``), bounded by
+the card's bf16 tensor rate (10.7 GFLOP at 1,024 rows: 0.011 ms on an H100
+SXM); in fp32, which the tensor cores only take as TF32, exact FMAs on the
+CUDA cores with one partial a row and 128-column tile, bounded by their
+fp32 rate (0.16 ms).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 NEG = -1e30
-HEAD_TILE = 128  # vocab columns per block of the head kernel (BN in the source)
+HEAD_TILE = 128  # vocab columns of one product tile of the head kernels (BN, MMA_BN)
+HEAD_TILE_K = 64  # k of one tile of the tiled weight: a 128-byte swizzle row of bf16 (MMA_BK)
+HEAD_MMA_MAX_H = 512  # the band's z, 128 rows x H bf16, must leave shared memory for the ring
+HEAD_BAND_ROWS = 128  # rows of a block of the tensor-core heads: two warpgroups of 64
+TOPK_WIDE_BAND_MAX_W = 32  # longer top-W lists need the room of half the band: 64 rows
+H100_SMS = 132
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: Optional[torch.Tensor]) -> Optional[ctypes.c_void_p]:
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
 def _check_cuda(names, tensors, dtype, device):
@@ -194,8 +211,75 @@ def greedy_head_argmax_plain(head_kernel, head_bias, chat, h, vocab_len: int):
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def _check_head(what, head_kernel, head_bias, chat, h, vocab_len: int):
-    """Checks shared by the two head wrappers on CUDA tensors."""
+class PreparedHead(tuple):
+    """The padded vocab head as the pair (kernel [H, Vp], bias [Vp]) that the
+    twins and the fp32 kernels take, plus ``kernel_t``: the same weight
+    transposed and tiled (head_kernel_tiles), which the tensor-core instance
+    reads, or None where head_instance does not pick that instance."""
+
+    kernel_t: Optional[torch.Tensor]
+
+    def __new__(cls, kernel, bias, kernel_t=None):
+        self = super().__new__(cls, (kernel, bias))
+        self.kernel_t = kernel_t
+        return self
+
+
+def head_instance(dtype, H: int) -> str:
+    """Which instance of the head kernels runs for CUDA tensors: "mma", the
+    bf16 tensor-core product, where the weight is bfloat16, H is a multiple
+    of 8 (its 16-byte copies stay aligned and whole) and at most
+    HEAD_MMA_MAX_H (the band's z fits in shared memory beside the ring);
+    "simt", exact FMAs on the CUDA cores, for float32 and for any other H."""
+    if dtype == torch.bfloat16 and H % 8 == 0 and 0 < H <= HEAD_MMA_MAX_H:
+        return "mma"
+    return "simt"
+
+
+def head_kernel_tiles(head_kernel: torch.Tensor) -> torch.Tensor:
+    """The weight [H, Vp] as the tensor-core instance reads it:
+    [Vp / 128, KB, 128, 64] with KB = ceil(H / 64), where tile [t, kb] is
+    the shared-memory image of W[kb * 64 :, t * 128 :].T, 128 vocab rows of
+    64 k (128 bytes, k past H zero), in the 128-byte swizzle of wgmma's
+    descriptors: the 16-byte chunk c of row n lies at chunk c ^ (n % 8). One
+    bulk copy of 16 KB brings a tile; made once per checkpoint."""
+    H, Vp = head_kernel.shape
+    kb = -(-H // HEAD_TILE_K)
+    wt = torch.nn.functional.pad(head_kernel.t(), (0, kb * HEAD_TILE_K - H))
+    wt = wt.reshape(Vp // HEAD_TILE, HEAD_TILE, kb, 8, 8).permute(0, 2, 1, 3, 4)  # t, kb, n, c, e
+    n = torch.arange(HEAD_TILE, device=wt.device)[:, None]
+    chunk = torch.arange(8, device=wt.device)[None, :] ^ (n & 7)  # what lies at [n, c]
+    return wt[:, :, n, chunk].reshape(Vp // HEAD_TILE, kb, HEAD_TILE, HEAD_TILE_K).contiguous()
+
+
+class HeadPlan(NamedTuple):
+    band_rows: int  # rows of a block; 0 for the SIMT instance
+    nsplit: int  # vocab splits = partials a row
+    tiles_per_split: int  # 128-column tiles a split (the last may hold fewer)
+
+
+def head_plan(instance: str, rows: int, Vp: int, W: int = 1, sms: int = H100_SMS) -> HeadPlan:
+    """How a head launch cuts rows x padded vocab into blocks, which fixes
+    the scratch shapes: partials are [rows, nsplit] (argmax) or
+    [rows, nsplit, W] and [rows, nsplit, 2] (top-W).
+
+    simt: one partial a row and 128-column tile. mma: bands of 128 rows (64
+    where W > TOPK_WIDE_BAND_MAX_W), and as many vocab splits as fill the
+    card's sms SMs in one wave, each a whole number of tiles in vocab order:
+    1,024 rows x 10,240 columns -> 8 bands x 16 splits of 5 tiles; 3,072
+    rows -> 24 bands x 5 splits of 16 tiles."""
+    ntiles = Vp // HEAD_TILE
+    if instance == "simt":
+        return HeadPlan(0, ntiles, 1)
+    band = HEAD_BAND_ROWS if W <= TOPK_WIDE_BAND_MAX_W else HEAD_BAND_ROWS // 2
+    nbands = -(-rows // band)
+    tiles_per_split = -(-ntiles // max(1, min(ntiles, sms // nbands)))
+    return HeadPlan(band, -(-ntiles // tiles_per_split), tiles_per_split)
+
+
+def _check_head(what, head_kernel, head_bias, chat, h, vocab_len: int, head_kernel_t):
+    """Checks shared by the two head wrappers on CUDA tensors. Returns the
+    instance and the tiled weight it reads (None for simt)."""
     B, H = chat.shape
     Vp = head_kernel.shape[1]
     dt = head_kernel.dtype
@@ -210,12 +294,27 @@ def _check_head(what, head_kernel, head_bias, chat, h, vocab_len: int):
     _check_shape("head_bias", head_bias, (Vp,))
     _check_cuda(("chat", "h", "head_kernel", "head_bias"),
                 (chat, h, head_kernel, head_bias), dt, chat.device)
+    instance = head_instance(dt, H)
+    if instance == "simt":
+        return instance, None
+    if head_kernel_t is None:  # a 2 H Vp byte copy a call: the decoders hand theirs
+        head_kernel_t = head_kernel_tiles(head_kernel)
+    _check_shape("head_kernel_t", head_kernel_t,
+                 (Vp // HEAD_TILE, -(-H // HEAD_TILE_K), HEAD_TILE, HEAD_TILE_K))
+    _check_cuda(("head_kernel_t",), (head_kernel_t,), dt, chat.device)
+    return instance, head_kernel_t
 
 
-def greedy_head_argmax(head_kernel, head_bias, chat, h, vocab_len: int):
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def greedy_head_argmax(head_kernel, head_bias, chat, h, vocab_len: int, head_kernel_t=None):
     """argmax((chat + h) @ W + b) over the real vocab -> [B] int32.
     head_kernel [H, Vp] / head_bias [Vp] come padded from prepare_greedy_head
-    (Vp a multiple of HEAD_TILE). Launches the CUDA kernel for CUDA tensors;
+    (Vp a multiple of HEAD_TILE), head_kernel_t is its PreparedHead.kernel_t,
+    the tiled weight (made here, a copy a call, where the tensor-core
+    instance runs without it). Launches the CUDA kernel for CUDA tensors;
     runs the plain twin for CPU tensors."""
     if chat.device.type == "cpu":
         return greedy_head_argmax_plain(head_kernel, head_bias, chat, h, vocab_len)
@@ -223,19 +322,22 @@ def greedy_head_argmax(head_kernel, head_bias, chat, h, vocab_len: int):
         raise ValueError(f"greedy_head_argmax runs on cuda or cpu, not {chat.device}")
     from adaptive_tpu_torch.ops.cuda import build
 
-    _check_head("greedy_head_argmax", head_kernel, head_bias, chat, h, vocab_len)
+    instance, w_t = _check_head("greedy_head_argmax", head_kernel, head_bias, chat, h,
+                                vocab_len, head_kernel_t)
     B, H = chat.shape
     Vp = head_kernel.shape[1]
     dt = head_kernel.dtype
-    ntiles = Vp // HEAD_TILE
-    part_v = torch.empty((B, ntiles), dtype=torch.float32, device=chat.device)
-    part_i = torch.empty((B, ntiles), dtype=torch.int32, device=chat.device)
+    plan = head_plan(instance, B, Vp, sms=_sms(chat.device))
+    part_v = torch.empty((B, plan.nsplit), dtype=torch.float32, device=chat.device)
+    part_i = torch.empty((B, plan.nsplit), dtype=torch.int32, device=chat.device)
     out = torch.empty((B,), dtype=torch.int32, device=chat.device)
     lib = build.load()
     with torch.cuda.device(chat.device):  # the launch goes to the current device
         err = lib.head_argmax_launch(
-            _DTYPE_CODE[dt], *map(_ptr, (chat, h, head_kernel, head_bias, part_v, part_i, out)),
-            B, H, Vp, vocab_len, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+            _DTYPE_CODE[dt], *map(_ptr, (chat, h, head_kernel, w_t, head_bias, part_v, part_i,
+                                         out)),
+            B, H, Vp, vocab_len, plan.nsplit, plan.tiles_per_split,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _raise_on(err, "greedy_head_argmax")
     greedy_head_argmax.launches += 1
@@ -270,12 +372,12 @@ def beam_head_topk_plain(head_kernel, head_bias, chat, h, vocab_len: int, W: int
     return topv, topi.to(torch.int32), lse
 
 
-def beam_head_topk(head_kernel, head_bias, chat, h, vocab_len: int, W: int):
+def beam_head_topk(head_kernel, head_bias, chat, h, vocab_len: int, W: int, head_kernel_t=None):
     """Top-W of (chat + h) @ W + b over the real vocab, and the row's
     logsumexp, so topv - lse are the rows' top-W log-probs. Same operands
-    as greedy_head_argmax; 1 <= W <= HEAD_TILE (one vocab tile holds each
-    row's tile list). Launches the CUDA kernel for CUDA tensors; runs the
-    plain twin for CPU tensors."""
+    as greedy_head_argmax; 1 <= W <= HEAD_TILE (a 128-column tile fills a
+    row's list). Launches the CUDA kernel for CUDA tensors; runs the plain
+    twin for CPU tensors."""
     if not 1 <= W <= HEAD_TILE:
         raise ValueError(f"beam_head_topk takes 1 <= W <= {HEAD_TILE}, got W={W}")
     if chat.device.type == "cpu":
@@ -284,24 +386,26 @@ def beam_head_topk(head_kernel, head_bias, chat, h, vocab_len: int, W: int):
         raise ValueError(f"beam_head_topk runs on cuda or cpu, not {chat.device}")
     from adaptive_tpu_torch.ops.cuda import build
 
-    _check_head("beam_head_topk", head_kernel, head_bias, chat, h, vocab_len)
+    instance, w_t = _check_head("beam_head_topk", head_kernel, head_bias, chat, h, vocab_len,
+                                head_kernel_t)
     R, H = chat.shape
     Vp = head_kernel.shape[1]
     dt = head_kernel.dtype
-    ntiles = Vp // HEAD_TILE
     dev = chat.device
-    part_v = torch.empty((R, ntiles, W), dtype=torch.float32, device=dev)
-    part_i = torch.empty((R, ntiles, W), dtype=torch.int32, device=dev)
-    part_ms = torch.empty((R, ntiles, 2), dtype=torch.float32, device=dev)
+    plan = head_plan(instance, R, Vp, W, sms=_sms(dev))
+    part_v = torch.empty((R, plan.nsplit, W), dtype=torch.float32, device=dev)
+    part_i = torch.empty((R, plan.nsplit, W), dtype=torch.int32, device=dev)
+    part_ms = torch.empty((R, plan.nsplit, 2), dtype=torch.float32, device=dev)
     topv = torch.empty((R, W), dtype=torch.float32, device=dev)
     topi = torch.empty((R, W), dtype=torch.int32, device=dev)
     lse = torch.empty((R, 1), dtype=torch.float32, device=dev)
     lib = build.load()
     with torch.cuda.device(dev):  # the launch goes to the current device
         err = lib.head_topk_launch(
-            _DTYPE_CODE[dt], *map(_ptr, (chat, h, head_kernel, head_bias, part_v, part_i,
+            _DTYPE_CODE[dt], *map(_ptr, (chat, h, head_kernel, w_t, head_bias, part_v, part_i,
                                          part_ms, topv, topi, lse)),
-            R, H, Vp, vocab_len, W, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+            R, H, Vp, vocab_len, W, plan.nsplit, plan.tiles_per_split, plan.band_rows,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _raise_on(err, "beam_head_topk")
     beam_head_topk.launches += 1

@@ -10,7 +10,9 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
 2. holds the greedy kernels (the cell, the argmax head) against their plain
    PyTorch twins at the greedy path's shapes (batch 1024, H 512, 2E 512,
    K = D = 49, vocab 10123 padded to 10240), in fp32 and bf16, and times
-   kernel, twin and library call;
+   kernel, twin and library call; the head and its library call twice:
+   launches back to back (the 10.5 MB weight warm in the 50 MB L2) and
+   each launch after a 256 MB write (L2 cold, as after the cell kernel);
 2b. does the same for the beam kernels (the beam-major cell, the top-W
    head) at the beam path's shapes: 1024 images x beam 3 = 3072 rows, V/pv
    one copy per image; plus a correctness-only pass at beam 5;
@@ -117,13 +119,46 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+FLUSH_BYTES = 256 << 20  # five times the 50 MB L2
+_flush = []
+
+
+def flush_l2():
+    """Write FLUSH_BYTES on the card: evicts the L2, and keeps the card busy
+    for about 0.1 ms while the host queues what follows."""
+    import torch
+
+    if not _flush:
+        _flush.append(torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda"))
+    _flush[0].zero_()
+
+
+def warm_card(seconds=0.5):
+    """Keep the card under load for a while, so that the first kernels are
+    timed at its load clocks and not while they ramp up from idle."""
+    import torch
+
+    a = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            a @ a
+        torch.cuda.synchronize()
+
+
 def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of fn() over iters launches, by CUDA events."""
+    """Mean device time of fn() over iters launches back to back, by CUDA
+    events. About 0.3 ms of writes a launch go first, so that the host has
+    queued every launch before the card reaches the first: a wrapper's host
+    time (up to 0.1 ms on a busy host) would else be measured where its
+    kernel is shorter."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    for _ in range(3 * iters):
+        flush_l2()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -132,6 +167,27 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_cold_ms(fn, iters=10):
+    """Mean device time of one fn() that finds the L2 cold: each launch
+    follows a 256 MB write and has its own pair of events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        for _ in range(3):  # one evicts; three keep the card busy while the host queues fn
+            flush_l2()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
 def nbytes(*ts) -> int:
@@ -200,7 +256,13 @@ def kernel_checks(dtype_name: str):
     bias[VOCAB:] = fs.NEG
     bias = bias.to(dt)
     chat, h = r(B, H).to(dt), r(B, H).to(dt)
-    ids = fs.greedy_head_argmax(W, bias, chat, h, VOCAB)
+    # the tiled weight that prepare_greedy_head hands the bf16 instance
+    Wt = fs.head_kernel_tiles(W) if fs.head_instance(dt, H) == "mma" else None
+
+    def head():
+        return fs.greedy_head_argmax(W, bias, chat, h, VOCAB, head_kernel_t=Wt)
+
+    ids = head()
     torch.cuda.synchronize()
     ref_ids = fs.greedy_head_argmax_plain(W, bias, chat, h, VOCAB)
     logits = (chat + h).to(dt).float() @ W.float() + bias.float()
@@ -214,24 +276,30 @@ def kernel_checks(dtype_name: str):
     if (diff & (gap >= HEAD_GAP_EPS)).any():
         raise AssertionError(
             f"head {dtype_name}: {int(diff.sum())} ids differ, some at top-2 gap >= {HEAD_GAP_EPS}")
-    head_ms = cuda_ms(lambda: fs.greedy_head_argmax(W, bias, chat, h, VOCAB))
+    head_ms, head_cold_ms = cuda_ms(head), cuda_cold_ms(head)
     head_plain_ms = cuda_ms(lambda: fs.greedy_head_argmax_plain(W, bias, chat, h, VOCAB))
     z = (chat + h).to(dt)
-    head_lib_ms = cuda_ms(lambda: torch.addmm(bias, z, W).argmax(dim=1))
+
+    def library():
+        return torch.addmm(bias, z, W).argmax(dim=1)
+
+    head_lib_ms, head_lib_cold_ms = cuda_ms(library), cuda_cold_ms(library)
     head_bound = bound(nbytes(W, bias, chat, h) + B * 4, 2.0 * B * H * VP, dtype_name)
     log(f"[kernels {dtype_name}] cell: max_abs_err {cell_err:.3e} kernel {cell_ms:.4f} ms "
         f"plain {cell_plain_ms:.4f} ms bound {cell_bound[0]:.4f} ms ({cell_bound[1]}) | "
-        f"head: {int(diff.sum())}/{B} ids differ (all at top-2 gap < {HEAD_GAP_EPS}), "
-        f"kernel {head_ms:.4f} ms plain {head_plain_ms:.4f} ms addmm+argmax "
-        f"{head_lib_ms:.4f} ms bound {head_bound[0]:.4f} ms ({head_bound[1]})")
+        f"head ({fs.head_instance(dt, H)}): {int(diff.sum())}/{B} ids differ (all at top-2 gap "
+        f"< {HEAD_GAP_EPS}), kernel {head_ms:.4f} ms (L2 cold {head_cold_ms:.4f}) plain "
+        f"{head_plain_ms:.4f} ms addmm+argmax {head_lib_ms:.4f} ms (L2 cold "
+        f"{head_lib_cold_ms:.4f}) bound {head_bound[0]:.4f} ms ({head_bound[1]})")
     return {
         "adaptive_decode_cell_fused": {
             "max_abs_err": cell_err, "ms": cell_ms, "plain_ms": cell_plain_ms,
             "bound_ms": cell_bound[0], "bound_by": cell_bound[1], "library_ms": None},
         "greedy_head_argmax": {
             "max_abs_err": head_err,
-            "ids_differ": int(diff.sum()), "ms": head_ms, "plain_ms": head_plain_ms,
-            "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": head_lib_ms},
+            "ids_differ": int(diff.sum()), "ms": head_ms, "cold_ms": head_cold_ms,
+            "plain_ms": head_plain_ms, "bound_ms": head_bound[0], "bound_by": head_bound[1],
+            "library_ms": head_lib_ms, "library_cold_ms": head_lib_cold_ms},
     }
 
 
@@ -289,7 +357,12 @@ def beam_kernel_checks(dtype_name: str, W: int, timed: bool = True):
     bias[VOCAB:] = fs.NEG
     bias = bias.to(dt)
     chat, h = r(R, H).to(dt), r(R, H).to(dt)
-    top = fs.beam_head_topk(Wt, bias, chat, h, VOCAB, W)
+    Wtt = fs.head_kernel_tiles(Wt) if fs.head_instance(dt, H) == "mma" else None
+
+    def head():
+        return fs.beam_head_topk(Wt, bias, chat, h, VOCAB, W, head_kernel_t=Wtt)
+
+    top = head()
     torch.cuda.synchronize()
     ref_top = fs.beam_head_topk_plain(Wt, bias, chat, h, VOCAB, W)
     logits = (chat + h).to(dt).float() @ Wt.float() + bias.float()
@@ -316,7 +389,7 @@ def beam_kernel_checks(dtype_name: str, W: int, timed: bool = True):
     tiled_ms = cuda_ms(lambda: fs.decode_cell(*tiled_args))
     cell_flops = 2.0 * R * (H * 4 * H + E2 * H + H * H + 2 * H * D + K * D + K * H)
     cell_bound = bound(nbytes(*cell_args) + nbytes(*got), cell_flops, dtype_name)
-    head_ms = cuda_ms(lambda: fs.beam_head_topk(Wt, bias, chat, h, VOCAB, W))
+    head_ms, head_cold_ms = cuda_ms(head), cuda_cold_ms(head)
     head_plain_ms = cuda_ms(lambda: fs.beam_head_topk_plain(Wt, bias, chat, h, VOCAB, W))
     z = (chat + h).to(dt)
 
@@ -324,13 +397,14 @@ def beam_kernel_checks(dtype_name: str, W: int, timed: bool = True):
         lg = torch.addmm(bias, z, Wt)
         return lg.topk(W, dim=1), torch.logsumexp(lg, dim=1)
 
-    head_lib_ms = cuda_ms(library)
+    head_lib_ms, head_lib_cold_ms = cuda_ms(library), cuda_cold_ms(library)
     head_bound = bound(nbytes(Wt, bias, chat, h, *top), 2.0 * R * H * VP, dtype_name)
     log(f"[beam kernels {dtype_name} W={W}] cell: kernel {cell_ms:.4f} ms plain "
         f"{cell_plain_ms:.4f} ms bound {cell_bound[0]:.4f} ms ({cell_bound[1]}), tiled layout "
-        f"(kernel 1, V/pv repeated; max abs diff {tiled_err:.3e}) {tiled_ms:.4f} ms | top-W head: "
-        f"kernel {head_ms:.4f} ms plain {head_plain_ms:.4f} ms addmm+topk+logsumexp "
-        f"{head_lib_ms:.4f} ms bound {head_bound[0]:.4f} ms ({head_bound[1]})")
+        f"(kernel 1, V/pv repeated; max abs diff {tiled_err:.3e}) {tiled_ms:.4f} ms | top-W head "
+        f"({fs.head_instance(dt, H)}): kernel {head_ms:.4f} ms (L2 cold {head_cold_ms:.4f}) plain "
+        f"{head_plain_ms:.4f} ms addmm+topk+logsumexp {head_lib_ms:.4f} ms (L2 cold "
+        f"{head_lib_cold_ms:.4f}) bound {head_bound[0]:.4f} ms ({head_bound[1]})")
     return {
         "adaptive_decode_cell_fused_beam": {
             "max_abs_err": cell_err, "ms": cell_ms, "plain_ms": cell_plain_ms,
@@ -338,8 +412,9 @@ def beam_kernel_checks(dtype_name: str, W: int, timed: bool = True):
             "tiled_ms": tiled_ms},
         "beam_head_topk": {
             "max_abs_err": head_err, "rows_differ": rows_differ, "ms": head_ms,
-            "plain_ms": head_plain_ms, "bound_ms": head_bound[0], "bound_by": head_bound[1],
-            "library_ms": head_lib_ms},
+            "cold_ms": head_cold_ms, "plain_ms": head_plain_ms, "bound_ms": head_bound[0],
+            "bound_by": head_bound[1], "library_ms": head_lib_ms,
+            "library_cold_ms": head_lib_cold_ms},
     }
 
 
@@ -1005,6 +1080,7 @@ def main() -> int:
     log(f"[build] {os.path.basename(lib)} built/loaded in {time.perf_counter() - t0:.2f} s")
 
     # phase 2: each kernel against its plain twin at the main path's shapes
+    warm_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     checks = {dt: kernel_checks(dt) for dt in ("float32", "bfloat16")}
@@ -1067,6 +1143,8 @@ def main() -> int:
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
             "library_ms": bf["library_ms"], "dtype": "bfloat16",
+            # the heads: each launch after a 256 MB write (L2 cold)
+            **{k: bf[k] for k in ("cold_ms", "library_cold_ms") if k in bf},
             "fp32": {k: fp[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
         })

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain twins on the card, at shapes
 that chip_smoke.py does not reach: row blocks cut short, beam groups that
-straddle blocks, widths below a tile, planted ties across vocab tiles, int8
-images of odd sizes and row counts off the tiles. Each test skips where
+straddle blocks, widths below a tile, row counts off the heads' 128-row
+bands, top-W lists up to 128, planted ties inside a vocab tile, across two
+tiles of a split and across two splits, int8 images of odd sizes and row
+counts off the tiles. Each test skips where
 there is no card. On a machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
@@ -96,13 +98,18 @@ def _head_args(B, H, vocab, dtype, device, seed=1):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,vocab", [(70, 48, 1500), (3, 512, 10123), (1, 16, 37)])
+@pytest.mark.parametrize("B,H,vocab", [(70, 48, 1500), (3, 512, 10123), (1, 16, 37),
+                                       (129, 48, 1500), (257, 512, 10123), (300, 64, 100)])
 def test_head_kernel_matches_twin(cuda, dtype, B, H, vocab):
     """Ids equal, except where the fp32 top-2 logit gap is below 1e-3 (sums
-    in another order may then pick the other of two near-equal logits)."""
+    in another order may then pick the other of two near-equal logits).
+    129 and 257 rows end one row into a 128-row band; vocab 100 is shorter
+    than one split."""
     w, b, chat, h = _head_args(B, H, vocab, dtype, cuda)
+    fs.reset_launch_counts()
     got = fs.greedy_head_argmax(w, b, chat, h, vocab)
     torch.cuda.synchronize()
+    assert fs.greedy_head_argmax.launches == 1
     want = fs.greedy_head_argmax_plain(w, b, chat, h, vocab)
     assert got.dtype == torch.int32 and got.shape == (B,)
     logits = (chat + h).to(dtype).float() @ w.float() + b.float()
@@ -126,22 +133,64 @@ def test_head_kernel_tie_across_tiles_takes_first(cuda):
     assert got.tolist() == [100, 100, 100]
 
 
+def _tie_columns(cuda, rows, vp, placement):
+    """Two columns for equal logits, placed by the plan of the tensor-core
+    instance at these rows on this card."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = fs.head_plan("mma", rows, vp, sms=sms)
+    assert plan.tiles_per_split >= 2 and plan.nsplit >= 2, plan
+    second = {"one_tile": 90, "two_tiles_of_a_split": fs.HEAD_TILE + 10,
+              "two_splits": plan.tiles_per_split * fs.HEAD_TILE + 5}[placement]
+    return 10, second
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("placement", ["one_tile", "two_tiles_of_a_split", "two_splits"])
+def test_head_kernel_tie_placements_take_first(cuda, dtype, placement):
+    """Equal logits inside one 128-column tile, in two tiles that one block
+    walks over, and in two vocab splits (1500 rows make 12 bands, so a split
+    holds 2 of the 21 tiles on 132 SMs): the first index wins in each."""
+    H, rows, vocab, vp = 8, 1500, 2600, 2688
+    first, second = _tie_columns(cuda, rows, vp, placement)
+    w = torch.zeros(H, vp)
+    w[0, [first, second]] = 2.0
+    b = torch.zeros(vp)
+    b[vocab:] = fs.NEG
+    chat = torch.full((rows, H), 0.5)
+    got = fs.greedy_head_argmax(*(t.to(dtype).to(cuda) for t in (w, b, chat, chat)), vocab)
+    assert (got == first).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("placement", ["one_tile", "two_tiles_of_a_split", "two_splits"])
+def test_topk_head_kernel_tie_placements_rank_lower_id_first(cuda, dtype, placement):
+    """As above for the top-W head: one larger logit at column 700, then the
+    tied pair in ascending order, then the zero logits from column 0."""
+    H, rows, vocab, vp = 8, 1500, 2600, 2688
+    first, second = _tie_columns(cuda, rows, vp, placement)
+    w = torch.zeros(H, vp)
+    w[0, [first, second]] = 2.0
+    w[0, 700] = 3.0
+    b = torch.zeros(vp)
+    b[vocab:] = fs.NEG
+    chat = torch.full((rows, H), 0.5)
+    topv, topi, _ = fs.beam_head_topk(*(t.to(dtype).to(cuda) for t in (w, b, chat, chat)),
+                                      vocab, 5)
+    assert (topi == torch.tensor([700, first, second, 0, 1], device=cuda, dtype=torch.int32)).all()
+    assert (topv == torch.tensor([3.0, 2.0, 2.0, 0.0, 0.0], device=cuda)).all()
+
+
 def _masked_logits(w, b, chat, h, vocab):
     logits = (chat + h).to(w.dtype).float() @ w.float() + b.float()
     logits[:, vocab:] = fs.NEG
     return logits
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("W", [1, 3, 5, 9])
-@pytest.mark.parametrize("B,H,vocab", [(70, 48, 1500), (3, 512, 10123), (5, 16, 37)])
-def test_topk_head_kernel_matches_twin(cuda, dtype, W, B, H, vocab):
-    """Top-W ids equal, except where two adjacent fp32 logits of the row lie
-    within 1e-3 (sums in another order may swap them); values within fp32
-    sum-order tolerance, lse within 1e-5 relative."""
+def _check_topk_against_twin(dtype, W, B, H, vocab, cuda, with_t=False):
     w, b, chat, h = _head_args(B, H, vocab, dtype, cuda)
     fs.reset_launch_counts()
-    tv, ti, lse = fs.beam_head_topk(w, b, chat, h, vocab, W)
+    w_t = fs.head_kernel_tiles(w) if with_t and fs.head_instance(dtype, H) == "mma" else None
+    tv, ti, lse = fs.beam_head_topk(w, b, chat, h, vocab, W, head_kernel_t=w_t)
     torch.cuda.synchronize()
     assert fs.beam_head_topk.launches == 1
     rv, ri, rlse = fs.beam_head_topk_plain(w, b, chat, h, vocab, W)
@@ -156,6 +205,31 @@ def test_topk_head_kernel_matches_twin(cuda, dtype, W, B, H, vocab):
     same = (ti == ri).all(1)
     torch.testing.assert_close(tv[same], rv[same], atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(lse, rlse, atol=0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W", [1, 3, 5, 9])
+@pytest.mark.parametrize("B,H,vocab", [(70, 48, 1500), (3, 512, 10123), (5, 16, 37)])
+def test_topk_head_kernel_matches_twin(cuda, dtype, W, B, H, vocab):
+    """Top-W ids equal, except where two adjacent fp32 logits of the row lie
+    within 1e-3 (sums in another order may swap them); values within fp32
+    sum-order tolerance, lse within 1e-5 relative."""
+    _check_topk_against_twin(dtype, W, B, H, vocab, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W,B,H,vocab", [
+    (5, 129, 48, 1500), (9, 257, 512, 10123),  # one row into a 128-row band
+    (128, 129, 512, 10123), (128, 70, 48, 1500),  # the longest list: 64-row bands
+    (33, 257, 64, 300), (32, 300, 64, 300),  # either side of the band rule
+    (32, 129, 512, 10123),  # the most shared memory a block asks for
+    (5, 300, 64, 100),  # a vocab shorter than one split
+])
+def test_topk_head_kernel_odd_rows_and_wide_lists(cuda, dtype, W, B, H, vocab):
+    """The same bounds at row counts off the band, at lists up to W = 128
+    (past 32 the tensor-core instance runs 64-row bands) and at a vocab of
+    one tile; with the tiled weight handed in, as the decoders do."""
+    _check_topk_against_twin(dtype, W, B, H, vocab, cuda, with_t=True)
 
 
 def test_topk_head_kernel_tie_across_tiles_ranks_lower_id_first(cuda):
@@ -185,6 +259,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fs.beam_head_topk(w, b, chat, h, 37, 129)
     with pytest.raises(ValueError, match="dtype"):
         fs.beam_head_topk(w, b.bfloat16(), chat, h, 37, 3)
+    wb, bb, cb, hb = (t.bfloat16() for t in (w, b, chat, h))
+    with pytest.raises(ValueError, match="head_kernel_t has shape"):
+        fs.greedy_head_argmax(wb, bb, cb, hb, 37, head_kernel_t=wb)
+    with pytest.raises(ValueError, match="head_kernel_t has dtype"):
+        fs.beam_head_topk(wb, bb, cb, hb, 37, 3, head_kernel_t=fs.head_kernel_tiles(w))
     args = _cell_args(4, 16, 8, 4, torch.float32, cuda)
     with pytest.raises(ValueError, match="shape"):
         fs.decode_cell(*args[:6], args[6][:, :3].contiguous(), *args[7:])

@@ -271,3 +271,114 @@ def test_beam_head_refuses_widths_past_one_tile(W):
     z = torch.zeros((2, 4))
     with pytest.raises(ValueError, match="W="):
         tfs.beam_head_topk(torch.zeros((4, 256)), torch.zeros(256), z, z, 200, W)
+
+
+# ------------------------- the heads' two instances and their launch plan
+@pytest.mark.parametrize("dtype,H,want", [
+    (torch.bfloat16, 512, "mma"), (torch.bfloat16, 48, "mma"), (torch.bfloat16, 8, "mma"),
+    (torch.bfloat16, 12, "simt"),  # a row of 12 bf16 is no whole number of 16-byte copies
+    (torch.bfloat16, 520, "simt"),  # the band's z would not leave room for the ring
+    (torch.float32, 512, "simt"), (torch.float32, 48, "simt"),
+])
+def test_head_instance_rule(dtype, H, want):
+    """bf16 with H a multiple of 8 up to 512 takes the tensor-core instance;
+    fp32 (exact only on the CUDA cores) and every other H the SIMT one."""
+    assert tfs.head_instance(dtype, H) == want
+
+
+@pytest.mark.parametrize("rows,Vp,W,want", [
+    (1024, 10240, 1, (128, 16, 5)),   # greedy main path: 8 bands x 16 splits of 640 columns
+    (3072, 10240, 3, (128, 5, 16)),   # beam 3: 24 bands x 5 splits of 2048 columns
+    (3072, 10240, 32, (128, 5, 16)),  # the longest list beside a 128-row band
+    (3072, 10240, 33, (64, 2, 40)),   # longer lists: 48 bands of 64 rows, 132 // 48 = 2 splits
+    (1, 10240, 1, (128, 80, 1)),      # one band: a split a tile
+    (3, 128, 5, (128, 1, 1)),         # a vocab shorter than one split
+    (1500, 2688, 1, (128, 11, 2)),    # 21 tiles over 132 // 12 = 11 splits, the last holds one
+    (40000, 10240, 1, (128, 1, 80)),  # more bands than SMs: one split
+])
+def test_head_plan_mma_scratch_shapes(rows, Vp, W, want):
+    """(band rows, splits = partials a row, tiles a split) for the
+    tensor-core instance on 132 SMs; the splits cover every tile once."""
+    plan = tfs.head_plan("mma", rows, Vp, W)
+    assert tuple(plan) == want
+    ntiles = Vp // tfs.HEAD_TILE
+    assert (plan.nsplit - 1) * plan.tiles_per_split < ntiles <= plan.nsplit * plan.tiles_per_split
+
+
+def test_head_plan_follows_the_sm_count_and_simt_keeps_a_partial_a_tile():
+    assert tuple(tfs.head_plan("mma", 1024, 10240, 1, sms=64)) == (128, 8, 10)
+    assert tuple(tfs.head_plan("simt", 1024, 10240, 3)) == (0, 80, 1)
+    assert tuple(tfs.head_plan("simt", 7, 128)) == (0, 1, 1)
+
+
+@pytest.mark.parametrize("dtype,H,has_t", [(torch.bfloat16, 16, True), (torch.float32, 16, False),
+                                           (torch.bfloat16, 12, False)])
+def test_prepare_greedy_head_hands_the_kernels_the_transposed_weight(dtype, H, has_t):
+    """prepare_greedy_head still unpacks as (w_p [H, Vp], b_p [Vp]); its
+    kernel_t is w_p.T in 128 x 64 tiles, contiguous, where head_instance
+    picks the tensor-core instance, and None elsewhere."""
+    from adaptive_tpu_torch.models import decoders as D
+
+    rng = np.random.default_rng(5)
+    vocab, vp = 37, 40
+    w = torch.from_numpy(rng.normal(size=(H, vp)).astype(np.float32)).to(dtype)
+    b = torch.from_numpy(rng.normal(size=(vp,)).astype(np.float32)).to(dtype)
+    spec = D.DecoderSpec("adaptive_attention", 8, H, vocab, padded_vocab=vp)
+    head = D.prepare_greedy_head({"adaptive": {"mlp": {"kernel": w, "bias": b}}}, spec)
+    w_p, b_p = head
+    assert isinstance(head, tfs.PreparedHead) and head[0] is w_p and len(head) == 2
+    assert w_p.shape == (H, 128) and b_p.shape == (128,)
+    assert torch.equal(w_p[:, :vp], w) and not w_p[:, vp:].any()
+    assert (b_p[vocab:] == torch.tensor(tfs.NEG).to(dtype)).all() and torch.equal(b_p[:vocab], b[:vocab])
+    if has_t:
+        assert head.kernel_t.is_contiguous() and head.kernel_t.shape == (1, 1, 128, 64)
+        assert torch.equal(_untile(head.kernel_t, H), w_p.T)
+    else:
+        assert head.kernel_t is None
+
+
+def _untile(tiles, H):
+    """[Vp / 128, KB, 128, 64] tiles back to W.T [Vp, H], written out from
+    the layout's definition: row n of tile [t, kb] holds k = kb * 64 + 8 c
+    + e at chunk c ^ (n % 8), element e."""
+    nt, kb, _, _ = tiles.shape
+    out = torch.zeros((nt * 128, kb * 64), dtype=tiles.dtype)
+    for n in range(128):
+        for c in range(8):
+            out[n::128, (torch.arange(kb) * 64 + 8 * c)[:, None] + torch.arange(8)] = \
+                tiles[:, :, n, 8 * (c ^ (n % 8)): 8 * (c ^ (n % 8)) + 8]
+    assert not out[:, H:].any()  # k past H is zero-filled
+    return out[:, :H]
+
+
+@pytest.mark.parametrize("H,Vp", [(512, 256), (48, 384), (200, 128), (64, 128)])
+def test_head_kernel_tiles_hold_the_transposed_weight_swizzled(H, Vp):
+    """Every element of W.T is found where the kernel's descriptors look for
+    it, and the k remainder of the last 64-wide block is zero."""
+    rng = np.random.default_rng(7)
+    w = torch.from_numpy(rng.normal(size=(H, Vp)).astype(np.float32)).bfloat16()
+    tiles = tfs.head_kernel_tiles(w)
+    assert tiles.shape == (Vp // 128, -(-H // 64), 128, 64) and tiles.is_contiguous()
+    assert torch.equal(_untile(tiles, H), w.T)
+    # the swizzle itself, on one element: W[k = 9, column 2] is row n = 2 of
+    # tile [0, 0], chunk 1 ^ 2 = 3, element 1
+    assert tiles[0, 0, 2, 3 * 8 + 1] == w[9, 2]
+
+
+def test_head_check_refuses_a_tiled_weight_of_another_shape_or_dtype():
+    """What _check_head runs for CUDA tensors, reached here with CPU ones:
+    the tiled weight must match the [H, Vp] one; fp32 takes none."""
+    w = torch.zeros((16, 128), dtype=torch.bfloat16)
+    b = torch.zeros(128, dtype=torch.bfloat16)
+    z = torch.zeros((4, 16), dtype=torch.bfloat16)
+    inst, w_t = tfs._check_head("head", w, b, z, z, 100, None)
+    assert inst == "mma" and w_t.shape == (1, 1, 128, 64) and w_t.is_contiguous()
+    with pytest.raises(ValueError, match="head_kernel_t has shape"):
+        tfs._check_head("head", w, b, z, z, 100, torch.zeros((128, 16), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="head_kernel_t has dtype"):
+        tfs._check_head("head", w, b, z, z, 100, torch.zeros((1, 1, 128, 64)))
+    with pytest.raises(ValueError, match="head_kernel_t must be contiguous"):
+        tfs._check_head("head", w, b, z, z, 100,
+                        torch.zeros((1, 1, 64, 128), dtype=torch.bfloat16).transpose(2, 3))
+    assert tfs._check_head("head", w.float(), b.float(), z.float(), z.float(), 100, None) \
+        == ("simt", None)
