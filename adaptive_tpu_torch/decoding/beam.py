@@ -77,11 +77,13 @@ def make_beam_decoder(model, cf, beam_size: int = None, length_alpha: float = 0.
     beam_major = model.fused and cf.decode_beam_major
     prepare = prepare_cached(model)
 
+    def preprocess(images_u8):
+        return eval_preprocess(torch.as_tensor(images_u8, device=model.device), size,
+                               model.compute_dtype)
+
     @torch.no_grad()
-    def decode_prepared(prepared, images_u8) -> BeamOutput:
+    def decode_images(prepared, images) -> BeamOutput:
         dev = model.device
-        images_u8 = torch.as_tensor(images_u8, device=dev)
-        images = eval_preprocess(images_u8, size, model.compute_dtype)
         V, v_g, h0, c0 = model.encode_inference(prepared, images)
         dec, head = prepared["decoder"], prepared["head"]
         B, K = V.shape[0], V.shape[1]
@@ -148,8 +150,13 @@ def make_beam_decoder(model, cf, beam_size: int = None, length_alpha: float = 0.
         return BeamOutput(ids=all_ids[img, best], score=scores[img, best], all_ids=all_ids,
                           all_scores=scores, attention=att_buf[img, best], beta=beta_buf[img, best])
 
+    def decode_prepared(prepared, images_u8) -> BeamOutput:
+        return decode_images(prepared, preprocess(images_u8))
+
     def decode(net, images_u8) -> BeamOutput:
-        return decode_prepared(prepare(net), images_u8)
+        images = preprocess(images_u8)  # queued first: the card resizes while prepare checks the weights
+        return decode_images(prepare(net), images)
 
     decode.prepare = prepare
+    decode.decode_prepared = decode_prepared
     return decode

@@ -14,6 +14,7 @@ path (ops/fused_step.py).
 
 from __future__ import annotations
 
+import operator
 from typing import NamedTuple
 
 import torch
@@ -27,19 +28,34 @@ class GreedyOutput(NamedTuple):
     beta: torch.Tensor  # [B, L] sentinel share
 
 
+_VERSION = operator.attrgetter("_version")
+
+
 def prepare_cached(model):
-    """model.prepare_inference memoized on the identity of the weights'
-    module: a serving or bench loop pays it once per checkpoint."""
-    cache = []
+    """model.prepare_inference memoized on the weights' module and the
+    version counters of its parameters and buffers, read once a call: a
+    serving or bench loop pays it once per checkpoint, and a weight changed
+    in place (an optimiser step, load_state_dict, a write under no_grad)
+    prepares anew. The tensors are
+    listed once per module (walking the module tree costs milliseconds a
+    call), so a parameter or buffer replaced by another tensor object
+    (``module.weight = nn.Parameter(...)``, ``load_state_dict(assign=True)``,
+    ``.to()`` through ``param.data =``) is not seen: the cached preparation
+    is served until ``get.clear()`` drops it."""
+    cache = []  # [net, its parameters and buffers, their versions, prepared]
 
     def get(net):
         if not (cache and cache[0] is net):
+            cache[:] = [net, (*net.parameters(), *net.buffers()), None, None]
+        versions = tuple(map(_VERSION, cache[1]))
+        if versions != cache[2]:
             get.misses += 1
-            cache[:] = [net, model.prepare_inference(net)]
+            cache[2:] = [versions, model.prepare_inference(net)]
         else:
             get.hits += 1
-        return cache[1]
+        return cache[3]
 
+    get.clear = cache.clear
     get.misses = 0
     get.hits = 0
     return get
@@ -59,10 +75,12 @@ def make_greedy_decoder(model, cf):
     early_exit = cf.decode_early_exit
     prepare = prepare_cached(model)
 
+    def preprocess(images_u8):
+        return eval_preprocess(torch.as_tensor(images_u8, device=model.device), size,
+                               model.compute_dtype)
+
     @torch.no_grad()
-    def decode_prepared(prepared, images_u8) -> GreedyOutput:
-        images_u8 = torch.as_tensor(images_u8, device=model.device)
-        images = eval_preprocess(images_u8, size, model.compute_dtype)
+    def decode_images(prepared, images) -> GreedyOutput:
         V, v_g, h0, c0 = model.encode_inference(prepared, images)
         dec, head = prepared["decoder"], prepared["head"]
         pv = model.precompute_slots(dec, V)  # hoisted out of the loop
@@ -89,8 +107,12 @@ def make_greedy_decoder(model, cf):
         return GreedyOutput(ids=torch.stack(ids, 1), attention=torch.stack(alphas, 1),
                             beta=torch.stack(betas, 1))
 
+    def decode_prepared(prepared, images_u8) -> GreedyOutput:
+        return decode_images(prepared, preprocess(images_u8))
+
     def decode(net, images_u8) -> GreedyOutput:
-        return decode_prepared(prepare(net), images_u8)
+        images = preprocess(images_u8)  # queued first: the card resizes while prepare checks the weights
+        return decode_images(prepare(net), images)
 
     decode.prepare = prepare
     decode.decode_prepared = decode_prepared

@@ -31,7 +31,7 @@ SIGNATURES = {
     "adaptive_cell_launch": [_I] + [_P] * 19 + [_I] * 6 + [_P],
     "head_argmax_launch": [_I] + [_P] * 8 + [_I] * 6 + [_P],
     "head_topk_launch": [_I] + [_P] * 11 + [_I] * 8 + [_P],
-    "bottleneck_block_launch": [_P] * 11 + [_F] * 4 + [_I] * 5 + [_P],
+    "bottleneck_block_launch": [_P] * 11 + [_F] * 4 + [_I] * 11 + [_P],
     "tail_conv1_launch": [_P] * 10 + [_F] * 3 + [_I] * 4 + [_P],
 }
 
@@ -64,6 +64,9 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources if their library is not built yet; returns its path."""
+    if not _sources():
+        raise RuntimeError(f"no CUDA kernel sources (*.cu) under {CSRC}: the package was "
+                           "installed without its csrc/ files")
     out = library_path()
     if out.exists():
         return out

@@ -20,7 +20,9 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    the fused tail + next conv1) against their twins and against the int8
    carry's own unfused code at ResNet-152's four bottleneck layer shapes at
    batch 1024 (seeded s8 inputs), timing kernel, twin and unfused segment
-   beside the bound; plus a correctness-only pass at 3 images of 13 x 13;
+   beside the bound, with kernel 5's launch plan (rows or images a block,
+   shared bytes, blocks an SM); plus a correctness-only pass at 3 images of
+   13 x 13;
 3. runs the greedy path end to end in bf16 at full width: build_model ->
    make_greedy_decoder -> greedy captions for 1024 seeded uint8 256x256
    images with a seeded random ResNet-152 / H 512 model; checks that each
@@ -517,9 +519,11 @@ def int8_kernel_checks():
         p6 = cuda_ms(lambda: ft.tail_conv1_int8_plain(*a6), INT8_ITERS, 1)
         f6 = cuda_ms(lambda: carry_tail(x4, z24, *c6, *S6), INT8_ITERS, 1)
         b6 = bound(nbytes(x, z2, out, z1, w3, w1n, *r3, *r1n), 2.0 * N * (M * C + C * M2), "int8")
+        plan = fb.block_plan(nb, H, H, C, M)
         log(line + f" | block: kernel {k5:.4f} ms plain {p5:.4f} ms unfused {f5:.4f} ms bound "
-            f"{b5[0]:.4f} ms ({b5[1]}) | tail: kernel {k6:.4f} ms plain {p6:.4f} ms unfused "
-            f"{f6:.4f} ms bound {b6[0]:.4f} ms ({b6[1]}); launches a decode {n}")
+            f"{b5[0]:.4f} ms ({b5[1]}); plan {plan.rows} rows x {plan.images} images a block, "
+            f"{plan.smem} shared bytes, {plan.sms} blocks an SM | tail: kernel {k6:.4f} ms plain "
+            f"{p6:.4f} ms unfused {f6:.4f} ms bound {b6[0]:.4f} ms ({b6[1]}); launches a decode {n}")
         for name, nd, dmax, ms, pl, un, bd in (
                 ("bottleneck_identity_int8", n5, d5, k5, p5, f5, b5),
                 ("tail_conv1_int8", n6 + n6b, max(d6, d6b), k6, p6, f6, b6)):
@@ -527,6 +531,9 @@ def int8_kernel_checks():
                               "elements_differ": nd, "max_abs_err": dmax, "ms": ms,
                               "plain_ms": pl, "unfused_ms": un, "bound_ms": bd[0],
                               "bound_by": bd[1]})
+        res["bottleneck_identity_int8"][-1]["plan"] = {
+            "rows_a_block": plan.rows, "images_a_block": plan.images, "smem_bytes": plan.smem,
+            "blocks_an_sm": plan.sms, "nt": plan.nt, "kt": plan.kt}
         del a5, a6, x4, z24, c5, c6, got, out, z1, p_out, p_z1
         torch.cuda.empty_cache()
     return res

@@ -338,11 +338,15 @@ def _block_args(B, H, W, C, M, device, seed=0):
 
 
 @pytest.mark.parametrize("B,H,W,C,M", [(1, 4, 4, 16, 16), (3, 7, 7, 24, 24), (3, 8, 8, 64, 16),
-                                       (1, 7, 7, 16, 64), (3, 4, 8, 24, 64), (2, 13, 5, 64, 24)])
+                                       (1, 7, 7, 16, 64), (3, 4, 8, 24, 64), (2, 13, 5, 64, 24),
+                                       (3, 7, 7, 64, 64), (5, 7, 7, 64, 64), (1, 14, 14, 256, 64),
+                                       (1, 1, 1, 16, 16), (2, 5, 6, 24, 40), (2, 14, 14, 1024, 256)])
 def test_fused_block_kernel_matches_twin(cuda, B, H, W, C, M):
-    """Kernel 5 against its twin: the same s8 output, bit for bit (int32
-    products, the same IEEE epilogue operations; the bound allowed is +/-1
-    quantum on under 0.2% of elements, as on the TPU)."""
+    """Kernel 5 under block_plan's plan against its twin: the same s8
+    output, bit for bit (int32 products, the same IEEE epilogue operations;
+    the bound allowed is +/-1 quantum on under 0.2% of elements, as on the
+    TPU). Also 1x1 images, K % 16 = 8 (C 24, M 40: 8-byte copies) and
+    layer3's widths."""
     from adaptive_tpu_torch.ops import fused_block as fb
 
     args = _block_args(B, H, W, C, M, cuda)
@@ -355,6 +359,34 @@ def test_fused_block_kernel_matches_twin(cuda, B, H, W, C, M):
     assert (want != 0).float().mean() > 0.2  # the epilogue rows keep outputs alive
     d = (got.int() - want.int()).abs()
     assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 2e-3
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,H,W,C,M,rows,images,nt,kt", [
+    (5, 7, 7, 64, 64, 7, 2, 128, 128),  # groups of 2, 2, 1: fragments across two images
+    (5, 7, 7, 64, 64, 7, 3, 64, 64),  # groups of 3, 2: 147 rows, K chunks of 64
+    (5, 7, 7, 64, 64, 3, 1, 128, 128),  # bands of 3, 3, 1 rows
+    (1, 14, 14, 256, 64, 2, 1, 64, 128),  # a multi-band image, halo above and below
+    (1, 14, 14, 256, 64, 14, 1, 128, 128),  # 196 rows in two passes of 128
+    (1, 12, 40, 64, 64, 6, 1, 64, 128),  # 320 stage-1 rows in two passes of 256; one block an SM
+    (2, 5, 6, 24, 40, 2, 1, 64, 64),  # 8-byte copies, K tails, short bands
+    (3, 4, 4, 16, 16, 4, 3, 128, 128),  # every image in one block, N < a column chunk
+    (2, 14, 14, 1024, 256, 14, 1, 128, 128),  # layer3's widths, 181 KB: one block an SM
+])
+def test_fused_block_kernel_plans_match_twin(cuda, B, H, W, C, M, rows, images, nt, kt):
+    """Kernel 5 under plans that block_plan does not pick at these shapes,
+    so that each branch of the kernel runs: image groups with a ragged last
+    group, bands with a ragged last band, several passes of rows, both
+    column chunks, both K chunks, shared bytes past two blocks an SM; bit
+    for bit."""
+    from adaptive_tpu_torch.ops import fused_block as fb
+
+    args = _block_args(B, H, W, C, M, cuda, seed=3)
+    plan = fb.make_plan(B, H, W, C, M, rows, images, nt, kt)
+    got = fb._launch_block(plan, args[0], H, W, *args[3:6], args[6:12], *args[12:])
+    torch.cuda.synchronize()
+    want = fb.bottleneck_identity_int8_plain(*args)
+    assert (want != 0).float().mean() > 0.2
     assert torch.equal(got, want)
 
 
@@ -395,6 +427,11 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     bad = list(args)
     bad[3] = args[3].T.contiguous().T  # w1, a transposed view
     with pytest.raises(ValueError, match="contiguous"):
+        fb.bottleneck_identity_int8(*bad)
+    bad = list(args)
+    bad[0] = torch.empty(args[0].numel() + 8, dtype=torch.int8, device=cuda)[8:].view(
+        args[0].shape)  # 8 bytes off a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte aligned"):
         fb.bottleneck_identity_int8(*bad)
     bad = list(args)
     bad[0] = args[0].cpu()  # x on the CPU picks the twin, which the CUDA weights refuse

@@ -126,6 +126,50 @@ def test_prepare_cached_once_per_checkpoint(setup):
     assert head_w.shape[1] == 128 and (head_b[37:] == -1e30).all()
 
 
+def test_prepare_cached_sees_in_place_weight_changes(setup):
+    """A weight changed in place (as an optimiser step does) between two
+    decodes misses the cache: the second ids are a fresh decoder's, not the
+    first weights'. clear() forces a miss too."""
+    jcf, params, state, images = setup
+    model, net = port_model_and_net(port_cf(jcf), params, state)
+    decode = make_greedy_decoder(model, port_cf(jcf))
+    before = decode(net, images).ids
+    with torch.no_grad():
+        net.decoder.adaptive.mlp.bias[jcf.decode_eos_token] += 1e4  # every row ends at step 0
+    after = decode(net, images).ids
+    assert (decode.prepare.misses, decode.prepare.hits) == (2, 0)
+    fresh = make_greedy_decoder(model, port_cf(jcf))(net, images).ids
+    np.testing.assert_array_equal(after.numpy(), fresh.numpy())
+    assert (after == jcf.decode_eos_token).all() and not torch.equal(after, before)
+    decode(net, images)
+    decode.prepare.clear()
+    decode(net, images)
+    assert (decode.prepare.misses, decode.prepare.hits) == (3, 1)
+
+
+def test_prepare_cached_serves_a_replaced_parameter_until_clear(setup):
+    """A parameter replaced by another tensor object is not among the listed
+    tensors: the cached preparation is served (a hit, the first weights'
+    ids) until clear(), after which the ids are a fresh decoder's."""
+    jcf, params, state, images = setup
+    model, net = port_model_and_net(port_cf(jcf), params, state)
+    decode = make_greedy_decoder(model, port_cf(jcf))
+    before = decode(net, images).ids
+    mlp = net.decoder.adaptive.mlp
+    bias = mlp.bias.detach().clone()
+    bias[jcf.decode_eos_token] += 1e4  # every row ends at step 0
+    mlp.bias = torch.nn.Parameter(bias)
+    stale = decode(net, images).ids
+    assert (decode.prepare.misses, decode.prepare.hits) == (1, 1)
+    assert torch.equal(stale, before)
+    decode.prepare.clear()
+    after = decode(net, images).ids
+    assert decode.prepare.misses == 2
+    fresh = make_greedy_decoder(model, port_cf(jcf))(net, images).ids
+    np.testing.assert_array_equal(after.numpy(), fresh.numpy())
+    assert (after == jcf.decode_eos_token).all()
+
+
 def test_port_imports_no_jax():
     """A fresh process imports the port and decodes on the CPU, greedy and
     beam, without loading jax or any module of the JAX package."""

@@ -1,0 +1,222 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's fused int8 bottleneck kernel (kernel 5) alone on
+one NVIDIA card.
+
+    python3 tools/torch_int8_probe.py [--layers 1234] [--sweep] [--ptxas] [--clocks]
+
+chip_smoke.py times kernel 5 through its wrapper beside the twin and the
+unfused carry. This probe calls the library's C entry point
+``bottleneck_block_launch`` directly on preallocated tensors at ResNet-152's
+four identity-block shapes at batch 1,024, so that host time is left out.
+For each layer it checks the output against the plain twin (torch.equal),
+and prints ms a launch (CUDA events over back-to-back launches), the bound,
+the launch plan (``ops/fused_block.py::block_plan``) and the weight bytes
+that the plan draws from L2 (computed from the plan, not measured), with
+the L2 rate that those bytes would take at the measured time. --sweep also
+times other plans (rows or images a block, column and K chunks); --ptxas
+first compiles fused_block.cu alone with ``-Xptxas -v`` and prints what
+ptxas reports (registers, spills, shared memory); --clocks builds it once
+more with ``-DFUSED_BLOCK_CLOCKS`` and splits one launch into the SM
+cycles a block spends in each stage and in the epilogues. Needs a CUDA card and
+nvcc; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+
+B = 1024
+# (H = W, C, M, launches a decode): ResNet-152's identity blocks by layer
+LAYERS = ((56, 256, 64, 2), (28, 512, 128, 7), (14, 1024, 256, 35), (7, 2048, 512, 1))
+SCALES = (0.034, 0.057, 0.021, 0.026)  # s2, s3, s_in, s_out
+HBM_RATE, INT8_RATE = 3.35e12, 1.979e15  # an H100 SXM's bytes/s and int8 operations/s
+
+
+def bound_ms(H, C, M) -> float:
+    """The least time of a launch on an H100 SXM: the carry's bytes (x read,
+    out written) or the int8 operations, whichever is longer."""
+    N = B * H * H
+    return 1e3 * max(2 * N * C / HBM_RATE, 2.0 * N * (2 * C * M + 9 * M * M) / INT8_RATE)
+
+
+def weight_bytes(fb, plan, H, C, M) -> int:
+    """Weight bytes a launch draws from L2 under plan: each block copies w1
+    once a pass of its stage-1 rows, w2 and w3 once a pass of its output rows
+    (a bound: a short last band or group may take fewer passes)."""
+    p1, p2 = fb._plan_rows(H, H, plan.rows, plan.images)
+    npass = lambda p: -(-p // fb.RING_PASS[plan.nt])  # noqa: E731
+    return plan.blocks * (M * C * npass(p1) + (9 * M * M + C * M) * npass(p2))
+
+
+def ptxas_report() -> str:
+    from adaptive_tpu_torch.ops.cuda import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj = build.BUILD_DIR / f"probe.{os.getpid()}.o"
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                           str(obj), str(build.CSRC / "fused_block.cu")],
+                          capture_output=True, text=True)
+    obj.unlink(missing_ok=True)
+    return f"[ptxas] rc {proc.returncode}\n{proc.stdout}{proc.stderr}"
+
+
+def clocks_library():
+    """fused_block.cu alone, built with -DFUSED_BLOCK_CLOCKS: the kernel also
+    sums each block's SM cycles a stage (and in its epilogues) into four
+    counters that fused_block_clocks reads and zeroes."""
+    from adaptive_tpu_torch.ops.cuda import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = build.BUILD_DIR / f"probe_clocks.{os.getpid()}.so"
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-DFUSED_BLOCK_CLOCKS", "-shared",
+                           "-o", str(so), str(build.CSRC / "fused_block.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc -DFUSED_BLOCK_CLOCKS failed:\n{proc.stderr}")
+    lib = ctypes.CDLL(str(so))
+    so.unlink()
+    lib.bottleneck_block_launch.argtypes = build.SIGNATURES["bottleneck_block_launch"]
+    lib.fused_block_clocks.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def sweep_plans(fb, H, C, M):
+    """block_plan's plan, then the cuts around it (three cuts of fewer and
+    more rows or images a block) and the largest cut that fits one block an
+    SM, each with every column chunk and K chunk whose shared bytes fit."""
+    base = fb.block_plan(B, H, H, C, M)
+    cuts = list(fb._candidates(B, H))[: 4 * H + 8]
+    i = cuts.index((base.rows, base.images))
+    pick = cuts[max(0, i - 3): i + 4]
+    one = [c for c in cuts if fb.block_smem(H, H, M, *c, 64, 64) <= fb.MAX_SMEM]
+    if one and one[-1] not in pick:
+        pick.append(one[-1])
+    out = [base]
+    for R, G in pick:
+        for nt in (64, 128):
+            for kt in (128, 64):
+                p = fb.make_plan(B, H, H, C, M, R, G, nt, kt)
+                if kt + 16 >= nt and p.smem <= fb.MAX_SMEM and p not in out:
+                    out.append(p)
+    return out
+
+
+def brief(p) -> str:
+    return (f"rows {p.rows} images {p.images} nt {p.nt} kt {p.kt} smem {p.smem} ({p.sms} blocks "
+            f"an SM) blocks {p.blocks}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--layers", default="1234", help="which of layers 1-4 to run")
+    ap.add_argument("--sweep", action="store_true", help="also time neighbouring plans")
+    ap.add_argument("--ptxas", action="store_true", help="print ptxas -v for fused_block.cu")
+    ap.add_argument("--clocks", action="store_true",
+                    help="also split block_plan's launch into SM cycles a stage (a second build)")
+    ap.add_argument("--iters", type=int, default=20, help="timed launches a plan")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_int8_probe.py: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    from adaptive_tpu_torch.ops import fused_block as fb
+    from adaptive_tpu_torch.ops.cuda import build
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    if args.ptxas:
+        print(ptxas_report(), flush=True)
+    lib = build.load()
+    clib = clocks_library() if args.clocks else None
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def s8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+
+    def rows(n, k):  # acc * sc + b at O(1), as chip_smoke.py's
+        sc = (torch.rand(n, generator=g, device="cuda") + 0.5) * (3.0 / (127 ** 2 * k ** 0.5))
+        return sc, torch.randn(n, generator=g, device="cuda") * 0.3
+
+    def device_ms(fn, iters):
+        for _ in range(2):
+            fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    a = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+    for _ in range(200):  # load clocks before the first timing
+        a @ a
+    del a
+    total = {}
+    for li, (H, C, M, n) in enumerate(LAYERS, 1):
+        if str(li) not in args.layers:
+            continue
+        N = B * H * H
+        x, w1, w2, w3 = s8(N, C), s8(M, C), s8(M, 9 * M), s8(C, M)
+        r = (*rows(M, C), *rows(M, 9 * M), *rows(C, M))
+        out = torch.empty_like(x)
+        want = fb.bottleneck_identity_int8_plain(x, H, H, w1, w2, w3, *r, *SCALES)
+        bound = bound_ms(H, C, M)
+        plans = sweep_plans(fb, H, C, M) if args.sweep else [fb.block_plan(B, H, H, C, M)]
+        for k, p in enumerate(plans):
+            def raw():
+                return lib.bottleneck_block_launch(
+                    *map(fb._ptr, (x, w1, w2, w3, *r, out)), *map(ctypes.c_float, SCALES),
+                    B, H, H, C, M, p.rows, p.images, p.nt, p.kt, p.smem, p.vec, stream)
+
+            out.zero_()
+            err = raw()
+            torch.cuda.synchronize()
+            differ = int((out != want).sum()) if err == 0 else -1
+            ms = device_ms(raw, args.iters) if err == 0 and differ == 0 else float("nan")
+            l2 = weight_bytes(fb, p, H, C, M)
+            if k == 0:
+                total[li] = (n, ms, bound)
+                print(f"[int8 probe layer{li}] H=W {H} C {C} M {M}: {brief(p)} | err {err}, "
+                      f"{differ} of {out.numel()} elements differ from the twin | kernel {ms:.4f} ms, bound "
+                      f"{bound:.4f} ms ({ms / bound:.1f}x) | weights from L2 {l2 / 1e9:.3f} GB "
+                      f"(planned), {l2 / (ms * 1e-3) / 1e12:.2f} TB/s at this time; {n} launches "
+                      f"a decode", flush=True)
+            else:
+                print(f"[int8 probe layer{li} alt] {brief(p)}: err {err} differ {differ} | "
+                      f"{ms:.4f} ms ({ms / bound:.1f}x) | L2 {l2 / 1e9:.3f} GB | model "
+                      f"{fb.plan_cost(p, H, H, C, M) / 1e9:.1f}", flush=True)
+        if clib is not None:
+            p = plans[0]
+            cyc = (ctypes.c_ulonglong * 4)()
+            clib.fused_block_clocks(cyc)
+            err = clib.bottleneck_block_launch(
+                *map(fb._ptr, (x, w1, w2, w3, *r, out)), *map(ctypes.c_float, SCALES),
+                B, H, H, C, M, p.rows, p.images, p.nt, p.kt, p.smem, p.vec, stream)
+            torch.cuda.synchronize()
+            if err or clib.fused_block_clocks(cyc) or not torch.equal(out, want):
+                raise RuntimeError(f"layer{li}: the clocks build failed or differs from the twin")
+            per = [c / p.blocks for c in cyc]
+            print(f"[int8 probe clocks layer{li}] SM cycles a block: stage 1 {per[0]:.0f}, stage 2 "
+                  f"{per[1]:.0f}, stage 3 {per[2]:.0f} (epilogues {per[3]:.0f}); "
+                  f"{p.blocks} blocks", flush=True)
+        del x, w1, w2, w3, r, out, want
+        torch.cuda.empty_cache()
+    if len(total) == len(LAYERS):
+        ms = sum(n * t for n, t, _ in total.values())
+        bd = sum(n * b for n, _, b in total.values())
+        print(f"[int8 probe decode] kernel 5 launch-weighted: {ms:.3f} ms a decode, bound "
+              f"{bd:.3f} ms ({ms / bd:.1f}x)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
