@@ -32,7 +32,7 @@ SIGNATURES = {
     "head_argmax_launch": [_I] + [_P] * 8 + [_I] * 6 + [_P],
     "head_topk_launch": [_I] + [_P] * 11 + [_I] * 8 + [_P],
     "bottleneck_block_launch": [_P] * 11 + [_F] * 4 + [_I] * 11 + [_P],
-    "tail_conv1_launch": [_P] * 10 + [_F] * 3 + [_I] * 4 + [_P],
+    "tail_conv1_launch": [_P] * 10 + [_F] * 3 + [_I] * 9 + [_P],
 }
 
 _lock = threading.Lock()

@@ -95,32 +95,11 @@ struct TapRows {
   }
 };
 
-// Stage 3: row p of z2 (the last row for rows past P, whose sums are dropped).
-struct PlainRows {
-  uint32_t base;
-  int ld, P;
-  uint32_t off[RING_MI];
-  __device__ __forceinline__ void prep(int i, int p) { off[i] = min(p, P - 1) * ld; }
-  __device__ __forceinline__ uint32_t addr(int i, int) const { return base + off[i]; }
-};
-
-// Shared rows of M s8 values, padded to a multiple of 32 (the K tail that a
-// fragment reads meets zeros in the weight chunk) plus 16 bytes (an odd
-// multiple of 16, so ldmatrix's 8 rows fall on distinct bank groups).
-__host__ __device__ __forceinline__ int act_ld(int M) { return ((M + 31) & ~31) + 16; }
-
 // P1max, P2max: the most stage-1 and output rows a block holds.
 __host__ __device__ __forceinline__ void plan_rows(int H, int W, int R, int G, int& P1max,
                                                    int& P2max) {
   P2max = G > 1 ? G * H * W : R * W;
   P1max = G > 1 ? P2max : (R + 2 < H ? R + 2 : H) * W;
-}
-
-// Bytes of one ring slot: an [NT x KT] weight chunk and, for stage 1, up to
-// a pass of x rows, each row KT + 16 bytes.
-__host__ __device__ __forceinline__ int slot_bytes(int nt, int kt, int P1max) {
-  const int pass = nt == 64 ? int(RingLayout<2>::PASS) : int(RingLayout<4>::PASS);
-  return (nt + (P1max < pass ? P1max : pass)) * (kt + RING_ROW_PAD);
 }
 
 // Registers for two blocks an SM (at most 128 a thread): block_plan's plans
@@ -152,8 +131,9 @@ bottleneck_block_kernel(const int8_t* __restrict__ x,     // [B*H*W, C]
 
   // stage 1: conv1 (1x1) on the band and its halo rows inside the image
   NoRows none;
-  ring_product<WC, VEC, true, false>(ring, sbytes, KT, br.P1, M, 1, C, w1, x + (size_t)br.i0 * C, none,
-                        sc1, b1, s2, z1s, ld, nullptr, 0.f, nullptr);
+  ring_product<WC, VEC, true, false, TO_SHARED>(ring, sbytes, KT, br.P1, M, 1, C, w1,
+                                                x + (size_t)br.i0 * C, none, sc1, b1, s2, z1s,
+                                                ld, nullptr, 0.f, nullptr);
   RING_CLOCK(0, t0);
 
   // stage 2: conv2 (3x3, stride 1, zero padding) from shared memory
@@ -162,16 +142,19 @@ bottleneck_block_kernel(const int8_t* __restrict__ x,     // [B*H*W, C]
   taps.zero = smem_u32(zero);
   taps.ld = ld, taps.H = H, taps.W = W, taps.HW = H * W;
   taps.o0 = br.o0, taps.i0 = br.i0, taps.P = br.P2;
-  ring_product<WC, VEC, false, false>(ring, sbytes, KT, br.P2, M, 9, M, w2, nullptr, taps, sc2, b2, s3,
-                        z2s, ld, nullptr, 0.f, nullptr);
+  ring_product<WC, VEC, false, false, TO_SHARED>(ring, sbytes, KT, br.P2, M, 9, M, w2, nullptr,
+                                                 taps, sc2, b2, s3, z2s, ld, nullptr, 0.f,
+                                                 nullptr);
   RING_CLOCK(1, t0);
 
   // stage 3: conv3 (1x1) + dequantised residual + relu + requant, to the carry
   PlainRows z2rows;
   z2rows.base = smem_u32(z2s);
   z2rows.ld = ld, z2rows.P = br.P2;
-  ring_product<WC, VEC, false, true>(ring, sbytes, KT, br.P2, C, 1, M, w3, nullptr, z2rows, sc3, b3,
-                        s_out, nullptr, 0, x + (size_t)br.o0 * C, s_in, out + (size_t)br.o0 * C);
+  ring_product<WC, VEC, false, true, TO_DEVICE>(ring, sbytes, KT, br.P2, C, 1, M, w3, nullptr,
+                                                z2rows, sc3, b3, s_out, nullptr, 0,
+                                                x + (size_t)br.o0 * C, s_in,
+                                                out + (size_t)br.o0 * C);
   RING_CLOCK(2, t0);
 }
 

@@ -124,16 +124,17 @@ def _candidates(B: int, H: int) -> Iterator[Tuple[int, int]]:
         yield H, G
 
 
-def _stage_cost(P: int, nt: int, kt: int, N: int, nseg: int, K: int) -> float:
+def _stage_cost(P: int, nt: int, kt: int, N: int, nseg: int, K: int,
+                step_macs: float = STEP_MACS) -> float:
     """A stage of P rows in multiply-adds, as ring_product spends them: per
     pass the rows of its slowest warp (16 WR ceil(tiles / WR): a warp skips
-    its tiles past the pass) times N and K, plus STEP_MACS a ring step."""
+    its tiles past the pass) times N and K, plus step_macs a ring step."""
     pas, wr = RING_PASS[nt], WARP_ROWS[nt]
     steps = -(-N // nt) * nseg * -(-K // kt)
     cost = 0.0
     for p0 in range(0, P, pas):
         tiles = -(-min(pas, P - p0) // 16)
-        cost += 16 * wr * -(-tiles // wr) * N * nseg * K + steps * STEP_MACS
+        cost += 16 * wr * -(-tiles // wr) * N * nseg * K + steps * step_macs
     return cost
 
 

@@ -18,11 +18,13 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    one copy per image; plus a correctness-only pass at beam 5;
 2c. holds the int8 encoder's kernels (the fused identity bottleneck block,
    the fused tail + next conv1) against their twins and against the int8
-   carry's own unfused code at ResNet-152's four bottleneck layer shapes at
-   batch 1024 (seeded s8 inputs), timing kernel, twin and unfused segment
-   beside the bound, with kernel 5's launch plan (rows or images a block,
-   shared bytes, blocks an SM); plus a correctness-only pass at 3 images of
-   13 x 13;
+   carry's own unfused code at batch 1024 (seeded s8 inputs): kernel 5 at
+   ResNet-152's four bottleneck layer shapes, kernel 6 at the seven shapes
+   a decode launches it at (within a layer, and into the next layer's
+   block 0 with twice the width); times kernel, twin and unfused segment
+   beside the bound, with each kernel's launch plan (rows or images a
+   block, chunks, shared bytes, blocks an SM); plus a correctness-only pass
+   of each at 3 images of 13 x 13;
 3. runs the greedy path end to end in bf16 at full width: build_model ->
    make_greedy_decoder -> greedy captions for 1024 seeded uint8 256x256
    images with a seeded random ResNet-152 / H 512 model; checks that each
@@ -99,6 +101,12 @@ E2E_REPEATS = 3  # phase 3: timed end-to-end runs after the warm-up
 # C, M, identity blocks that are not the last block = launches of kernel 5,
 # and of kernel 6, in one decode: 2 + 7 + 35 + 1 = 45)
 INT8_LAYERS = ((56, 256, 64, 2), (28, 512, 128, 7), (14, 1024, 256, 35), (7, 2048, 512, 1))
+# kernel 6's launches by shape (H = W, C, M, M2, launches a decode): within a
+# layer (M2 = M) and, from a layer's last identity block, into the next
+# layer's block 0 (M2 = 2M; models/infer.py): 1 + 1, 6 + 1, 34 + 1, 1
+INT8_TAILS = ((56, 256, 64, 64, 1), (56, 256, 64, 128, 1), (28, 512, 128, 128, 6),
+              (28, 512, 128, 256, 1), (14, 1024, 256, 256, 34), (14, 1024, 256, 512, 1),
+              (7, 2048, 512, 512, 1))
 INT8_FUSED = ("layer1", "layer2", "layer3", "layer4")
 INT8_LAUNCHES = sum(n for *_, n in INT8_LAYERS)
 INT8_ITERS = 5  # timed launches of each int8 kernel and its twin (ms each)
@@ -432,12 +440,15 @@ def quanta(name, got, want):
 
 
 def int8_kernel_checks():
-    """Kernels 5 and 6 against their twins at the four bottleneck layers'
-    shapes at batch B, with seeded s8 activations and weights and epilogue
-    rows that keep the outputs inside the s8 range. Times kernel, twin and
-    the unfused segment (the carry's own _acc_i8 + epilogue code, the path
-    that runs with the kernel off); then one correctness-only pass at an
-    odd shape (3 images of 13 x 13)."""
+    """Kernels 5 and 6 against their twins and against the carry's own
+    unfused code (_acc_i8 + epilogue, the path that runs with the kernel
+    off) at batch B with seeded s8 activations and weights and epilogue rows
+    that keep the outputs inside the s8 range: kernel 5 at the four
+    bottleneck layers' shapes, kernel 6 at the seven shapes a decode
+    launches it at (INT8_TAILS). Times kernel, twin and unfused segment
+    beside the bound, with each kernel's launch plan; then one
+    correctness-only pass of each at an odd shape (3 images of 13 x 13, M2
+    = 2M)."""
     import torch
 
     from adaptive_tpu_torch.models import infer as I
@@ -473,13 +484,22 @@ def int8_kernel_checks():
         acc, sc = I._acc_i8(out, c1, None)
         return out, I._requant(relu(acc.float() * sc + c1["bias"]), s_next)
 
+    def layer_of(H):
+        return f"layer{[l[0] for l in INT8_LAYERS].index(H) + 1}"
+
     S5, S6 = (0.034, 0.057, 0.021, 0.026), (0.024, 0.027, 0.042)
     res = {"bottleneck_identity_int8": [], "tail_conv1_int8": []}
-    shapes = [(B, H, C, M, M, n) for H, C, M, n in INT8_LAYERS] + [(3, 13, 256, 64, 128, 0)]
-    for nb, H, C, M, M2, n in shapes:
+
+    def record(name, where, nb, H, C, M, n, nd, dmax, ms, pl, un, bd, **extra):
+        res[name].append({"layer": where, "B": nb, "H": H, "C": C, "M": M, **extra,
+                          "launches": n, "elements_differ": nd, "max_abs_err": dmax, "ms": ms,
+                          "plain_ms": pl, "unfused_ms": un, "bound_ms": bd[0],
+                          "bound_by": bd[1]})
+
+    # kernel 5
+    for nb, H, C, M, n in [(B, H, C, M, n) for H, C, M, n in INT8_LAYERS] + [(3, 13, 256, 64, 0)]:
         N = nb * H * H
-        timed = n > 0
-        where = f"layer{[l[0] for l in INT8_LAYERS].index(H) + 1}" if timed else "odd"
+        where = layer_of(H) if n else "odd"
         x = s8(N, C)
         w1, w2, w3 = s8(M, C), s8(M, 9 * M), s8(C, M)
         r1, r2, r3 = rows(M, C), rows(M, 9 * M), rows(C, M)
@@ -491,50 +511,65 @@ def int8_kernel_checks():
         c5 = (conv(w1, 1, *r1), conv(w2, 3, *r2), conv(w3, 1, *r3))
         u5 = quanta(f"block {where} vs the carry", got.reshape(nb, H, H, C),
                     carry_block(x4, *c5, *S5))[0]
+        line = (f"[int8 kernels {where}] block B {nb} H=W {H} C {C} M {M}: {n5}/{got.numel()} "
+                f"elements differ from the twin (max |d| {d5}), {u5} from the carry")
+        if n:
+            k5 = cuda_ms(lambda: fb.bottleneck_identity_int8(*a5), INT8_ITERS, 1)
+            p5 = cuda_ms(lambda: fb.bottleneck_identity_int8_plain(*a5), INT8_ITERS, 1)
+            f5 = cuda_ms(lambda: carry_block(x4, *c5, *S5), INT8_ITERS, 1)
+            b5 = bound(2 * nbytes(x) + nbytes(w1, w2, w3, *r1, *r2, *r3),
+                       2.0 * N * (C * M + 9 * M * M + M * C), "int8")
+            plan = fb.block_plan(nb, H, H, C, M)
+            line += (f" | kernel {k5:.4f} ms plain {p5:.4f} ms unfused {f5:.4f} ms bound "
+                     f"{b5[0]:.4f} ms ({b5[1]}); plan {plan.rows} rows x {plan.images} images a "
+                     f"block, nt {plan.nt} kt {plan.kt}, {plan.smem} shared bytes, {plan.sms} "
+                     f"blocks an SM; launches a decode {n}")
+            record("bottleneck_identity_int8", where, nb, H, C, M, n, n5, d5, k5, p5, f5, b5,
+                   plan={"rows_a_block": plan.rows, "images_a_block": plan.images,
+                         "smem_bytes": plan.smem, "blocks_an_sm": plan.sms, "nt": plan.nt,
+                         "kt": plan.kt})
+        log(line)
+        del a5, x, x4, c5, got
+        torch.cuda.empty_cache()
 
-        z2, w1n = s8(N, M), s8(M2, C)
-        r1n = rows(M2, C)
+    # kernel 6
+    for nb, H, C, M, M2, n in ([(B, *t) for t in INT8_TAILS] + [(3, 13, 256, 64, 128, 0)]):
+        N = nb * H * H
+        where = layer_of(H) if n else "odd"
+        x, z2 = s8(N, C), s8(N, M)
+        w3, w1n = s8(C, M), s8(M2, C)
+        r3, r1n = rows(C, M), rows(M2, C)
         a6 = (x, z2, w3, *r3, w1n, *r1n, *S6)
         out, z1 = ft.tail_conv1_int8(*a6)
         torch.cuda.synchronize()
         p_out, p_z1 = ft.tail_conv1_int8_plain(*a6)
-        n6, d6 = quanta(f"tail {where} carry", out, p_out)
-        n6b, d6b = quanta(f"tail {where} conv1", z1, p_z1)
+        n6, d6 = quanta(f"tail {where} M2 {M2} carry", out, p_out)
+        n6b, d6b = quanta(f"tail {where} M2 {M2} conv1", z1, p_z1)
         c6 = (conv(w3, 1, *r3), conv(w1n, 1, *r1n))
-        z24 = z2.reshape(nb, H, H, M)
-        u6 = quanta(f"tail {where} vs the carry", z1.reshape(nb, H, H, M2),
-                    carry_tail(x4, z24, *c6, *S6)[1])[0]
-        line = (f"[int8 kernels {where}] B {nb} H=W {H} C {C} M {M}: block {n5}/{got.numel()} "
-                f"elements differ from the twin (max |d| {d5}), {u5} from the carry; tail "
-                f"{n6 + n6b}/{out.numel() + z1.numel()} (max |d| {max(d6, d6b)}), {u6} from the carry")
-        if not timed:
-            log(line)
-            continue
-        k5 = cuda_ms(lambda: fb.bottleneck_identity_int8(*a5), INT8_ITERS, 1)
-        p5 = cuda_ms(lambda: fb.bottleneck_identity_int8_plain(*a5), INT8_ITERS, 1)
-        f5 = cuda_ms(lambda: carry_block(x4, *c5, *S5), INT8_ITERS, 1)
-        b5 = bound(2 * nbytes(x) + nbytes(w1, w2, w3, *r1, *r2, *r3),
-                   2.0 * N * (C * M + 9 * M * M + M * C), "int8")
-        k6 = cuda_ms(lambda: ft.tail_conv1_int8(*a6), INT8_ITERS, 1)
-        p6 = cuda_ms(lambda: ft.tail_conv1_int8_plain(*a6), INT8_ITERS, 1)
-        f6 = cuda_ms(lambda: carry_tail(x4, z24, *c6, *S6), INT8_ITERS, 1)
-        b6 = bound(nbytes(x, z2, out, z1, w3, w1n, *r3, *r1n), 2.0 * N * (M * C + C * M2), "int8")
-        plan = fb.block_plan(nb, H, H, C, M)
-        log(line + f" | block: kernel {k5:.4f} ms plain {p5:.4f} ms unfused {f5:.4f} ms bound "
-            f"{b5[0]:.4f} ms ({b5[1]}); plan {plan.rows} rows x {plan.images} images a block, "
-            f"{plan.smem} shared bytes, {plan.sms} blocks an SM | tail: kernel {k6:.4f} ms plain "
-            f"{p6:.4f} ms unfused {f6:.4f} ms bound {b6[0]:.4f} ms ({b6[1]}); launches a decode {n}")
-        for name, nd, dmax, ms, pl, un, bd in (
-                ("bottleneck_identity_int8", n5, d5, k5, p5, f5, b5),
-                ("tail_conv1_int8", n6 + n6b, max(d6, d6b), k6, p6, f6, b6)):
-            res[name].append({"layer": where, "B": nb, "H": H, "C": C, "M": M, "launches": n,
-                              "elements_differ": nd, "max_abs_err": dmax, "ms": ms,
-                              "plain_ms": pl, "unfused_ms": un, "bound_ms": bd[0],
-                              "bound_by": bd[1]})
-        res["bottleneck_identity_int8"][-1]["plan"] = {
-            "rows_a_block": plan.rows, "images_a_block": plan.images, "smem_bytes": plan.smem,
-            "blocks_an_sm": plan.sms, "nt": plan.nt, "kt": plan.kt}
-        del a5, a6, x4, z24, c5, c6, got, out, z1, p_out, p_z1
+        x4, z24 = x.reshape(nb, H, H, C), z2.reshape(nb, H, H, M)
+        u_out, u_z1 = carry_tail(x4, z24, *c6, *S6)
+        u6 = (quanta(f"tail {where} M2 {M2} carry vs the carry", out.reshape(nb, H, H, C), u_out)[0]
+              + quanta(f"tail {where} M2 {M2} conv1 vs the carry", z1.reshape(nb, H, H, M2),
+                       u_z1)[0])
+        line = (f"[int8 kernels {where}] tail B {nb} H=W {H} C {C} M {M} M2 {M2}: "
+                f"{n6 + n6b}/{out.numel() + z1.numel()} elements differ from the twin (max |d| "
+                f"{max(d6, d6b)}), {u6} from the carry")
+        if n:
+            k6 = cuda_ms(lambda: ft.tail_conv1_int8(*a6), INT8_ITERS, 1)
+            p6 = cuda_ms(lambda: ft.tail_conv1_int8_plain(*a6), INT8_ITERS, 1)
+            f6 = cuda_ms(lambda: carry_tail(x4, z24, *c6, *S6), INT8_ITERS, 1)
+            b6 = bound(nbytes(x, z2, out, z1, w3, w1n, *r3, *r1n), 2.0 * N * (M * C + C * M2),
+                       "int8")
+            plan = ft.tail_plan(N, C, M, M2)
+            line += (f" | kernel {k6:.4f} ms plain {p6:.4f} ms unfused {f6:.4f} ms bound "
+                     f"{b6[0]:.4f} ms ({b6[1]}); plan {plan.rows} rows a block, nt {plan.nt} kt "
+                     f"{plan.kt}, {plan.smem} shared bytes, {plan.sms} blocks an SM; launches a "
+                     f"decode {n}")
+            record("tail_conv1_int8", where, nb, H, C, M, n, n6 + n6b, max(d6, d6b), k6, p6, f6,
+                   b6, M2=M2, plan={"rows_a_block": plan.rows, "smem_bytes": plan.smem,
+                                    "blocks_an_sm": plan.sms, "nt": plan.nt, "kt": plan.kt})
+        log(line)
+        del a6, x, z2, x4, z24, c6, out, z1, p_out, p_z1, u_out, u_z1
         torch.cuda.empty_cache()
     return res
 

@@ -390,24 +390,78 @@ def test_fused_block_kernel_plans_match_twin(cuda, B, H, W, C, M, rows, images, 
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("N,C,M,M2", [(3 * 49, 24, 16, 24), (1 * 16, 16, 64, 16), (3 * 64, 64, 24, 64),
-                                      (3 * 49 + 1, 16, 16, 16), (200, 64, 16, 24)])
-def test_fused_tail_kernel_matches_twin(cuda, N, C, M, M2):
-    """Kernel 6 against its twin: carry and next conv1, bit for bit, at row
-    counts that are no multiple of its 64-row tile."""
-    from adaptive_tpu_torch.ops import fused_tail as ft
-
-    rng = np.random.default_rng(1)
+def _tail_args(N, C, M, M2, device, seed=1):
+    rng = np.random.default_rng(seed)
     x, z2, w3, w1 = _i8(rng, N, C), _i8(rng, N, M), _i8(rng, C, M), _i8(rng, M2, C)
     sc3, b3 = _epilogue_rows(rng, C, M)
     sc1, b1 = _epilogue_rows(rng, M2, C)
-    args = [t.to(cuda) for t in (x, z2, w3, sc3, b3, w1, sc1, b1)] + [0.024, 0.027, 0.042]
+    return [t.to(device) for t in (x, z2, w3, sc3, b3, w1, sc1, b1)] + [0.024, 0.027, 0.042]
+
+
+@pytest.mark.parametrize("N,C,M,M2", [(3 * 49, 24, 16, 24), (1 * 16, 16, 64, 16), (3 * 64, 64, 24, 64),
+                                      (3 * 49 + 1, 16, 16, 16), (200, 64, 16, 24), (5, 32, 16, 48),
+                                      (300, 1024, 256, 512), (200, 2048, 512, 512)])
+def test_fused_tail_kernel_matches_twin(cuda, N, C, M, M2):
+    """Kernel 6 under tail_plan's plan against its twin: carry and next
+    conv1, bit for bit, at row counts that are no multiple of the plan's
+    rows and below 16, C = 24 (8-byte copies), M not a multiple of 32 (K
+    tails), M2 != M, and layer3's and layer4's widths (layer4's plan holds
+    one block an SM)."""
+    from adaptive_tpu_torch.ops import fused_tail as ft
+
+    args = _tail_args(N, C, M, M2, cuda)
     ft.tail_conv1_int8.launches = 0
     out, z1 = ft.tail_conv1_int8(*args)
     torch.cuda.synchronize()
     assert ft.tail_conv1_int8.launches == 1
     want_out, want_z1 = ft.tail_conv1_int8_plain(*args)
     assert (want_out != 0).float().mean() > 0.2 and (want_z1 != 0).float().mean() > 0.2
+    assert torch.equal(out, want_out) and torch.equal(z1, want_z1)
+
+
+@pytest.mark.parametrize("N,C,M,M2,rows,nt,kt", [
+    (200, 64, 16, 24, 48, 64, 64),  # ragged last block, K chunks of 64, a short K tail
+    (5, 32, 16, 48, 16, 128, 128),  # N < 16: one block of 5 rows
+    (3 * 49 + 1, 24, 40, 24, 32, 64, 128),  # 8-byte copies, C = 24, M = 40 (K tails)
+    (700, 128, 64, 64, 320, 64, 128),  # 320 rows: two passes of 256, the last block ragged
+    (700, 128, 64, 128, 160, 128, 128),  # two passes of 128
+    (300, 1024, 256, 512, 48, 128, 128),  # layer3's widths into layer4's conv1 (M2 = 2M)
+    (300, 1024, 256, 256, 64, 64, 64),  # layer3's widths, column chunks of 64
+    (200, 2048, 512, 512, 32, 128, 128),  # layer4's widths, two blocks an SM
+    (200, 2048, 512, 512, 64, 128, 128),  # layer4's widths, one block an SM
+])
+def test_fused_tail_kernel_plans_match_twin(cuda, N, C, M, M2, rows, nt, kt):
+    """Kernel 6 under plans that tail_plan does not pick at these shapes, so
+    that each branch of the kernel runs: ragged last blocks, several passes
+    of rows, both column chunks, both K chunks, both copy widths, shared
+    bytes past two blocks an SM; bit for bit."""
+    from adaptive_tpu_torch.ops import fused_tail as ft
+
+    args = _tail_args(N, C, M, M2, cuda, seed=4)
+    plan = ft.make_tail_plan(N, C, M, M2, rows, nt, kt)
+    out, z1 = ft._launch_tail(plan, *args)
+    torch.cuda.synchronize()
+    want_out, want_z1 = ft.tail_conv1_int8_plain(*args)
+    assert (want_out != 0).float().mean() > 0.2 and (want_z1 != 0).float().mean() > 0.2
+    assert torch.equal(out, want_out) and torch.equal(z1, want_z1)
+
+
+def test_tail_launch_refuses_plans_it_does_not_take(cuda):
+    """tail_conv1_launch returns cudaErrorInvalidValue (1), and _launch_tail
+    raises, for a plan whose shared bytes disagree with its tail_smem, rows
+    that are no multiple of 16, a K chunk narrower than the residual tile,
+    or 16-byte copies of rows that are not 16-byte multiples."""
+    from adaptive_tpu_torch.ops import fused_tail as ft
+
+    args = _tail_args(100, 64, 24, 32, cuda)
+    good = ft.make_tail_plan(100, 64, 24, 32, 32, 64, 64)
+    for plan in (good._replace(smem=good.smem + 16), good._replace(rows=24),
+                 ft.make_tail_plan(100, 64, 24, 32, 32, 128, 64), good._replace(vec=16)):
+        with pytest.raises(RuntimeError, match="cudaError_t 1"):
+            ft._launch_tail(plan, *args)
+    out, z1 = ft._launch_tail(good, *args)
+    torch.cuda.synchronize()
+    want_out, want_z1 = ft.tail_conv1_int8_plain(*args)
     assert torch.equal(out, want_out) and torch.equal(z1, want_z1)
 
 
