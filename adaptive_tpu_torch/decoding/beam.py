@@ -85,7 +85,7 @@ def make_beam_decoder(model, cf, beam_size: int = None, length_alpha: float = 0.
     def decode_images(prepared, images) -> BeamOutput:
         dev = model.device
         V, v_g, h0, c0 = model.encode_inference(prepared, images)
-        dec, head = prepared["decoder"], prepared["head"]
+        dec, head, cell = prepared["decoder"], prepared["head"], prepared["cell"]
         B, K = V.shape[0], V.shape[1]
 
         def tile(x):  # [B, ...] -> [B*W, ...], batch-major
@@ -115,7 +115,7 @@ def make_beam_decoder(model, cf, beam_size: int = None, length_alpha: float = 0.
         for _ in range(max_len):
             logp_top, tok_top, alpha, beta, dstate = model.beam_decode_step(
                 dec, tokens.reshape(B * W), vg_t, dstate, V_t, W, sentinel_prev,
-                pv=pv_t, head=head, beam_w=beam_w)
+                pv=pv_t, head=head, beam_w=beam_w, cell_t=cell)
             logp_top = torch.where(finished[..., None], eos_row, logp_top.reshape(B, W, W))
             tok_top = tok_top.reshape(B, W, W).masked_fill(finished[..., None], eos)
             cand = scores[..., None] + logp_top  # [B, W, W] fp32

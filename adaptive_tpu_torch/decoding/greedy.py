@@ -82,7 +82,7 @@ def make_greedy_decoder(model, cf):
     @torch.no_grad()
     def decode_images(prepared, images) -> GreedyOutput:
         V, v_g, h0, c0 = model.encode_inference(prepared, images)
-        dec, head = prepared["decoder"], prepared["head"]
+        dec, head, cell = prepared["decoder"], prepared["head"], prepared["cell"]
         pv = model.precompute_slots(dec, V)  # hoisted out of the loop
         dstate = model.init_decode_state(h0, c0)
         B = V.shape[0]
@@ -91,7 +91,7 @@ def make_greedy_decoder(model, cf):
         ids, alphas, betas = [], [], []
         for _ in range(max_len):
             nxt, alpha, beta, dstate = model.greedy_decode_step(
-                dec, tok, v_g, dstate, V, sentinel_prev, pv=pv, head=head)
+                dec, tok, v_g, dstate, V, sentinel_prev, pv=pv, head=head, cell_t=cell)
             nxt = torch.where(finished, torch.full_like(nxt, eos), nxt)
             finished = finished | (nxt == eos)
             ids.append(nxt)

@@ -130,17 +130,19 @@ class DecodeState(NamedTuple):
     h_prev: torch.Tensor  # [B,H] the sentinel's h_{t-1}: previous output, zero at step 0
 
 
-def _fused_cell(params, x, state: DecodeState, sentinel_uses_prev_hidden, V, pv, beam_w=1):
+def _fused_cell(params, x, state: DecodeState, sentinel_uses_prev_hidden, V, pv, beam_w=1,
+                cell_t=None):
     """The fused cell kernel. beam_w > 1: V/pv arrive untiled, one row per
     image, and the kernel shares each image's slots across its beam_w
-    batch-major beam rows (beam-major layout)."""
+    batch-major beam rows (beam-major layout). cell_t: the prepared
+    fs.CellTiles (prepare_cell_tiles), or None."""
     block = params["adaptive"]
     hp = state.h_prev if sentinel_uses_prev_hidden else torch.zeros_like(state.h)
     if pv is None:
         pv = V @ block["atten"]["affine_v"]["kernel"]
     return fs.adaptive_decode_cell_fused(
         params["lstm"], block["atten"], block["sentinel"], x, state.h, state.c, hp, V, pv,
-        beam_w=beam_w,
+        beam_w=beam_w, cell_t=cell_t,
     )
 
 
@@ -191,19 +193,31 @@ def prepare_greedy_head(params: Dict, spec: DecoderSpec):
     return fs.PreparedHead(w_p, b_p, w_t)
 
 
+def prepare_cell_tiles(params: Dict):
+    """The cell's weights reordered for its tensor-core instance
+    (fs.cell_kernel_tiles), made once per checkpoint where fs.cell_instance
+    picks that instance (bfloat16, H and 2E multiples of 64), else None."""
+    whh, _, wx, whs, wg, ws, _ = fs.cell_operands(
+        params["lstm"], params["adaptive"]["atten"], params["adaptive"]["sentinel"])
+    if fs.cell_instance(whh.dtype, whh.shape[0], wx.shape[0]) != "mma":
+        return None
+    return fs.cell_kernel_tiles(whh, wx, whs, wg, ws)
+
+
 @torch.no_grad()
 def greedy_decode_step(
     params: Dict, spec: DecoderSpec, token: torch.Tensor, v_g: torch.Tensor,
     state: DecodeState, V: torch.Tensor, sentinel_uses_prev_hidden: bool = False,
-    pv: Optional[torch.Tensor] = None, head=None, fused: bool = False,
+    pv: Optional[torch.Tensor] = None, head=None, fused: bool = False, cell_t=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, DecodeState]:
     """One GREEDY step: token [B] -> (next_token [B] int32, alpha, beta, state').
     With fused and a prepared head, the cell and the head+argmax each run as
-    one kernel; otherwise argmax over decode_step's logits."""
+    one kernel call (the cell on the prepared cell_t where given); otherwise
+    argmax over decode_step's logits."""
     if fused and head is not None:
         x = torch.cat([params["embed"][token], v_g], dim=-1)
         h_new, c_new, c_hat, alpha, beta = _fused_cell(
-            params, x, state, sentinel_uses_prev_hidden, V, pv)
+            params, x, state, sentinel_uses_prev_hidden, V, pv, cell_t=cell_t)
         nxt = fs.greedy_head_argmax(*head, c_hat, h_new, spec.vocab_size,
                                     head_kernel_t=head.kernel_t)
         return nxt, alpha, beta, DecodeState(h_new, c_new, h_new)
@@ -217,6 +231,7 @@ def beam_decode_step(
     params: Dict, spec: DecoderSpec, token: torch.Tensor, v_g: torch.Tensor,
     state: DecodeState, V: torch.Tensor, k: int, sentinel_uses_prev_hidden: bool = False,
     pv: Optional[torch.Tensor] = None, head=None, fused: bool = False, beam_w: int = 1,
+    cell_t=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, DecodeState]:
     """One BEAM step: token [R] -> (logp_top [R,k] fp32 log-probs, tok_top
     [R,k] int32, alpha, beta, state').
@@ -224,7 +239,8 @@ def beam_decode_step(
     Each row's top-k is enough: the global top-k over all beam x vocab
     candidates holds at most k continuations of one source beam. With fused
     and a prepared head, the cell and the head + top-k + logsumexp each run
-    as one kernel and the logits are never stored; otherwise top-k of the
+    as one kernel call (the cell on the prepared cell_t where given) and the
+    logits are never stored; otherwise top-k of the
     fp32 log_softmax of decode_step's logits. Ties rank the lower token id
     first either way (as lax.top_k).
 
@@ -235,7 +251,7 @@ def beam_decode_step(
     if fused and head is not None:
         x = torch.cat([params["embed"][token], v_g], dim=-1)
         h_new, c_new, c_hat, alpha, beta = _fused_cell(
-            params, x, state, sentinel_uses_prev_hidden, V, pv, beam_w)
+            params, x, state, sentinel_uses_prev_hidden, V, pv, beam_w, cell_t)
         topv, topi, lse = fs.beam_head_topk(*head, c_hat, h_new, spec.vocab_size, k,
                                             head_kernel_t=head.kernel_t)
         return topv - lse, topi, alpha, beta, DecodeState(h_new, c_new, h_new)

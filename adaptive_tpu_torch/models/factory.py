@@ -106,7 +106,9 @@ class CaptionModel(NamedTuple):
         """{'encoder': folded encoder tree (cast to the compute dtype, or
         int8-quantised once with int8_scales), 'decoder': JAX-layout decoder
         params in the compute dtype, 'head': padded vocab head of the greedy
-        and beam head kernels, None unless fused}."""
+        and beam head kernels, None unless fused, 'cell': the cell's weights
+        reordered for its tensor-core instance (fs.CellTiles), None unless
+        fused and that instance runs}."""
         _, _, s2d = self._resolved_fusion()
         with torch.no_grad():
             enc = prepare_encoder_inference(
@@ -114,7 +116,8 @@ class CaptionModel(NamedTuple):
                 stem_s2d=s2d, bias_corr=self.int8_bias_corr)
             dec = cast_floating(D.decoder_params(net.decoder), self.compute_dtype)
             head = self.prepare_greedy_head(dec)
-        return {"encoder": enc, "decoder": dec, "head": head}
+            cell = D.prepare_cell_tiles(dec) if self.fused else None
+        return {"encoder": enc, "decoder": dec, "head": head, "cell": cell}
 
     def encode_inference(self, prepared: Dict, images: torch.Tensor):
         """Preprocessed float NHWC images -> (V, v_g, h0, c0)."""
@@ -141,19 +144,20 @@ class CaptionModel(NamedTuple):
                              sentinel_uses_prev_hidden, pv=pv, fused=self.fused)
 
     def greedy_decode_step(self, dec_params, token, v_g, dstate, V,
-                           sentinel_uses_prev_hidden=False, pv=None, head=None):
+                           sentinel_uses_prev_hidden=False, pv=None, head=None, cell_t=None):
         return D.greedy_decode_step(dec_params, self.spec, token, v_g, dstate, V,
                                     sentinel_uses_prev_hidden, pv=pv, head=head,
-                                    fused=self.fused)
+                                    fused=self.fused, cell_t=cell_t)
 
     def beam_decode_step(self, dec_params, token, v_g, dstate, V, k,
-                         sentinel_uses_prev_hidden=False, pv=None, head=None, beam_w=1):
+                         sentinel_uses_prev_hidden=False, pv=None, head=None, beam_w=1,
+                         cell_t=None):
         """Each row's top-k log-probs and token ids; the padded head of
         prepare_greedy_head serves the fused top-k head too. beam_w > 1
         takes V/pv untiled (beam-major)."""
         return D.beam_decode_step(dec_params, self.spec, token, v_g, dstate, V, k,
                                   sentinel_uses_prev_hidden, pv=pv, head=head,
-                                  fused=self.fused, beam_w=beam_w)
+                                  fused=self.fused, beam_w=beam_w, cell_t=cell_t)
 
 
 def build_model(cf, device="cuda") -> CaptionModel:

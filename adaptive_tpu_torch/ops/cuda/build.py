@@ -28,7 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures in csrc/fused_step.cu, head_topk.cu, fused_block.cu, fused_tail.cu
 SIGNATURES = {
-    "adaptive_cell_launch": [_I] + [_P] * 19 + [_I] * 6 + [_P],
+    "adaptive_cell_launch": [_I] + [_P] * 24 + [_I] * 8 + [_P],
     "head_argmax_launch": [_I] + [_P] * 8 + [_I] * 6 + [_P],
     "head_topk_launch": [_I] + [_P] * 11 + [_I] * 8 + [_P],
     "bottleneck_block_launch": [_P] * 11 + [_F] * 4 + [_I] * 11 + [_P],

@@ -5,30 +5,31 @@
 // and called through ctypes from adaptive_tpu_torch/ops/fused_step.py, whose
 // plain PyTorch twins define the arithmetic these kernels must reproduce.
 //
-// 1. adaptive_cell_kernel replaces adaptive_tpu/ops/pallas/fused_step.py::
+// 1. The decode cell replaces adaptive_tpu/ops/pallas/fused_step.py::
 //    adaptive_decode_cell_fused (body _cell_kernel): the LSTM recurrence,
-//    the visual sentinel and adaptive attention over K slots.
-//    Bound on an H100 SXM at batch 1024, bf16: ~75 MB of inputs per step
-//    (V 51 MB, gx 8 MB, pv 5 MB, weights 3 MB) -> ~22 us at 3.35 TB/s, against
-//    ~3.4 GFLOP, which the CUDA cores (fp32, 67 TFLOP/s) need ~50 us for.
-//    Design: one block owns ROWS rows. Their h, x, h_prev are staged in shared
-//    memory as fp32; each thread owns a pair of hidden units and computes the
-//    four gate columns and the sentinel column of both, so c, h and s need no
-//    exchange between threads. The weights (3 MB) stream from L2 once per
-//    block, each weight load feeding ROWS rows. h@Wg and s@Ws (D columns), the
-//    K x D tanh logits, both softmaxes and alpha@V follow from shared memory;
-//    V and pv are read once, with no padding of K or D (masking by bounds
-//    replaces the TPU kernel's 64-lane padding). Simple and right first:
-//    tensor cores (wgmma) and TMA are later work.
-//    Beam-major (W > 1, the TPU kernel's beam_w branches): rows are
-//    batch-major beam copies, row r belongs to image r / W, and V and pv
-//    come untiled, one copy per image. Only the two slot reads (pv in
-//    phase 3, V in phase 5) index by image; the rest stays per row. A block still
-//    owns 8 rows, so an image's W rows may straddle two blocks: its slots are
-//    then read from HBM by one and from L2 by the other. At W = 3 and batch
-//    1024 (bf16) that is ~108 MB a step against ~210 MB with V/pv tiled.
-//    W = 1 is the greedy layout: its own instance (kBeam false), the same
-//    code and bits as the greedy-only kernel.
+//    the visual sentinel and adaptive attention over K slots, for W = 1
+//    (kernel 1) and for beam-major rows (kernel 3, W > 1: row r belongs to
+//    image r / W, and V and pv come untiled, one copy per image).
+//    bf16 with H and E2 multiples of 64 (ops/fused_step.py::cell_instance
+//    "mma"): two kernels of cell_mma.cuh, started back to back by one call.
+//    Stage 1 (cell_gates_kernel) runs h_in W_hh and [x | h_prev] [W_x; W_hs]
+//    on the tensor cores (mma.sync, bf16 in, fp32 sums), a block a band of
+//    64 rows and a slice of 32 hidden units over weights reordered once per
+//    checkpoint, so that each thread holds all five pre-activations of its
+//    units and the cell's epilogue runs on the accumulators; h' and s go to
+//    fp32 scratch. Stage 2 (cell_attend_kernel) runs the attention, a block
+//    a group of whole images with all their W rows: each image's V and pv
+//    are read from device memory once and feed its W rows; h' Wg, s Ws and
+//    alpha V keep their fp32 left operands (fp32 FMAs). Bound at 3,072 rows
+//    (beam 3), bf16: ~107 MB of device bytes (0.032 ms at 3.35 TB/s)
+//    against ~9.7 GFLOP of tensor products (0.010 ms at 989 TFLOP/s); at
+//    1,024 rows (greedy) ~75 MB, 0.0225 ms. The images of a stage-2 block
+//    come from ops/fused_step.py::cell_plan.
+//    fp32, and bf16 at other widths ("simt"): adaptive_cell_kernel below,
+//    one block of ROWS = 8 rows with fp32 FMAs on the CUDA cores throughout
+//    (bound by their 67 TFLOP/s at ~3.4 GFLOP a greedy step); an image's W
+//    rows may straddle two of its blocks. It is the exact path of the fp32
+//    card-against-CPU checks.
 //
 // 2. head_argmax_mma_kernel (bf16) or head_argmax_kernel (fp32), then
 //    head_argmax_reduce, replace fused_step.py::greedy_head_argmax (body
@@ -54,6 +55,7 @@
 //    (64 rows x 128 columns a block, one partial a row and tile), bounded by
 //    the CUDA cores' 67 TFLOP/s (0.16 ms), and is not on the bf16 main path.
 
+#include "cell_mma.cuh"
 #include "kernel_common.cuh"
 
 namespace {
@@ -403,8 +405,7 @@ int launch_cell(const void* gx, const void* h, const void* c, const void* x,
                 int E2, int K, int D, cudaStream_t stream) {
   size_t smem = cell_smem_bytes(H, E2, K, D);
   auto kernel = W == 1 ? adaptive_cell_kernel<T, false> : adaptive_cell_kernel<T, true>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  cudaError_t err = allow_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((B + ROWS - 1) / ROWS);
   kernel<<<grid, CELL_THREADS, smem, stream>>>(
@@ -413,6 +414,41 @@ int launch_cell(const void* gx, const void* h, const void* c, const void* x,
       (const T*)whs, (const T*)wg, (const T*)ws, (const T*)wh, (T*)h_out,
       (T*)c_out, (T*)chat_out, (float*)alpha, (float*)beta, B, W, H, E2, K, D);
   return (int)cudaGetLastError();
+}
+
+int launch_cell_mma(const void* gx, const void* h, const void* c, const void* x, const void* hp,
+                    const void* pv, const void* V, const void* bhh, const void* wh, void* h_out,
+                    void* c_out, void* chat_out, void* alpha, void* beta, const void* whh_t,
+                    const void* wsen_t, const void* watt_t, void* hn32, void* s32, int dtype,
+                    int B, int W, int H, int E2, int K, int D, int images, int stages,
+                    cudaStream_t stream) {
+  if (dtype != 1 || H % CELL_CK || E2 % CELL_CK || W < 1 || B % W || images < 1 ||
+      (stages & 3) == 0)
+    return (int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  if (stages & 1) {
+    using L = CellTile<CELL_BM, CELL_NU>;
+    auto kernel = cell_gates_kernel<CELL_BM, CELL_NU>;
+    cudaError_t err = allow_smem((const void*)kernel, L::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3((B + CELL_BM - 1) / CELL_BM, H / CELL_NU), L::THREADS, L::SMEM, stream>>>(
+        (const float*)gx, (const bf*)h, (const bf*)c, (const bf*)x, (const bf*)hp,
+        (const bf*)whh_t, (const bf*)wsen_t, (const bf*)bhh, (bf*)h_out, (bf*)c_out,
+        (float*)hn32, (float*)s32, B, H, E2);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (stages & 2) {
+    const size_t smem = attend_smem_bytes(images, W, H, K, D);
+    cudaError_t err = allow_smem((const void*)cell_attend_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int nimg = B / W;
+    cell_attend_kernel<<<(nimg + images - 1) / images, ATT_THREADS, smem, stream>>>(
+        (const float*)hn32, (const float*)s32, (const bf*)pv, (const bf*)V, (const bf*)watt_t,
+        (const bf*)wh, (bf*)chat_out, (float*)alpha, (float*)beta, B, W, H, K, D, images);
+    return (int)cudaGetLastError();
+  }
+  return 0;
 }
 
 template <typename T>
@@ -434,8 +470,7 @@ int launch_head_mma(const void* chat, const void* h, const void* Wtiles, const v
                     void* part_v, void* part_i, void* out, int B, int H, int Vp,
                     int vocab_len, int nsplit, int tiles_per_split, cudaStream_t stream) {
   const size_t smem = head_mma_smem_bytes(H, 2, ARGMAX_STAGES);
-  cudaError_t err = cudaFuncSetAttribute(
-      head_argmax_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem((const void*)head_argmax_mma_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(nsplit, (B + 2 * WG_ROWS - 1) / (2 * WG_ROWS));
   head_argmax_mma_kernel<<<grid, ARGMAX_THREADS, smem, stream>>>(
@@ -454,15 +489,25 @@ int launch_head_mma(const void* chat, const void* h, const void* Wtiles, const v
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. B rows, W beam rows per image of V/pv
-// (1 = one image per row). Returns cudaGetLastError() after launch.
+// (1 = one image per row). whh_t null: the SIMT kernel. whh_t, wsen_t,
+// watt_t given (cell_kernel_tiles; bf16, H and E2 multiples of 64): the two
+// stages of cell_mma.cuh, `images` whole images a stage-2 block, with h'
+// and s in the fp32 scratch hn32, s32 [B, H]; stages: 1 stage 1 alone, 2
+// stage 2 alone (on the scratch an earlier launch wrote), 3 both. Returns cudaGetLastError() after the launches.
 int adaptive_cell_launch(int dtype, const void* gx, const void* h, const void* c,
                          const void* x, const void* hp, const void* pv,
                          const void* V, const void* whh, const void* bhh,
                          const void* wx, const void* whs, const void* wg,
                          const void* ws, const void* wh, void* h_out, void* c_out,
-                         void* chat_out, void* alpha, void* beta, int B, int W,
-                         int H, int E2, int K, int D, void* stream) {
+                         void* chat_out, void* alpha, void* beta, const void* whh_t,
+                         const void* wsen_t, const void* watt_t, void* hn32, void* s32, int B, int W,
+                         int H, int E2, int K, int D, int images, int stages,
+                         void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (whh_t != nullptr)
+    return launch_cell_mma(gx, h, c, x, hp, pv, V, bhh, wh, h_out, c_out, chat_out, alpha, beta,
+                           whh_t, wsen_t, watt_t, hn32, s32, dtype, B, W, H, E2, K, D, images,
+                           stages, st);
   if (dtype == 0)
     return launch_cell<float>(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws,
                               wh, h_out, c_out, chat_out, alpha, beta, B, W, H,
@@ -492,5 +537,15 @@ int head_argmax_launch(int dtype, const void* chat, const void* h, const void* W
   return launch_head<__nv_bfloat16>(chat, h, W, b, part_v, part_i, out, B, H, Vp,
                                     vocab_len, st);
 }
+
+#ifdef CELL_CLOCKS
+// The seven cell_clocks counters into out, then zeroed.
+int cell_clocks_read(unsigned long long* out) {
+  const unsigned long long zero[7] = {0, 0, 0, 0, 0, 0, 0};
+  cudaError_t err = cudaMemcpyFromSymbol(out, cell_clocks, sizeof zero);
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(cell_clocks, zero, sizeof zero);
+  return (int)err;
+}
+#endif
 
 }  // extern "C"

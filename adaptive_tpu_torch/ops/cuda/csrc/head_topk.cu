@@ -390,8 +390,7 @@ int launch_topk_mma(const void* chat, const void* h, const void* Wtiles, const v
   constexpr int BAND = NWG * WG_ROWS;
   const size_t smem = head_mma_smem_bytes(H, NWG, TOPK_STAGES) +
                       (size_t)BAND * list_stride(Wk) * (sizeof(float) + sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      head_topk_mma_kernel<NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem((const void*)head_topk_mma_kernel<NWG>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(nsplit, (B + BAND - 1) / BAND);
   head_topk_mma_kernel<NWG><<<grid, NWG * WG_THREADS + PRODUCER_THREADS, smem, stream>>>(

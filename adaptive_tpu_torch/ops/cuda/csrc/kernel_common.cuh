@@ -10,9 +10,31 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace {
 
 constexpr float NEG = -1e30f;
+
+// Lets `kernel` launch with `bytes` of dynamic shared memory on the current
+// device. cudaFuncSetAttribute runs once per kernel, device and larger size,
+// not on every launch: the decode step's kernels are short, so the host time
+// of each launch shows beside them.
+inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, size_t> allowed;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& have = allowed[{kernel, dev}];
+  if (have >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) have = bytes;
+  return err;
+}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }

@@ -11,13 +11,28 @@
   id first on ties (as lax.top_k), and the row's logsumexp.
 
 Each wrapper launches its CUDA kernel (ops/cuda/csrc/fused_step.cu,
-head_topk.cu) for CUDA tensors, after checking device, dtype, shape,
-contiguity and alignment, and raises on anything the kernel does not take.
-For CPU tensors it runs the plain PyTorch twin beside it, which is the
+cell_mma.cuh, head_topk.cu) for CUDA tensors, after checking device, dtype,
+shape, contiguity and alignment, and raises on anything the kernel does not
+take. For CPU tensors it runs the plain PyTorch twin beside it, which is the
 arithmetic the kernel must reproduce: fp32 inside, the same casts, the same
 -1e30 mask. Each wrapper counts its kernel launches in a plain int
 attribute, ``<wrapper>.launches`` (``decode_cell.launches_beam`` for the
-beam-major cell, beam_w > 1).
+beam-major cell, beam_w > 1): one call counts one launch.
+
+The cell has two instances, picked by ``cell_instance``. In bf16 with H and
+E2 multiples of 64, "mma": two kernels that one call starts back to back.
+Stage 1 runs the LSTM gates and the sentinel's pre-activation as bf16
+tensor-core products with fp32 sums (exact products; only the order of the
+sums differs from the twin), a block a band of 64 rows and a slice of 32
+hidden units, over the weights reordered once per checkpoint by
+``cell_kernel_tiles`` (the prepared tree carries them), and writes h' and s
+in fp32 to scratch. Stage 2 runs the attention, a block a group of whole
+images with all their beam rows, reading each image's V and pv once; h',
+s and alpha keep fp32 (fp32 FMAs), as in the TPU kernel. ``cell_plan``
+picks the images a stage-2 block. Bound at 3,072 rows (beam
+3), bf16: ~107 MB of device bytes, 0.032 ms at 3.35 TB/s. In fp32, and at
+other widths, "simt": one kernel of 8 rows a block with fp32 FMAs on the
+CUDA cores throughout, bounded by their 67 TFLOP/s (0.05 ms at 1,024 rows).
 
 The two heads share one product, in two instances picked by
 ``head_instance``: in bf16 the tensor-core instance (wgmma on a ring of
@@ -45,6 +60,11 @@ HEAD_MMA_MAX_H = 512  # the band's z, 128 rows x H bf16, must leave shared memor
 HEAD_BAND_ROWS = 128  # rows of a block of the tensor-core heads: two warpgroups of 64
 TOPK_WIDE_BAND_MAX_W = 32  # longer top-W lists need the room of half the band: 64 rows
 H100_SMS = 132
+CELL_K_STEP = 64  # k of a ring chunk of the mma cell's stage 1: a 128-byte row of bf16 (CELL_CK)
+CELL_BAND_ROWS = 64  # rows of a stage-1 block of the mma cell (CELL_BM)
+CELL_UNITS = 32  # hidden units of a stage-1 block of the mma cell (CELL_NU)
+CELL_SIMT_ROWS = 8  # rows of a block of the SIMT cell (ROWS)
+CELL_BLOCK_ROWS = 24  # rows of a stage-2 block at most, unless one image's beam has more
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -122,23 +142,97 @@ def _check_beam_rows(R: int, V, pv, beam_w: int):
                 "(repeat_interleave layout) and V/pv come untiled")
 
 
-def decode_cell(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh, beam_w=1):
-    """One fused decode cell (arguments as decode_cell_plain). Launches the
-    CUDA kernel for CUDA tensors; runs the plain twin for CPU tensors.
-    Counts a launch in decode_cell.launches (beam_w == 1) or
-    decode_cell.launches_beam (beam_w > 1, the beam-major kernel)."""
-    _check_beam_rows(h.shape[0], V, pv, beam_w)
-    if gx.device.type == "cpu":
-        return decode_cell_plain(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh, beam_w)
-    if gx.device.type != "cuda":
-        raise ValueError(f"decode_cell runs on cuda or cpu, not {gx.device}")
+def cell_instance(dtype, H: int, E2: int) -> str:
+    """Which instance of the cell runs for CUDA tensors: "mma", the two
+    stages with the tensor-core stage 1, where the operands are bfloat16
+    and H and E2 are multiples of CELL_K_STEP (both products step through
+    K in whole 64-wide chunks: K = H for the gates, E2 + H for the
+    sentinel, whose x part ends on a chunk); "simt", fp32 FMAs on the CUDA
+    cores throughout, for float32 and for any other width. A rule of shape,
+    decided before launch."""
+    if dtype == torch.bfloat16 and H > 0 and E2 > 0 and H % CELL_K_STEP == 0 \
+            and E2 % CELL_K_STEP == 0:
+        return "mma"
+    return "simt"
+
+
+class CellTiles(NamedTuple):
+    """The cell's weights as the mma instance reads them, made once per
+    checkpoint: stage 1's two products K-major (a row is one output column
+    over K), stage 2's h' Wg and s Ws k-blocked (8 k of every column, then
+    the next 8: a thread a column reads 16 bytes a step, its neighbours the
+    next 16)."""
+
+    whh_t: torch.Tensor  # [4H, H]: row n holds column cell_gate_order(H)[n] of w_hh
+    wsen_t: torch.Tensor  # [H, E2 + H]: row u holds column u of w_x over w_hs
+    watt_t: torch.Tensor  # [H / 8, 2D, 8]: [kb, j, e] = [w_g | w_s][8 kb + e, j]
+
+
+def cell_gate_order(H: int, device=None) -> torch.Tensor:
+    """The gate columns' order in CellTiles.whh_t: row 32a + 8g + t holds
+    gate g (i, f, g, o) of unit 8a + t, i.e. column g H + 8a + t of w_hh.
+    An n8 tile of the product is then one gate of 8 units, and a unit's four
+    gate tiles and its sentinel tile (wsen_t row u) put its five
+    pre-activations in the same lanes of mma.sync's accumulators."""
+    n = torch.arange(4 * H, device=device)
+    return (n // 8) % 4 * H + 8 * (n // 32) + n % 8
+
+
+def cell_kernel_tiles(whh: torch.Tensor, wx: torch.Tensor, whs: torch.Tensor, wg: torch.Tensor,
+                      ws: torch.Tensor) -> CellTiles:
+    """w_hh [H, 4H], w_x [E2, H], w_hs [H, H], w_g and w_s [H, D] laid out
+    for the mma instance (CellTiles). A copy of 2 (5H + E2 + 2D) H bytes:
+    prepare_inference makes it once per checkpoint, and decode_cell makes it
+    per call where it is not handed one."""
+    H = whh.shape[0]
+    if H % 8:
+        raise ValueError(f"cell_kernel_tiles needs H a multiple of 8, got {H}")
+    watt = torch.cat([wg, ws], 1)
+    return CellTiles(whh.t()[cell_gate_order(H, whh.device)].contiguous(),
+                     torch.cat([wx, whs], 0).t().contiguous(),
+                     watt.reshape(H // 8, 8, -1).permute(0, 2, 1).contiguous())
+
+
+class CellPlan(NamedTuple):
+    images: int  # images of a stage-2 block, with all their beam rows (simt: 0, no stage 2)
+
+
+def cell_plan(instance: str, rows: int, W: int = 1, sms: int = H100_SMS) -> CellPlan:
+    """How a cell launch groups images into stage-2 blocks. Stage 1 of the
+    mma instance always runs bands of CELL_BAND_ROWS rows by slices of
+    CELL_UNITS hidden units (4 warps, two or three blocks an SM): 1,024 rows
+    x H 512 -> 16 x 16 = 256 blocks, 3,072 -> 48 x 16 = 768. Stage 2 takes
+    groups of whole images, as many as spread the images over the card's
+    sms SMs in two blocks each, at most CELL_BLOCK_ROWS rows (one image
+    where its beam alone has more): 1,024 images -> 4 a block at W 1 and 3,
+    the fastest that tools/torch_cell_probe.py --sweep times at both shapes
+    on an H100. simt has no stage 2 (blocks of CELL_SIMT_ROWS rows)."""
+    if instance == "simt":
+        return CellPlan(0)
+    images = rows // W
+    return CellPlan(max(1, min(-(-images // (2 * sms)), CELL_BLOCK_ROWS // W)))
+
+
+def decode_cell_run(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh, beam_w=1,
+                    cell_t=None, plan=None, stages=3, out=None):
+    """decode_cell's checks and launch on CUDA tensors, under a chosen plan
+    (cell_plan's where None) and, for the mma instance, one stage alone
+    (stages 1 or 2; 3 both), into the buffers of an earlier call (out) or
+    new ones. Returns (h', c', c_hat, alpha, beta, h' fp32, s fp32): the
+    last two are the mma instance's scratch (None for simt), which stage 2
+    alone reads. For measurement (tools/torch_cell_probe.py, chip_smoke.py):
+    it counts no launch, decode_cell does."""
     from adaptive_tpu_torch.ops.cuda import build
 
+    _check_beam_rows(h.shape[0], V, pv, beam_w)
     R, H = h.shape
     B = R // beam_w
     E2 = x.shape[1]
     K, D = pv.shape[1], pv.shape[2]
     dt = h.dtype
+    dev = gx.device
+    if dev.type != "cuda":
+        raise ValueError(f"decode_cell_run launches on cuda, not {dev}")
     if dt not in _DTYPE_CODE:
         raise ValueError(f"decode_cell takes float32 or bfloat16, not {dt}")
     if H % 2:
@@ -150,27 +244,69 @@ def decode_cell(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh, beam_w=1)
         ("w_hs", whs, (H, H)), ("w_g", wg, (H, D)), ("w_s", ws, (H, D)), ("w_h", wh, (D,)),
     ):
         _check_shape(name, t, shape)
-    _check_cuda(("gx",), (gx,), torch.float32, gx.device)
+    _check_cuda(("gx",), (gx,), torch.float32, dev)
     _check_cuda(
         ("h", "c", "x", "h_prev", "pv", "V", "w_hh", "b_hh", "w_x", "w_hs", "w_g", "w_s", "w_h"),
-        (h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh), dt, gx.device,
+        (h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh), dt, dev,
     )
-    h_out, c_out, chat = (torch.empty((R, H), dtype=dt, device=gx.device) for _ in range(3))
-    alpha = torch.empty((R, K), dtype=torch.float32, device=gx.device)
-    beta = torch.empty((R, 1), dtype=torch.float32, device=gx.device)
+    instance = cell_instance(dt, H, E2)
+    if plan is None:
+        plan = cell_plan(instance, R, beam_w, sms=_sms(dev))
+    tiles = (None, None, None)
+    if instance == "mma":
+        if plan.images < 1:
+            raise ValueError(f"the mma cell needs a stage-2 block of one image or more: {plan}")
+        if stages not in (1, 2, 3):
+            raise ValueError(f"stages is 1, 2 or 3, not {stages}")
+        if cell_t is None:  # a copy a call: the decoders hand the prepared tiles
+            cell_t = cell_kernel_tiles(whh, wx, whs, wg, ws)
+        _check_shape("cell_t.whh_t", cell_t.whh_t, (4 * H, H))
+        _check_shape("cell_t.wsen_t", cell_t.wsen_t, (H, E2 + H))
+        _check_shape("cell_t.watt_t", cell_t.watt_t, (H // 8, 2 * D, 8))
+        _check_cuda(("cell_t.whh_t", "cell_t.wsen_t", "cell_t.watt_t"), tuple(cell_t), dt, dev)
+        tiles = tuple(cell_t)
+    elif stages != 3:
+        raise ValueError("the simt cell is one kernel: stages must be 3")
+    if out is None:
+        # New tensors a call, from PyTorch's caching allocator, which hands back
+        # the blocks the previous step freed (host time only, no device work);
+        # scratch kept across calls would be shared by calls on two streams.
+        f32 = dict(dtype=torch.float32, device=dev)
+        scratch = torch.empty((2, R, H), **f32).unbind(0) if instance == "mma" else (None, None)
+        out = (*(torch.empty((R, H), dtype=dt, device=dev) for _ in range(3)),
+               torch.empty((R, K), **f32), torch.empty((R, 1), **f32), *scratch)
     lib = build.load()
-    with torch.cuda.device(gx.device):  # the launch goes to the current device
+    with torch.cuda.device(dev):  # the launch goes to the current device
         err = lib.adaptive_cell_launch(
             _DTYPE_CODE[dt], *map(_ptr, (gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh,
-                                         h_out, c_out, chat, alpha, beta)),
-            R, beam_w, H, E2, K, D, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+                                         *out[:5], *tiles, *out[5:])),
+            R, beam_w, H, E2, K, D, plan.images, stages,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _raise_on(err, "decode_cell")
+    return out
+
+
+def decode_cell(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh, beam_w=1, cell_t=None):
+    """One fused decode cell (arguments as decode_cell_plain). Launches the
+    CUDA kernel for CUDA tensors (cell_instance's, cell_plan's plan; the
+    mma instance reads cell_t, the CellTiles of these weights, made here
+    where None); runs the plain twin for CPU tensors. Counts a launch in
+    decode_cell.launches (beam_w == 1) or decode_cell.launches_beam
+    (beam_w > 1, the beam-major kernel): one a call, though the mma
+    instance starts two kernels."""
+    _check_beam_rows(h.shape[0], V, pv, beam_w)
+    if gx.device.type == "cpu":
+        return decode_cell_plain(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh, beam_w)
+    if gx.device.type != "cuda":
+        raise ValueError(f"decode_cell runs on cuda or cpu, not {gx.device}")
+    out = decode_cell_run(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh, beam_w,
+                          cell_t=cell_t)
     if beam_w == 1:
         decode_cell.launches += 1
     else:
         decode_cell.launches_beam += 1
-    return h_out, c_out, chat, alpha, beta
+    return out[:5]
 
 
 decode_cell.launches = 0
@@ -186,7 +322,7 @@ def cell_operands(lstm: Dict, atten: Dict, sentinel: Dict) -> Tuple[torch.Tensor
 
 
 def adaptive_decode_cell_fused(lstm: Dict, atten: Dict, sentinel: Dict, x, h_in,
-                               c_in, h_prev, V, pv, beam_w: int = 1):
+                               c_in, h_prev, V, pv, beam_w: int = 1, cell_t=None):
     """LSTM + sentinel + adaptive attention for one token.
 
     x [R,2E], h_in/c_in/h_prev [R,H], V [R/beam_w,K,H], pv [R/beam_w,K,D].
@@ -194,10 +330,11 @@ def adaptive_decode_cell_fused(lstm: Dict, atten: Dict, sentinel: Dict, x, h_in,
     fp32). beam_w > 1 is the beam-major layout: row r belongs to image
     r // beam_w. The input projection stays a full-batch matmul outside the
     kernel, computed in the compute dtype and then cast to fp32, as the JAX
-    package does."""
+    package does. cell_t: the CellTiles of these weights (prepare_inference's),
+    or None."""
     gx = (x @ lstm["w_ih"] + lstm["b_ih"]).float()
     return decode_cell(gx, h_in, c_in, x, h_prev, pv, V, *cell_operands(lstm, atten, sentinel),
-                       beam_w=beam_w)
+                       beam_w=beam_w, cell_t=cell_t)
 
 
 # ------------------------------------------------------------- head argmax

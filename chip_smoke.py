@@ -10,7 +10,10 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
 2. holds the greedy kernels (the cell, the argmax head) against their plain
    PyTorch twins at the greedy path's shapes (batch 1024, H 512, 2E 512,
    K = D = 49, vocab 10123 padded to 10240), in fp32 and bf16, and times
-   kernel, twin and library call; the head and its library call twice:
+   kernel, twin and library call; the cell names its instance and plan
+   (ops/fused_step.py::cell_instance, cell_plan) and, for the bf16
+   tensor-core instance, times each of its two stages alone; the head and
+   its library call twice:
    launches back to back (the 10.5 MB weight warm in the 50 MB L2) and
    each launch after a 256 MB write (L2 cold, as after the cell kernel);
 2b. does the same for the beam kernels (the beam-major cell, the top-W
@@ -227,6 +230,38 @@ def check_close(name, got, ref, atol, rtol) -> float:
     return float(err.max())
 
 
+def cell_stages(cell_args, W: int, cell_t):
+    """The cell's instance and plan at these operands and, for the mma
+    instance, each stage's ms alone (stage 1 the tensor-core gates, stage 2
+    the attention), launched through decode_cell_run on the buffers of one
+    run; None for the SIMT instance's one kernel."""
+    import torch
+
+    from adaptive_tpu_torch.ops import fused_step as fs
+
+    R, Hh = cell_args[1].shape
+    inst = fs.cell_instance(cell_args[1].dtype, Hh, cell_args[3].shape[1])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fs.cell_plan(inst, R, W, sms=sms)
+    if inst != "mma":
+        return inst, plan, None
+    out = fs.decode_cell_run(*cell_args, beam_w=W, cell_t=cell_t)
+    return inst, plan, [cuda_ms(lambda st=st: fs.decode_cell_run(
+        *cell_args, beam_w=W, cell_t=cell_t, stages=st, out=out)) for st in (1, 2)]
+
+
+def stages_text(inst, plan, stage_ms) -> str:
+    from adaptive_tpu_torch.ops import fused_step as fs
+
+    if inst != "mma":
+        return f"{inst}, {fs.CELL_SIMT_ROWS} rows a block"
+    text = (f"{inst}, stage 1 {fs.CELL_BAND_ROWS} rows x {fs.CELL_UNITS} units a block, "
+            f"stage 2 {plan.images} images a block")
+    if stage_ms:
+        text += f", stage 1 {stage_ms[0]:.4f} ms, stage 2 {stage_ms[1]:.4f} ms alone"
+    return text
+
+
 # ----------------------------------------------------------------- phase 2
 def kernel_checks(dtype_name: str):
     import torch
@@ -246,7 +281,10 @@ def kernel_checks(dtype_name: str):
         r(B, K, D), r(B, K, H).abs(), r(H, 4 * H, scale=H ** -0.5), r(4 * H, scale=0.1),
         r(E2, H, scale=E2 ** -0.5), r(H, H, scale=H ** -0.5), r(H, D, scale=H ** -0.5),
         r(H, D, scale=H ** -0.5), r(D, scale=D ** -0.5))]
-    got = fs.decode_cell(*cell_args)
+    # the reordered weights that prepare_inference hands the mma instance
+    ct = (fs.cell_kernel_tiles(*(cell_args[i] for i in (7, 9, 10, 11, 12)))
+          if fs.cell_instance(dt, H, E2) == "mma" else None)
+    got = fs.decode_cell(*cell_args, cell_t=ct)
     torch.cuda.synchronize()
     ref = fs.decode_cell_plain(*cell_args)
     atol, rtol = TOL[dtype_name]
@@ -254,8 +292,9 @@ def kernel_checks(dtype_name: str):
     for name, a, b in zip(("h", "c", "c_hat", "alpha", "beta"), got, ref):
         tol = TOL["float32"] if a.dtype == torch.float32 else (atol, rtol)
         cell_err = max(cell_err, check_close(f"cell {dtype_name} {name}", a, b, *tol))
-    cell_ms = cuda_ms(lambda: fs.decode_cell(*cell_args))
+    cell_ms = cuda_ms(lambda: fs.decode_cell(*cell_args, cell_t=ct))
     cell_plain_ms = cuda_ms(lambda: fs.decode_cell_plain(*cell_args))
+    stages = cell_stages(cell_args, 1, ct)
     outs = nbytes(*got)
     cell_flops = 2.0 * B * (H * 4 * H + E2 * H + H * H + 2 * H * D + K * D + K * H)
     cell_bound = bound(nbytes(*cell_args) + outs, cell_flops, dtype_name)
@@ -295,8 +334,9 @@ def kernel_checks(dtype_name: str):
 
     head_lib_ms, head_lib_cold_ms = cuda_ms(library), cuda_cold_ms(library)
     head_bound = bound(nbytes(W, bias, chat, h) + B * 4, 2.0 * B * H * VP, dtype_name)
-    log(f"[kernels {dtype_name}] cell: max_abs_err {cell_err:.3e} kernel {cell_ms:.4f} ms "
-        f"plain {cell_plain_ms:.4f} ms bound {cell_bound[0]:.4f} ms ({cell_bound[1]}) | "
+    log(f"[kernels {dtype_name}] cell ({stages_text(*stages)}): max_abs_err {cell_err:.3e} "
+        f"kernel {cell_ms:.4f} ms plain {cell_plain_ms:.4f} ms bound {cell_bound[0]:.4f} ms "
+        f"({cell_bound[1]}) | "
         f"head ({fs.head_instance(dt, H)}): {int(diff.sum())}/{B} ids differ (all at top-2 gap "
         f"< {HEAD_GAP_EPS}), kernel {head_ms:.4f} ms (L2 cold {head_cold_ms:.4f}) plain "
         f"{head_plain_ms:.4f} ms addmm+argmax {head_lib_ms:.4f} ms (L2 cold "
@@ -304,7 +344,8 @@ def kernel_checks(dtype_name: str):
     return {
         "adaptive_decode_cell_fused": {
             "max_abs_err": cell_err, "ms": cell_ms, "plain_ms": cell_plain_ms,
-            "bound_ms": cell_bound[0], "bound_by": cell_bound[1], "library_ms": None},
+            "bound_ms": cell_bound[0], "bound_by": cell_bound[1], "library_ms": None,
+            "instance": stages[0], "plan": stages[1]._asdict(), "stage_ms": stages[2]},
         "greedy_head_argmax": {
             "max_abs_err": head_err,
             "ids_differ": int(diff.sum()), "ms": head_ms, "cold_ms": head_cold_ms,
@@ -354,7 +395,9 @@ def beam_kernel_checks(dtype_name: str, W: int, timed: bool = True):
         r(B, K, D), r(B, K, H).abs(), r(H, 4 * H, scale=H ** -0.5), r(4 * H, scale=0.1),
         r(E2, H, scale=E2 ** -0.5), r(H, H, scale=H ** -0.5), r(H, D, scale=H ** -0.5),
         r(H, D, scale=H ** -0.5), r(D, scale=D ** -0.5))]
-    got = fs.decode_cell(*cell_args, beam_w=W)
+    ct = (fs.cell_kernel_tiles(*(cell_args[i] for i in (7, 9, 10, 11, 12)))
+          if fs.cell_instance(dt, H, E2) == "mma" else None)
+    got = fs.decode_cell(*cell_args, beam_w=W, cell_t=ct)
     torch.cuda.synchronize()
     ref = fs.decode_cell_plain(*cell_args, beam_w=W)
     cell_err = 0.0
@@ -378,25 +421,31 @@ def beam_kernel_checks(dtype_name: str, W: int, timed: bool = True):
     logits = (chat + h).to(dt).float() @ Wt.float() + bias.float()
     logits[:, VOCAB:] = fs.NEG
     head_err, rows_differ = topk_checks(f"topk head W={W} {dtype_name}", top, ref_top, logits, W)
-    log(f"[beam kernels {dtype_name} W={W}] cell: max_abs_err {cell_err:.3e} | top-W head: "
+    inst = fs.cell_instance(dt, H, E2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fs.cell_plan(inst, R, W, sms=sms)
+    log(f"[beam kernels {dtype_name} W={W}] cell ({stages_text(inst, plan, None)}): "
+        f"max_abs_err {cell_err:.3e} | top-W head: "
         f"max_abs_err {head_err:.3e}, {rows_differ}/{R} rows' ids differ (all at adjacent "
         f"gaps < {HEAD_GAP_EPS})")
     if not timed:
         return None
 
-    cell_ms = cuda_ms(lambda: fs.decode_cell(*cell_args, beam_w=W))
+    cell_ms = cuda_ms(lambda: fs.decode_cell(*cell_args, beam_w=W, cell_t=ct))
     cell_plain_ms = cuda_ms(lambda: fs.decode_cell_plain(*cell_args, beam_w=W))
+    stages = cell_stages(cell_args, W, ct)
     # the tiled layout on the same inputs: kernel 1 over V/pv repeated per
     # beam row does the same arithmetic and reads the slots W times
     tiled_args = list(cell_args)
     tiled_args[5] = cell_args[5].repeat_interleave(W, 0)
     tiled_args[6] = cell_args[6].repeat_interleave(W, 0)
     tiled_err = 0.0
-    for name, a, b in zip(("h", "c", "c_hat", "alpha", "beta"), fs.decode_cell(*tiled_args), got):
+    for name, a, b in zip(("h", "c", "c_hat", "alpha", "beta"),
+                          fs.decode_cell(*tiled_args, cell_t=ct), got):
         tol = TOL["float32"] if a.dtype == torch.float32 else TOL[dtype_name]
         tiled_err = max(tiled_err, check_close(f"tiled vs beam-major W={W} {dtype_name} {name}",
                                                a, b, *tol))
-    tiled_ms = cuda_ms(lambda: fs.decode_cell(*tiled_args))
+    tiled_ms = cuda_ms(lambda: fs.decode_cell(*tiled_args, cell_t=ct))
     cell_flops = 2.0 * R * (H * 4 * H + E2 * H + H * H + 2 * H * D + K * D + K * H)
     cell_bound = bound(nbytes(*cell_args) + nbytes(*got), cell_flops, dtype_name)
     head_ms, head_cold_ms = cuda_ms(head), cuda_cold_ms(head)
@@ -409,17 +458,19 @@ def beam_kernel_checks(dtype_name: str, W: int, timed: bool = True):
 
     head_lib_ms, head_lib_cold_ms = cuda_ms(library), cuda_cold_ms(library)
     head_bound = bound(nbytes(Wt, bias, chat, h, *top), 2.0 * R * H * VP, dtype_name)
-    log(f"[beam kernels {dtype_name} W={W}] cell: kernel {cell_ms:.4f} ms plain "
-        f"{cell_plain_ms:.4f} ms bound {cell_bound[0]:.4f} ms ({cell_bound[1]}), tiled layout "
-        f"(kernel 1, V/pv repeated; max abs diff {tiled_err:.3e}) {tiled_ms:.4f} ms | top-W head "
-        f"({fs.head_instance(dt, H)}): kernel {head_ms:.4f} ms (L2 cold {head_cold_ms:.4f}) plain "
-        f"{head_plain_ms:.4f} ms addmm+topk+logsumexp {head_lib_ms:.4f} ms (L2 cold "
-        f"{head_lib_cold_ms:.4f}) bound {head_bound[0]:.4f} ms ({head_bound[1]})")
+    log(f"[beam kernels {dtype_name} W={W}] cell ({stages_text(*stages)}): kernel {cell_ms:.4f} "
+        f"ms plain {cell_plain_ms:.4f} ms bound {cell_bound[0]:.4f} ms ({cell_bound[1]}), tiled "
+        f"layout (kernel 1, V/pv repeated; max abs diff {tiled_err:.3e}) {tiled_ms:.4f} ms | "
+        f"top-W head ({fs.head_instance(dt, H)}): kernel {head_ms:.4f} ms (L2 cold "
+        f"{head_cold_ms:.4f}) plain {head_plain_ms:.4f} ms addmm+topk+logsumexp "
+        f"{head_lib_ms:.4f} ms (L2 cold {head_lib_cold_ms:.4f}) bound {head_bound[0]:.4f} ms "
+        f"({head_bound[1]})")
     return {
         "adaptive_decode_cell_fused_beam": {
             "max_abs_err": cell_err, "ms": cell_ms, "plain_ms": cell_plain_ms,
             "bound_ms": cell_bound[0], "bound_by": cell_bound[1], "library_ms": None,
-            "tiled_ms": tiled_ms},
+            "tiled_ms": tiled_ms, "instance": stages[0], "plan": stages[1]._asdict(),
+            "stage_ms": stages[2]},
         "beam_head_topk": {
             "max_abs_err": head_err, "rows_differ": rows_differ, "ms": head_ms,
             "cold_ms": head_cold_ms, "plain_ms": head_plain_ms, "bound_ms": head_bound[0],
@@ -1169,11 +1220,11 @@ def main() -> int:
     csrc = "adaptive_tpu_torch/ops/cuda/csrc/"
     sources = {
         "adaptive_decode_cell_fused": ("adaptive_tpu/ops/pallas/fused_step.py:221",
-                                       csrc + "fused_step.cu"),
+                                       csrc + "cell_mma.cuh"),
         "greedy_head_argmax": ("adaptive_tpu/ops/pallas/fused_step.py:354",
                                csrc + "fused_step.cu"),
         "adaptive_decode_cell_fused_beam": ("adaptive_tpu/ops/pallas/fused_step.py:221",
-                                            csrc + "fused_step.cu"),
+                                            csrc + "cell_mma.cuh"),
         "beam_head_topk": ("adaptive_tpu/ops/pallas/fused_step.py:448", csrc + "head_topk.cu"),
     }
     kernels = []
@@ -1185,8 +1236,10 @@ def main() -> int:
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
             "library_ms": bf["library_ms"], "dtype": "bfloat16",
-            # the heads: each launch after a 256 MB write (L2 cold)
-            **{k: bf[k] for k in ("cold_ms", "library_cold_ms") if k in bf},
+            # the heads: each launch after a 256 MB write (L2 cold); the
+            # cells: the instance, its plan and each stage alone
+            **{k: bf[k] for k in ("cold_ms", "library_cold_ms", "instance", "plan", "stage_ms")
+               if k in bf},
             "fp32": {k: fp[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
         })

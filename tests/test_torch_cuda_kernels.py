@@ -53,8 +53,12 @@ def _cell_args(B, H, E2, K, dtype, device, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,E2,K", [(5, 512, 512, 49), (13, 64, 32, 4), (1, 16, 8, 49)])
+@pytest.mark.parametrize("B,H,E2,K", [(5, 512, 512, 49), (13, 64, 32, 4), (1, 16, 8, 49),
+                                     (130, 128, 64, 49), (1, 64, 64, 3), (1024, 512, 512, 49)])
 def test_cell_kernel_matches_twin(cuda, dtype, B, H, E2, K):
+    """In bf16, H and E2 multiples of 64 run the mma instance (130 rows end
+    two rows into a third 64-row band; 1,024 at the main path's widths);
+    the rest, and fp32, the SIMT kernel."""
     args = _cell_args(B, H, E2, K, dtype, cuda)
     fs.reset_launch_counts()
     got = fs.decode_cell(*args)
@@ -85,6 +89,52 @@ def test_beam_major_cell_kernel_matches_twin(cuda, dtype, W, B):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         atol, rtol = TOL[g.dtype]
         torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol, msg=name)
+
+
+def _check_cell(got, want):
+    for name, g, w in zip(("h", "c", "c_hat", "alpha", "beta"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        atol, rtol = TOL[g.dtype]
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol, msg=name)
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 5, 9])
+@pytest.mark.parametrize("B,H,E2", [(1, 128, 64), (23, 128, 64), (50, 64, 128), (7, 512, 512)])
+def test_mma_cell_kernel_matches_twin(cuda, W, B, H, E2):
+    """The bf16 tensor-core instance, B images x W beam rows: row counts off
+    the 64-row bands (23 x 9 = 207, 50 x 3 = 150), a single image,
+    the full widths (H 512, 2E 512), stage-2 blocks of whole images."""
+    K = 49
+    assert fs.cell_instance(torch.bfloat16, H, E2) == "mma"
+    args = _cell_args(B * W, H, E2, K, torch.bfloat16, cuda)
+    args[5], args[6] = args[5][:B].contiguous(), args[6][:B].contiguous()
+    fs.reset_launch_counts()
+    got = fs.decode_cell(*args, beam_w=W)
+    torch.cuda.synchronize()
+    assert (fs.decode_cell.launches, fs.decode_cell.launches_beam) == ((1, 0) if W == 1 else (0, 1))
+    _check_cell(got, fs.decode_cell_plain(*args, beam_w=W))
+
+
+@pytest.mark.parametrize("W,images", [(1, 1), (1, 5), (3, 2), (3, 8), (9, 1), (2, 12)])
+def test_mma_cell_kernel_plans_match_twin(cuda, W, images):
+    """Stage-2 groups of one image to 24 rows, each against the twin, on the
+    prepared tiles; stages 1 and 2 launched alone give the cell's
+    outputs."""
+    B, H, E2, K = 29, 128, 64, 49
+    args = _cell_args(B * W, H, E2, K, torch.bfloat16, cuda, seed=3)
+    args[5], args[6] = args[5][:B].contiguous(), args[6][:B].contiguous()
+    tiles = fs.cell_kernel_tiles(*(args[i] for i in (7, 9, 10, 11, 12)))
+    plan = fs.CellPlan(images)
+    out = fs.decode_cell_run(*args, beam_w=W, cell_t=tiles, plan=plan)
+    torch.cuda.synchronize()
+    want = fs.decode_cell_plain(*args, beam_w=W)
+    _check_cell(out[:5], want)
+    apart = [torch.zeros_like(t) for t in out]
+    fs.decode_cell_run(*args, beam_w=W, cell_t=tiles, plan=plan, stages=1, out=apart)
+    fs.decode_cell_run(*args, beam_w=W, cell_t=tiles, plan=plan, stages=2, out=apart)
+    torch.cuda.synchronize()
+    for a, b in zip(apart, out):
+        assert torch.equal(a, b)
 
 
 def _head_args(B, H, vocab, dtype, device, seed=1):
@@ -269,6 +319,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fs.decode_cell(*args[:6], args[6][:, :3].contiguous(), *args[7:])
     with pytest.raises(ValueError, match="beam-major"):
         fs.decode_cell(*args, beam_w=3)
+    args = _cell_args(4, 64, 64, 4, torch.bfloat16, cuda)
+    tiles = fs.cell_kernel_tiles(*(args[i] for i in (7, 9, 10, 11, 12)))
+    with pytest.raises(ValueError, match="cell_t.wsen_t has shape"):
+        fs.decode_cell(*args, cell_t=fs.CellTiles(tiles.whh_t, tiles.whh_t, tiles.watt_t))
+    with pytest.raises(ValueError, match="cell_t.whh_t has dtype"):
+        fs.decode_cell(*args, cell_t=fs.CellTiles(tiles.whh_t.float(), tiles.wsen_t, tiles.watt_t))
+    with pytest.raises(ValueError, match="stage-2 block of one image or more"):
+        fs.decode_cell_run(*args, plan=fs.CellPlan(0))
 
 
 def test_greedy_decode_on_the_card_matches_cpu(cuda):
