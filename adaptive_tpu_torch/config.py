@@ -1,6 +1,6 @@
 """Configuration for the PyTorch port: the knobs the greedy and beam
-captioning paths read, with the same names and defaults as
-``adaptive_tpu.config.Config``.
+captioning paths and the eval driver read, with the same names and
+defaults as the JAX package's ``Config`` (adaptive_tpu/config/config.py).
 
 The port keeps its own copy instead of importing the JAX package's module,
 so the two packages can be installed and run apart. Only the fields that the
@@ -17,6 +17,21 @@ VARIANTS = ("baseline_attention", "adaptive_attention", "rnn_attention")
 
 @dataclass
 class Config:
+    # paths the eval driver reads (cfg_wzn.py:1-12)
+    vocab_path: str = "data/vocab.json"
+    resized_image_dir: str = "data/MSCOCO/resized"
+    val_anno_path: str = "data/annotations/karpathy_split_val.json"
+    test_anno_path: str = "data/annotations/karpathy_split_test.json"
+    train_eval_anno_path: str = "data/annotations/karpathy_split_train_eval.json"
+    train_random_seed: int = 123  # cfg_wzn.py:21; seeds model.init in valid/test mode
+    # eval knobs (cfg_wzn.py:78-86)
+    test_pretrained_model: str = ""  # a checkpoint dir, its model.npz, or "auto"
+    valid_pretrained_model: str = ""
+    eval_batch_size: int = 400
+    dataloader_num_workers: int = 8  # host-side prefetch threads
+    # valid/test "auto" also searches here after exp_dir/trained_models
+    train_auto_resume_dir: str = ""
+    exp_dir: str = ""  # results files land here ("" = the working directory)
     atten_model_name: str = "adaptive_attention"  # baseline_attention|adaptive_attention|rnn_attention
     train_crop_size: int = 224
     decode_max_len: int = 30

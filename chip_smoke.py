@@ -60,9 +60,24 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    handed to both: trunk features within phase 5's bound (0 elements should
    differ), greedy ids under phase 4's rule.
 
-Phases run in the order 1, 2, 2b, 3, 3b, 2c, 5, 4, 4b, 6.
+7. runs the eval driver (evalcap/coco_eval.py::coco_eval) in bf16 on phase
+   3's model over a 5,000-image synthetic split (5 reference captions an
+   image; the images seeded_images at 256 px, served from memory through
+   coco_eval's dataset=) at eval batch 400: greedy, beam 3 and int8 (a)
+   calibrated inside the driver. Checks the launches (13 batches x 30
+   steps of kernels 1 and 2, or 3 and 4) and the results (one an image),
+   and prints images/s with the wall time split into decode, results JSON,
+   annotation loads and each scorer;
+7b. runs coco_eval in fp32 (TF32 off) on a 16-image split at batch 12 on
+   the card and on the CPU (phase 4's models), greedy and beam 3: equal
+   results, CIDEr and per-image scores, a differing caption only under the
+   gap rules of phases 4 and 4b; then valid mode on the card from a
+   model.npz of the same weights ("auto"), equal to the in-memory run.
 
-Prints one JSON line of per-kernel numbers, then as its last line
+Phases run in the order 1, 2, 2b, 3, 3b, 2c, 5, 4, 4b, 6, 7, 7b.
+
+Prints one JSON line of per-kernel numbers, one of the eval driver's
+numbers ({"eval_driver": ...}), then as its last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Exits 2 without a result where
 there is no CUDA card or the package is not beside this script.
@@ -70,6 +85,8 @@ there is no CUDA card or the package is not beside this script.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -119,6 +136,11 @@ INT8_CALIB = 32  # images that calibrate_model sees
 # (tests/test_pallas.py); the port's epilogues are uncontracted, so 0 is
 # expected
 QUANTUM_SHARE = 2e-3
+# phase 7: the eval driver over a split of the Karpathy val/test size, with
+# COCO's 5 reference captions an image, at the reference's eval batch
+# (cfg_wzn.py:84); phase 7b: a small fp32 split whose last batch is short
+EVAL_IMAGES, EVAL_REFS, EVAL_BATCH, EVAL_CHUNK = 5000, 5, 400, 500
+EVAL_PARITY_IMAGES, EVAL_PARITY_BATCH = 16, 12
 
 
 def log(msg):
@@ -1141,6 +1163,293 @@ def beam_parity(cf, model_g, net_g, model_c, net_c, images_u8):
         f"{float(gaps.min()):.3e}; first: {out_g.ids[0, :12].tolist()}")
 
 
+# ----------------------------------------------------------------- phase 7
+def eval_split(root, n, seed):
+    """A synthetic caption split of n images under root: a COCO annotation
+    JSON with EVAL_REFS captions an image (data/synthetic.py, no image
+    files), its images phase 3's seeded_images at 256 px made EVAL_CHUNK at a
+    time and held in memory, and a vocabulary of the captions' words, then
+    filler words up to VOCAB. Returns (annotation path, images, dataset,
+    Vocabulary): the dataset, for coco_eval(dataset=), lists (image, image
+    id), so the phase needs no JPEG codec (Pillow), which a card's machine
+    need not have."""
+    import numpy as np
+
+    from adaptive_tpu_torch.data.coco_api import COCO
+    from adaptive_tpu_torch.data.synthetic import make_synthetic_dataset
+    from adaptive_tpu_torch.data.vocab import build_vocab
+
+    ann, _ = make_synthetic_dataset(root, num_images=n, captions_per_image=EVAL_REFS,
+                                    seed=seed, write_images=False)
+    images = np.concatenate([seeded_images(min(EVAL_CHUNK, n - s), seed + 1 + s // EVAL_CHUNK)
+                             for s in range(0, n, EVAL_CHUNK)])
+    vocab = build_vocab((a["caption"] for a in COCO(ann).anns.values()), threshold=1)
+    for i in range(len(vocab), VOCAB):
+        vocab.add_word(f"filler{i}")
+    return ann, images, list(zip(images, range(1, n + 1))), vocab
+
+
+@contextlib.contextmanager
+def timed_spans(spans):
+    """Wrap each (owner, attribute, label) so that its calls add their host
+    seconds to times[label]; restores the originals on exit."""
+    times = {label: 0.0 for _, _, label in spans}
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in spans]
+
+    def wrap(fn, label):
+        @functools.wraps(fn)
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                times[label] += time.perf_counter() - t0
+        return timed
+
+    for (owner, attr, label), (_, _, fn) in zip(spans, saved):
+        setattr(owner, attr, wrap(fn, label))
+    try:
+        yield times
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def eval_spans():
+    """The driver's stages and the scorers, as timed_spans takes them."""
+    from adaptive_tpu_torch.data.coco_api import COCO
+    from adaptive_tpu_torch.evalcap import bleu, cider, coco_eval, eval as ev, meteor, ptbtokenizer, rouge
+    from adaptive_tpu_torch.models import infer
+
+    return [(infer, "calibrate_model", "calibrate"), (coco_eval, "decode_split", "decode"),
+            (json, "dump", "write"), (COCO, "__init__", "load"), (COCO, "loadRes", "load"),
+            (ev.COCOEvalCap, "evaluate", "score"), (ptbtokenizer.PTBTokenizer, "tokenize", "ptb"),
+            (bleu.Bleu, "compute_score", "bleu"), (meteor.Meteor, "compute_score", "meteor"),
+            (rouge.Rouge, "compute_score", "rouge"), (cider.Cider, "compute_score", "cider")]
+
+
+def text_backends():
+    """Which caption tokenizer and METEOR stemmer run: nltk's, or the
+    packages' fallbacks where nltk is not installed."""
+    from adaptive_tpu_torch.data import tokenizer
+    from adaptive_tpu_torch.evalcap import meteor
+
+    return ("nltk" if tokenizer._TREEBANK is not None else "fallback",
+            "fallback" if meteor._STEM is meteor._fallback_stem else "nltk")
+
+
+def read_results(path, n):
+    """The results JSON: one caption for each of the split's n images."""
+    with open(path) as f:
+        results = json.load(f)
+    if sorted(r["image_id"] for r in results) != list(range(1, n + 1)):
+        raise AssertionError(f"{path}: {len(results)} results, not one for each of {n} images")
+    if not all(isinstance(r["caption"], str) for r in results):
+        raise AssertionError(f"{path}: a caption is not a string")
+    return results
+
+
+def eval_driver(net, cf, smi):
+    """Phase 7a: coco_eval at full width in bf16 over a 5,000-image split
+    with 5 captions an image at the reference's eval batch (400; 13 batches,
+    the last padded), greedy, beam 3 and int8 (a) (per-channel scales that
+    coco_eval calibrates on the split's first 32 images), each with the
+    launch counts set to 0 before and read after; the wall time and its
+    split into decode, results JSON, annotation loads and scoring."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from adaptive_tpu_torch.evalcap.coco_eval import coco_eval
+    from adaptive_tpu_torch.models import build_model
+
+    n_batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    loop = n_batches * STEPS
+    greedy = {"adaptive_decode_cell_fused": loop, "greedy_head_argmax": loop,
+              "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0}
+    beam = {"adaptive_decode_cell_fused": 0, "greedy_head_argmax": 0,
+            "adaptive_decode_cell_fused_beam": loop, "beam_head_topk": loop}
+    none = {"bottleneck_identity_int8": 0, "tail_conv1_int8": 0}
+    modes = (("greedy", {}, {**greedy, **none}), (f"beam{BEAM}", {"beam_size": BEAM}, {**beam, **none}),
+             ("int8_a", {"encoder_quant": "int8"}, {**greedy, **none}))
+    tok, stem = text_backends()
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        ann, images, split, vocab = eval_split(root, EVAL_IMAGES, SEED + 100)
+        log(f"[eval split] {EVAL_IMAGES} images at 256 px ({images.nbytes / 2**20:.1f} MiB in "
+            f"host memory), {EVAL_REFS} captions an image, vocabulary {len(vocab)}: made in "
+            f"{time.perf_counter() - t0:.2f} s")
+        jpeg_decode(images[:EVAL_BATCH])
+        for epoch, (tag, kw, expect) in enumerate(modes, 1):
+            ecf = cf.replace(val_anno_path=ann, eval_batch_size=EVAL_BATCH, exp_dir=root, **kw)
+            model = build_model(ecf)
+            per_image = {}
+            torch.cuda.synchronize()
+            with timed_spans(eval_spans()) as t:
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                cider = coco_eval(ecf, model, net, epoch=epoch, vocab=vocab, per_image_out=per_image,
+                                  dataset=split)
+                wall = time.perf_counter() - t0
+                launches = launch_counts()
+            for name, n in expect.items():
+                if launches[name] != n:
+                    raise AssertionError(f"eval {tag}: {name} launched {launches[name]} times, "
+                                         f"expected {n}")
+            results = read_results(os.path.join(root, "val_results", f"validation-{epoch}.json"),
+                                   EVAL_IMAGES)
+            if len(per_image) != EVAL_IMAGES or not np.isfinite(cider):
+                raise AssertionError(f"eval {tag}: {len(per_image)} per-image scores, CIDEr {cider}")
+            distinct = len({r["caption"] for r in results})
+            rest = wall - t["decode"] - t["write"] - t["load"] - t["score"] - t["calibrate"]
+            log(f"[eval driver {tag} bf16] {smi}: {EVAL_IMAGES} images, batch {EVAL_BATCH} "
+                f"({n_batches} batches): coco_eval {wall:.3f} s, {EVAL_IMAGES / wall:.1f} images/s; "
+                f"decode_split {t['decode']:.3f} s ({EVAL_IMAGES / t['decode']:.1f} images/s), "
+                f"calibration {t['calibrate']:.3f} s, results JSON {t['write']:.3f} s, annotation "
+                f"loads {t['load']:.3f} s, COCOEvalCap.evaluate {t['score']:.3f} s (PTB tokenizer "
+                f"{t['ptb']:.3f}, BLEU {t['bleu']:.3f}, METEOR {t['meteor']:.3f}, ROUGE-L "
+                f"{t['rouge']:.3f}, CIDEr {t['cider']:.3f}), the rest {rest:.3f} s; launches "
+                f"{ {k: v for k, v in launches.items() if v} }; {len(results)} results "
+                f"({distinct} distinct captions), CIDEr {cider:.6g}; tokenizer {tok}, stemmer {stem}")
+            out[tag] = {"wall_s": wall, "images_per_s": EVAL_IMAGES / wall,
+                        **{f"{k}_s": v for k, v in t.items()}, "launches": launches,
+                        "results": len(results), "cider": cider}
+            del model
+            torch.cuda.empty_cache()
+    return {"card": smi, "images": EVAL_IMAGES, "batch": EVAL_BATCH, "tokenizer": tok,
+            "stemmer": stem, "modes": out}
+
+
+def jpeg_decode(images):
+    """An extra line, where PIL is installed: the host time of decoding the
+    split's images as 256 px JPEGs, one thread (the JPEG split's loader,
+    data/loader.py, runs such decodes on dataloader_num_workers threads)."""
+    import io
+
+    from adaptive_tpu_torch.data.loader import _load_image_uint8
+
+    try:
+        from PIL import Image
+    except ImportError:
+        log("[eval jpeg] PIL is not installed here: JPEG decode not timed")
+        return
+    blobs = []
+    for img in images:
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG")
+        blobs.append(buf.getvalue())
+    t0 = time.perf_counter()
+    for b in blobs:
+        _load_image_uint8(io.BytesIO(b))
+    s = time.perf_counter() - t0
+    log(f"[eval jpeg] {len(blobs)} images of 256 px, {sum(map(len, blobs)) / len(blobs) / 1024:.1f} "
+        f"KiB each: {s / len(blobs) * 1e3:.3f} ms an image on one thread")
+
+
+def explain_by_gaps(tag, model_c, net_c, cf, batches_g, batches_c, index):
+    """An image whose caption differs card vs CPU: its ids must differ where
+    the CPU's decode was within PARITY_GAP_EPS of another choice (phase 4's
+    top-2 gap rule, greedy; phase 4b's adjacent-candidate rule, beam)."""
+    b, row = divmod(index, len(batches_c[0][0]))
+    imgs = batches_c[b][0]
+    prepared = model_c.prepare_inference(net_c)
+    if cf.beam_size > 1:
+        _, gaps = cpu_beam_gaps(model_c, prepared, imgs, cf, cf.beam_size)
+        gap = float(gaps[row].min())
+    else:
+        ids_g, ids_c = batches_g[b][1].ids[row].cpu(), batches_c[b][1].ids[row]
+        t = int((ids_g != ids_c).nonzero()[0])
+        ref_ids, gaps = cpu_gaps(model_c, prepared, imgs, cf)
+        gap = float(gaps[row, t])
+        if int(ref_ids[row, t]) != int(ids_c[t]):
+            raise AssertionError(f"[eval parity {tag}] the step-by-step CPU decode disagrees")
+    log(f"[eval parity {tag}] image {index + 1}: captions differ; CPU gap {gap:.3e}")
+    if gap >= PARITY_GAP_EPS:
+        raise AssertionError(f"eval parity {tag}: image {index + 1} differs with gap {gap:.3e}")
+
+
+def eval_parity(cf, model_g, net_g, model_c, net_c, smi):
+    """Phase 7b: coco_eval in fp32 (TF32 off) on a 16-image split at batch 12
+    (the second batch short), greedy and beam 3, on the card and on the CPU
+    with the same weights: equal results JSON, CIDEr and per-image scores,
+    or each differing caption explained by the gap rules of phases 4 and 4b.
+    Then valid mode on the card with "auto" over a model.npz of the same
+    weights written with the key codec: equal to the in-memory greedy run."""
+    import tempfile
+
+    import numpy as np
+
+    from adaptive_tpu_torch.decoding import make_beam_decoder, make_greedy_decoder
+    from adaptive_tpu_torch.evalcap.coco_eval import _results_name, coco_eval
+    from adaptive_tpu_torch.models.jax_params import to_jax
+    from adaptive_tpu_torch.training.checkpoint import checkpoint_name, flatten_tree
+
+    n = EVAL_PARITY_IMAGES
+    with tempfile.TemporaryDirectory() as root:
+        ann, _, split, vocab = eval_split(root, n, SEED + 200)
+        base = cf.replace(val_anno_path=ann, eval_batch_size=EVAL_PARITY_BATCH, exp_dir=root)
+        runs = {}
+        for tag, kw in (("greedy", {}), (f"beam {BEAM}", {"beam_size": BEAM})):
+            ecf = base.replace(**kw)
+            got = {}
+            for dev, model, net in (("card", model_g, net_g), ("CPU", model_c, net_c)):
+                make = make_beam_decoder if ecf.beam_size > 1 else make_greedy_decoder
+                decode, batches = make(model, ecf), []
+
+                def recorded(net_, imgs, decode=decode, batches=batches):
+                    res = decode(net_, imgs)
+                    batches.append((imgs, res))
+                    return res
+
+                per_image = {}
+                d = os.path.join(root, tag.replace(" ", ""), dev)
+                c = coco_eval(ecf.replace(exp_dir=d), model, net, epoch=1, vocab=vocab,
+                              decoder=recorded, per_image_out=per_image, dataset=split)
+                res = read_results(os.path.join(d, "val_results", "validation-1.json"), n)
+                got[dev] = (res, c, per_image, batches)
+            (rg, cg, pg, bg), (rc, cc, pc, bc) = got["card"], got["CPU"]
+            same = [i for i in range(n) if rg[i] == rc[i]]
+            for i in sorted(set(range(n)) - set(same)):
+                explain_by_gaps(tag, model_c, net_c, ecf, bg, bc, i)
+            if len(same) == n and cg != cc:
+                raise AssertionError(f"eval parity {tag}: CIDEr {cg} on the card, {cc} on the CPU")
+            for i in same:
+                if pg[rg[i]["image_id"]] != pc[rc[i]["image_id"]]:
+                    raise AssertionError(f"eval parity {tag}: image {i + 1}'s scores differ")
+            log(f"[eval parity fp32 {tag}, TF32 off] {smi}: card vs CPU through coco_eval, {n} "
+                f"images at batch {EVAL_PARITY_BATCH}: {len(same)}/{n} captions identical, their "
+                f"per-image scores equal; CIDEr {cg!r} vs {cc!r}; first: {rg[0]['caption'][:60]!r}")
+            runs[tag] = {"identical": len(same), "cider_card": cg, "cider_cpu": cc}
+            if tag == "greedy":
+                in_memory = (rg, cg, pg)
+
+        exp = os.path.join(root, "valid")
+        ckpt = os.path.join(exp, "trained_models", checkpoint_name(0.5, 1))
+        os.makedirs(ckpt)
+        params, state = to_jax(net_g.state_dict(), model_g.arch)
+        np.savez(os.path.join(ckpt, "model.npz"), **flatten_tree({"params": params, "state": state}))
+        per_image = {}
+        reset_launch_counts()
+        c = coco_eval(base.replace(valid_pretrained_model="auto", exp_dir=exp), valid_mode=True,
+                      vocab=vocab, per_image_out=per_image, dataset=split)
+        launches = launch_counts()
+        loop = -(-n // EVAL_PARITY_BATCH) * STEPS
+        if (launches["adaptive_decode_cell_fused"], launches["greedy_head_argmax"]) != (loop, loop):
+            raise AssertionError(f"eval valid mode: launches {launches}")
+        res = read_results(os.path.join(exp, "val_results", _results_name(ckpt)), n)
+        if (res, c, per_image) != in_memory:
+            raise AssertionError("eval valid mode: the restored model.npz scores otherwise than "
+                                 "the in-memory weights")
+        log(f"[eval valid fp32] {smi}: valid_pretrained_model='auto' picked {os.path.basename(ckpt)}, "
+            f"a model.npz written with the key codec, restored on the card: results, CIDEr "
+            f"{c!r} and per-image scores equal to the in-memory greedy run; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        runs["valid_auto_equal"] = True
+    return runs
+
+
 def main() -> int:
     import argparse
 
@@ -1206,8 +1515,6 @@ def main() -> int:
     int8_launches, e2e_int8 = int8_end_to_end(net, cf, images_u8, smi, args.profile)
     launches["bottleneck_identity_int8"] = int8_launches["b"]["bottleneck_identity_int8"]
     launches["tail_conv1_int8"] = int8_launches["c"]["tail_conv1_int8"]
-    del net
-    torch.cuda.empty_cache()
 
     # phases 4 and 4b: fp32 greedy ids and beams on the card equal the CPU's
     fp32 = fp32_models(images_u8)
@@ -1216,6 +1523,21 @@ def main() -> int:
 
     # phase 6: int8 in fp32, card vs CPU, modes (a) and (c)
     int8_parity(fp32[0], fp32[2], fp32[4])
+
+    # phase 7a: the eval driver over a 5,000-image split, bf16, on phase 3's
+    # weights
+    del images_u8
+    t0 = time.perf_counter()
+    eval_line = eval_driver(net, cf, smi)
+    del net
+    torch.cuda.empty_cache()
+
+    # phase 7b: the eval driver in fp32, card vs CPU, and valid mode from a
+    # model.npz
+    t1 = time.perf_counter()
+    eval_line["parity_fp32"] = eval_parity(*fp32, smi)
+    eval_line["phase_s"] = {"7a": t1 - t0, "7b": time.perf_counter() - t1}
+    log(f"[eval phases] 7a {eval_line['phase_s']['7a']:.1f} s, 7b {eval_line['phase_s']['7b']:.1f} s")
 
     csrc = "adaptive_tpu_torch/ops/cuda/csrc/"
     sources = {
@@ -1258,6 +1580,7 @@ def main() -> int:
                     f"end_to_end_beam{BEAM}_bf16": e2e_beam,
                     **{f"end_to_end_int8_{t}_bf16": v for t, v in e2e_int8.items()},
                     "card": smi}))
+    log(json.dumps({"eval_driver": eval_line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -172,13 +172,19 @@ def test_prepare_cached_serves_a_replaced_parameter_until_clear(setup):
 
 def test_port_imports_no_jax():
     """A fresh process imports the port and decodes on the CPU, greedy and
-    beam, without loading jax or any module of the JAX package."""
+    beam, then scores a 2-image synthetic split through the eval driver,
+    without loading jax or any module of the JAX package."""
     code = textwrap.dedent("""
         import sys
+        import tempfile
         import numpy as np
         from adaptive_tpu_torch import Config
         from adaptive_tpu_torch.models import build_model
         from adaptive_tpu_torch.decoding import make_beam_decoder, make_greedy_decoder
+        from adaptive_tpu_torch.data import loader, synthetic
+        from adaptive_tpu_torch.data.vocab import Vocabulary
+        from adaptive_tpu_torch.evalcap.coco_eval import coco_eval
+        from adaptive_tpu_torch.training import checkpoint
         cf = Config(encoder_backbone="resnet18", train_crop_size=64, vocab_length=32,
                     adaptive_word_embed_size=8, adaptive_lstm_hidden_size=16,
                     decode_max_len=3, beam_size=2)
@@ -189,6 +195,15 @@ def test_port_imports_no_jax():
         assert tuple(out.ids.shape) == (2, 3)
         beams = make_beam_decoder(model, cf)(net, imgs)
         assert tuple(beams.all_ids.shape) == (2, 2, 3)
+        with tempfile.TemporaryDirectory() as root:
+            ann, resized = synthetic.make_synthetic_dataset(root, num_images=2, image_size=64)
+            vocab = Vocabulary(["<pad>", "<start>", "<end>", "<unk>"]
+                               + [f"w{i}" for i in range(28)])
+            ecf = cf.replace(resized_image_dir=resized, val_anno_path=ann, exp_dir=root,
+                             eval_batch_size=2, dataloader_num_workers=1)
+            assert len(loader.EvalImageDataset(resized, ann)) == 2
+            assert np.isfinite(coco_eval(ecf, model, net, vocab=vocab))
+        assert checkpoint.find_best_checkpoint(root) is None
         bad = [m for m in sys.modules
                if m in ("jax", "adaptive_tpu") or m.startswith(("jax.", "adaptive_tpu."))]
         print("BAD", bad)
