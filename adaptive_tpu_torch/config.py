@@ -1,6 +1,6 @@
 """Configuration for the PyTorch port: the knobs the greedy and beam
-captioning paths and the eval driver read, with the same names and
-defaults as the JAX package's ``Config`` (adaptive_tpu/config/config.py).
+captioning paths, the eval driver and training read, with the same names
+and defaults as the JAX package's ``Config`` (adaptive_tpu/config/config.py).
 
 The port keeps its own copy instead of importing the JAX package's module,
 so the two packages can be installed and run apart. Only the fields that the
@@ -13,6 +13,9 @@ import dataclasses
 from dataclasses import dataclass
 
 VARIANTS = ("baseline_attention", "adaptive_attention", "rnn_attention")
+OPTIMIZERS = ("adam", "sgd", "lbfgs")
+LBFGS_NOT_PORTED = ("the lbfgs optimizer is not ported yet: ROADMAP.md, queue 1 "
+                    "(training/lbfgs.py)")
 
 
 @dataclass
@@ -23,7 +26,61 @@ class Config:
     val_anno_path: str = "data/annotations/karpathy_split_val.json"
     test_anno_path: str = "data/annotations/karpathy_split_test.json"
     train_eval_anno_path: str = "data/annotations/karpathy_split_train_eval.json"
-    train_random_seed: int = 123  # cfg_wzn.py:21; seeds model.init in valid/test mode
+    train_anno_path: str = "data/annotations/karpathy_split_train.json"
+    # train knobs (cfg_wzn.py:19-34)
+    train_log_step: int = 10
+    train_random_seed: int = 123  # cfg_wzn.py:21; seeds model.init and the train draws
+    train_pretrained: bool = False
+    train_pretrained_model: str = ""  # a checkpoint dir to start from
+    train_num_epochs: int = 30
+    train_batch_size: int = 24
+    train_early_stop: bool = True
+    train_early_stop_patience: int = 6
+    train_evalOrnot: bool = False  # per-epoch CIDEr on train_eval and val
+    train_tb_interval_batches: int = 1180  # weight histograms + batch loss cadence
+    train_tb_lstm_clip_grad: bool = True  # also log the LSTM grad norm then
+    train_lstm_maxnormal: float = 5.0  # clip_grad_norm_ over the decoder LSTM
+    # inverted dropout at the reference's (rate-0) Dropout sites; 0 = off
+    train_dropout_rate: float = 0.0
+    # optimization (cfg_wzn.py:37-75): ResNet children [start_layer:] are
+    # fine-tuned from epoch start_epoch + 1
+    opt_fine_tune_cnn_start_layer: int = 5
+    opt_fine_tune_cnn_start_epoch: int = 20
+    opt_lrdecay_patience: int = 3
+    opt_lrdecay_factor: float = 0.5
+    opt_rnn_optimization: str = "adam"  # adam|sgd (lbfgs: not ported)
+    opt_rnn_adam_alpha: float = 0.8  # beta1
+    opt_rnn_adam_beta: float = 0.999  # beta2
+    opt_rnn_adam_learning_rate: float = 1e-3
+    opt_rnn_adam_weight_decay: float = 0.0
+    opt_rnn_sgd_learning_rate: float = 5e-2
+    opt_rnn_sgd_momentum: float = 0.3
+    opt_rnn_sgd_weight_decay: float = 0.0
+    opt_rnn_lbfgs_lr: float = 0.5
+    opt_rnn_lbfgs_max_iter: int = 20
+    opt_rnn_lbfgs_history: int = 50
+    opt_cnn_optimization: str = "adam"
+    opt_cnn_adam_alpha: float = 0.8
+    opt_cnn_adam_beta: float = 0.999
+    opt_cnn_adam_learning_rate: float = 1e-5
+    opt_cnn_adam_weight_decay: float = 0.0
+    opt_cnn_sgd_learning_rate: float = 4e-5
+    opt_cnn_sgd_momentum: float = 0.99
+    opt_cnn_sgd_weight_decay: float = 0.0
+    opt_cnn_lbfgs_lr: float = 0.01
+    opt_cnn_lbfgs_max_iter: int = 20
+    opt_cnn_lbfgs_history: int = 50
+    # recompute the encoder's trunk in the backward instead of keeping its
+    # activations (torch.utils.checkpoint)
+    remat_encoder: bool = False
+    # a mid-epoch 'cider-0.0000_model-E_step-K' checkpoint every N steps
+    # (0 = per-epoch only); auto-resume restarts at step K of epoch E
+    train_checkpoint_every_steps: int = 0
+    # microbatches a batch's gradient is summed over (the exact full-batch
+    # gradient); 1 = off
+    train_grad_accum_steps: int = 1
+    # ImageNet weights converted from torch (not ported: ROADMAP.md, queue 1)
+    encoder_pretrained_npz: str = ""
     # eval knobs (cfg_wzn.py:78-86)
     test_pretrained_model: str = ""  # a checkpoint dir, its model.npz, or "auto"
     valid_pretrained_model: str = ""
@@ -75,6 +132,29 @@ class Config:
     decode_beam_major: bool = True
 
     def __post_init__(self):
+        for knob in ("opt_rnn_optimization", "opt_cnn_optimization"):
+            v = getattr(self, knob)
+            if v not in OPTIMIZERS:
+                raise ValueError(f"{knob}={v!r} — must be adam|sgd|lbfgs")
+        if not 0.0 <= self.train_dropout_rate < 1.0:
+            raise ValueError(
+                f"train_dropout_rate={self.train_dropout_rate} — must be in [0, 1) "
+                "(0 disables dropout, matching the reference's hardcoded Dropout(0))"
+            )
+        if self.train_grad_accum_steps < 1:
+            raise ValueError(
+                f"train_grad_accum_steps={self.train_grad_accum_steps} — must be >= 1")
+        if self.train_batch_size % self.train_grad_accum_steps != 0:
+            raise ValueError(
+                f"train_grad_accum_steps={self.train_grad_accum_steps} must divide "
+                f"train_batch_size={self.train_batch_size}"
+            )
+        lbfgs = "lbfgs" in (self.opt_rnn_optimization, self.opt_cnn_optimization)
+        if self.train_grad_accum_steps > 1 and lbfgs:
+            raise NotImplementedError(
+                "train_grad_accum_steps > 1 is not supported with lbfgs optimizer groups")
+        if lbfgs:
+            raise NotImplementedError(LBFGS_NOT_PORTED)
         if self.encoder_quant not in ("none", "int8"):
             raise ValueError(f"encoder_quant={self.encoder_quant!r} — must be none|int8")
         if self.encoder_quant_granularity not in ("channel", "tensor"):

@@ -10,6 +10,8 @@ the JAX layout (``decoder_params``): linear kernels [in, out], LSTM weights
 The sentinel's h_{t-1} is ZERO at every decode step unless
 sampler_sentinel_uses_prev_hidden is set: the reference's sampler calls the
 decoder one token at a time, and its zero-prefixed shift always yields zero.
+Teacher forcing (``decoder_forward``, the train path) shifts the hiddens with
+a zero prefix, as the reference does (adaptive_attention.py:116-122).
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import torch.nn as nn
 from adaptive_tpu_torch.ops import attention as att
 from adaptive_tpu_torch.ops import fused_step as fs
 from adaptive_tpu_torch.ops import inits
-from adaptive_tpu_torch.ops.lstm import lstm_cell
+from adaptive_tpu_torch.ops.dropout import Drop, maybe_drop as _d
+from adaptive_tpu_torch.ops.lstm import lstm_cell, lstm_scan
 
 NOT_PORTED = "{} is not ported yet: ROADMAP.md, queue 1 (non-adaptive decoder variants)"
 
@@ -95,21 +98,24 @@ class Decoder(nn.Module):
         self.adaptive.mlp.bias.zero_()
 
 
-def decoder_params(dec: Decoder) -> Dict:
-    """The decoder's parameters in the JAX layout, as the decode functions
-    take them (kernels transposed to [in, out], contiguous)."""
-    t = lambda w: w.detach().T.contiguous()  # noqa: E731
+def decoder_params(dec: Decoder, detach: bool = True) -> Dict:
+    """The decoder's parameters in the JAX layout (kernels [in, out]): as
+    the decode functions take them, contiguous copies outside autograd; or
+    with detach=False, as decoder_forward's train path takes them, views
+    that carry gradients to the weights."""
+    v = (lambda w: w.detach()) if detach else (lambda w: w)  # noqa: E731
+    t = (lambda w: w.detach().T.contiguous()) if detach else (lambda w: w.T)  # noqa: E731
     a = dec.adaptive
     return {
-        "embed": dec.embed.weight.detach(),
+        "embed": v(dec.embed.weight),
         "lstm": {"w_ih": t(dec.LSTM.weight_ih_l0), "w_hh": t(dec.LSTM.weight_hh_l0),
-                 "b_ih": dec.LSTM.bias_ih_l0.detach(), "b_hh": dec.LSTM.bias_hh_l0.detach()},
+                 "b_ih": v(dec.LSTM.bias_ih_l0), "b_hh": v(dec.LSTM.bias_hh_l0)},
         "adaptive": {
             "atten": {n: {"kernel": t(getattr(a.atten, n).weight)}
                       for n in ("affine_v", "affine_g", "affine_s", "affine_h")},
             "sentinel": {n: {"kernel": t(getattr(a.sentinel, n).weight)}
                          for n in ("affine_x", "affine_h")},
-            "mlp": {"kernel": t(a.mlp.weight), "bias": a.mlp.bias.detach()},
+            "mlp": {"kernel": t(a.mlp.weight), "bias": v(a.mlp.bias)},
         },
     }
 
@@ -122,6 +128,41 @@ def mask_padded_vocab(spec: DecoderSpec, scores: torch.Tensor) -> torch.Tensor:
     col = torch.arange(scores.shape[-1], device=scores.device)
     low = torch.finfo(scores.dtype).min
     return torch.where(col < spec.vocab_size, scores, torch.full_like(scores, low))
+
+
+def adaptive_block_apply(
+    block: Dict, spec: DecoderSpec, x: torch.Tensor, hiddens: torch.Tensor,
+    cells: torch.Tensor, V: torch.Tensor, h_prev: Optional[torch.Tensor] = None,
+    pv: Optional[torch.Tensor] = None, drop: Drop = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(scores [B,T,vocab], alpha [B,T,K], beta [B,T,1]) of the adaptive
+    block over all T steps. h_prev: the sentinel's previous hiddens [B,T,H];
+    None is the reference's zero-prefixed shift of hiddens. drop: train-time
+    dropout at every affine input, the vocab mlp's too
+    (adaptive_attention.py:132)."""
+    if spec.variant != "adaptive_attention":
+        raise NotImplementedError(NOT_PORTED.format(spec.variant))
+    if h_prev is None:
+        h_prev = torch.cat([torch.zeros_like(hiddens[:, :1]), hiddens[:, :-1]], dim=1)
+    s = att.sentinel_gate(block["sentinel"], x, h_prev, cells, drop)
+    c_hat, alpha, beta = att.adaptive_attention(block["atten"], V, hiddens, s, pv, drop)
+    scores = inits.linear(block["mlp"], _d(drop, c_hat + hiddens))
+    return scores, alpha, beta
+
+
+def decoder_forward(
+    params: Dict, spec: DecoderSpec, V: torch.Tensor, v_g: torch.Tensor,
+    captions: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor, drop: Drop = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Teacher-forced scores for every step (Decoder.forward,
+    baseline_attention.py:148-194): captions [B,T] int -> (scores
+    [B,T,vocab], alpha, beta)."""
+    emb = params["embed"][captions]  # [B,T,E]
+    x = torch.cat([emb, v_g[:, None, :].expand_as(emb)], dim=-1)
+    hiddens, cells, _ = lstm_scan(params["lstm"], x, (h0, c0))
+    scores, alpha, beta = adaptive_block_apply(
+        params["adaptive"], spec, x, hiddens, cells, V, drop=drop)
+    return mask_padded_vocab(spec, scores), alpha, beta
 
 
 class DecodeState(NamedTuple):

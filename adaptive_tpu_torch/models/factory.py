@@ -1,22 +1,27 @@
 """Model factory: config -> CaptionModel (counterpart of
 adaptive_tpu/models/factory.py, adaptive_attention only).
 
-``CaptionModel`` is a static description plus the functions the greedy and
-beam paths call. Its weights live in an ``Encoder2Decoder`` module whose state_dict keys
-are the reference checkpoint's; ``prepare_inference`` turns them once per
-checkpoint into the tree the per-batch functions read (BN folded, JAX
-layouts, compute dtype, padded greedy head).
+``CaptionModel`` is a static description plus the functions the train step
+and the greedy and beam paths call. Its weights live in an
+``Encoder2Decoder`` module whose state_dict keys are the reference
+checkpoint's; ``prepare_inference`` turns them once per checkpoint into the
+tree the per-batch decode functions read (BN folded, JAX layouts, compute
+dtype, padded greedy head). ``forward`` is the teacher-forced train path on
+the module's own weights: the trunk in the compute dtype (fp32 BN
+statistics), the heads and the decoder in fp32 as JAX's type promotion has
+them, fp32 master weights and gradients.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn as nn
 
 from adaptive_tpu_torch.config import VARIANTS
 from adaptive_tpu_torch.models import decoders as D
+from adaptive_tpu_torch.models import encoder as E
 from adaptive_tpu_torch.models.encoder import AttentiveCNN
 from adaptive_tpu_torch.models.infer import (
     cast_floating, encoder_apply_inference, prepare_encoder_inference,
@@ -72,6 +77,10 @@ class CaptionModel(NamedTuple):
     # 4x4/s1 conv, bit-exact); "auto" = on for even crops, True/False
     # overrides.
     int8_stem_s2d: Any = "auto"
+    # recompute the trunk in the backward instead of keeping its activations
+    remat_encoder: bool = False
+    # train-time dropout rate at the reference's Dropout sites (ops/dropout.py)
+    dropout_rate: float = 0.0
 
     def init(self, seed: int = 0) -> Encoder2Decoder:
         """Random weights on self.device, drawn from torch.Generator(seed)
@@ -83,6 +92,36 @@ class CaptionModel(NamedTuple):
         net.encoder.init_(gen)
         net.decoder.init_(gen)
         return net
+
+    def encode(self, net: Encoder2Decoder, images: torch.Tensor, train: bool = False,
+               drop=None, grad_from: int = 0):
+        """Preprocessed float NHWC images -> (V, v_g, h0, c0) on the net's
+        own weights; train mode updates the BN statistics in place.
+        grad_from: the trunk's frozen prefix (ResNet.forward). With
+        remat_encoder the trunk's activations are recomputed in the backward
+        (torch.utils.checkpoint); the heads, where dropout draws, stay
+        outside the recomputed region, so no draw is replayed."""
+        images = images.to(self.compute_dtype)
+        if not (self.remat_encoder and train and torch.is_grad_enabled()):
+            return E.encoder_apply(net.encoder, images, train, drop, grad_from)
+        A_flat, a_g = _remat_features(net.encoder, images, grad_from)
+        return E.encoder_heads(E.head_params(net.encoder, detach=False), A_flat, a_g, drop)
+
+    def forward(self, net: Encoder2Decoder, images: torch.Tensor, captions: torch.Tensor,
+                train: bool = False, gen: Optional[torch.Generator] = None,
+                grad_from: int = 0):
+        """Teacher-forced (scores [B,T,vocab], (alpha, beta)) (Encoder2Decoder.
+        forward, baseline_attention.py:206-230, without the packing: padded
+        scores and a masked loss replace pack_padded_sequence). gen draws
+        the dropout masks when train and dropout_rate > 0."""
+        from adaptive_tpu_torch.ops.dropout import make_dropout
+
+        drop = make_dropout(gen, self.dropout_rate) if train else None
+        V, v_g, h0, c0 = self.encode(net, images, train, drop, grad_from)
+        scores, alpha, beta = D.decoder_forward(
+            D.decoder_params(net.decoder, detach=False), self.spec, V, v_g,
+            captions.long(), h0, c0, drop=drop)
+        return scores, (alpha, beta)
 
     def _resolved_fusion(self):
         """(fused_layers, fused_tails, stem_s2d) with 'auto' resolved, as
@@ -187,7 +226,53 @@ def build_model(cf, device="cuda") -> CaptionModel:
         device=dev,
         fused=cf.use_pallas != "never",
         encoder_quant=cf.encoder_quant,
+        remat_encoder=cf.remat_encoder,
+        dropout_rate=float(cf.train_dropout_rate),
     )
+
+
+def _remat_features(enc: AttentiveCNN, images: torch.Tensor, grad_from: int):
+    """encoder_features in train mode under torch.utils.checkpoint. The
+    backward's recompute would update the BN running statistics a second
+    time: it restores them as the forward left them."""
+    from torch.utils.checkpoint import checkpoint
+
+    bufs = enc.resnet_conv.bn_buffers()
+    ran = []
+
+    def trunk(x):
+        if not ran:
+            ran.append(True)
+            return E.encoder_features(enc, x, True, grad_from)
+        with torch.no_grad():
+            saved = [b.clone() for b in bufs]
+        try:
+            return E.encoder_features(enc, x, True, grad_from)
+        finally:  # also when the recompute stops early
+            with torch.no_grad():
+                for b, v in zip(bufs, saved):
+                    b.copy_(v)
+
+    return checkpoint(trunk, images, use_reentrant=False)
+
+
+def get_model(cf, seed: Optional[int] = None, device="cuda"):
+    """(model, net, start_epoch): the net drawn from seed (default
+    cf.train_random_seed), then a training checkpoint restored over it, the
+    start epoch parsed from its name (model_factory.py:14-21)."""
+    if cf.encoder_pretrained_npz:
+        raise NotImplementedError(
+            "encoder_pretrained_npz is not ported yet: ROADMAP.md, queue 1, item 5 "
+            "(models/torch_import.py)")
+    model = build_model(cf, device=device)
+    net = model.init(cf.train_random_seed if seed is None else seed)
+    start_epoch = 1
+    if cf.train_pretrained and cf.train_pretrained_model:
+        from adaptive_tpu_torch.training import checkpoint as ckpt
+
+        ckpt.restore_model(cf.train_pretrained_model, net, model.arch)
+        start_epoch = ckpt.epoch_from_filename(cf.train_pretrained_model) + 1
+    return model, net, start_epoch
 
 
 def load_jax_weights(model: CaptionModel, params, state) -> Encoder2Decoder:

@@ -7,6 +7,8 @@ with ``load_state_dict``; ``to_jax`` maps it back. Layout changes, all exact:
 linear kernel [in, out] -> weight [out, in]; conv HWIO -> OIHW; LSTM
 [in, 4H] -> [4H, in] with the same gate order i,f,g,o; BN scale/bias ->
 weight/bias and mean/var -> running_mean/running_var. Numpy and torch only.
+``param_keys`` names each parameter's leaf in the JAX tree and its layout,
+for trees that follow the parameters (the optimiser's moments).
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ def _t(a) -> torch.Tensor:
 
 
 def _n(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """A host copy: never a view of a CPU tensor that may change in place."""
+    return t.detach().to("cpu", copy=True).numpy()
 
 
 def _resnet_entries(arch: str):
@@ -71,6 +74,64 @@ def _set(tree, path, value):
         else:
             tree = tree.setdefault(p, [] if isinstance(nxt, int) else {})
     tree[path[-1]] = value
+
+
+def _key(path) -> str:
+    return "|".join(f"#{p}" if isinstance(p, int) else str(p) for p in path)
+
+
+def param_keys(arch: str) -> Dict[str, Tuple[str, str]]:
+    """{state_dict name of every parameter of an Encoder2Decoder (blocks
+    without a downsample included; callers look names up): (its JAX key
+    under "params", in the checkpoint's ``|`` codec, its layout)}. Layouts:
+    "conv" (OIHW <-> HWIO), "linear" ([out, in] <-> [in, out], LSTM
+    weights too) and "vector" (as is); to_layout and from_layout apply
+    them."""
+    out: Dict[str, Tuple[str, str]] = {}
+    for prefix, ppath, spath in _resnet_entries(arch):
+        key = f"encoder.resnet_conv.{prefix}"
+        jp = ("encoder", "resnet") + ppath
+        if spath is None:
+            out[f"{key}.weight"] = (_key(jp + ("kernel",)), "conv")
+        else:
+            out[f"{key}.weight"] = (_key(jp + ("scale",)), "vector")
+            out[f"{key}.bias"] = (_key(jp + ("bias",)), "vector")
+    for name in _HEADS:
+        out[f"encoder.{name}.weight"] = (f"encoder|{name}|kernel", "linear")
+        out[f"encoder.{name}.bias"] = (f"encoder|{name}|bias", "vector")
+    out["decoder.embed.weight"] = ("decoder|embed", "vector")
+    for jk, tk in (("w_ih", "weight_ih_l0"), ("w_hh", "weight_hh_l0")):
+        out[f"decoder.LSTM.{tk}"] = (f"decoder|lstm|{jk}", "linear")
+    for jk, tk in (("b_ih", "bias_ih_l0"), ("b_hh", "bias_hh_l0")):
+        out[f"decoder.LSTM.{tk}"] = (f"decoder|lstm|{jk}", "vector")
+    for name in _ATTEN:
+        out[f"decoder.adaptive.atten.{name}.weight"] = (
+            f"decoder|adaptive|atten|{name}|kernel", "linear")
+    for name in _SENTINEL:
+        out[f"decoder.adaptive.sentinel.{name}.weight"] = (
+            f"decoder|adaptive|sentinel|{name}|kernel", "linear")
+    out["decoder.adaptive.mlp.weight"] = ("decoder|adaptive|mlp|kernel", "linear")
+    out["decoder.adaptive.mlp.bias"] = ("decoder|adaptive|mlp|bias", "vector")
+    return out
+
+
+def to_layout(t: torch.Tensor, layout: str) -> np.ndarray:
+    """A tensor in torch's layout -> a numpy host copy in JAX's (a view of
+    the copy, transposed)."""
+    a = _n(t)
+    if layout == "conv":
+        return np.transpose(a, (2, 3, 1, 0))
+    return a.T if layout == "linear" else a
+
+
+def from_layout(a, layout: str) -> torch.Tensor:
+    """Inverse of to_layout (a CPU tensor)."""
+    a = np.asarray(a)
+    if layout == "conv":
+        a = np.transpose(a, (3, 2, 0, 1))
+    elif layout == "linear":
+        a = a.T
+    return _t(a)
 
 
 def from_jax(params: Dict, state: Dict, arch: str) -> Dict[str, torch.Tensor]:

@@ -4,10 +4,18 @@
 Parameter names follow the reference's ``resnet_conv`` Sequential of
 torchvision's children (0=conv1, 1=bn1, 4..7=layer1..4; inside a block
 conv{1..3}, bn{1..3}, downsample.{0,1}), so a reference state_dict loads with
-``load_state_dict``. Only the eval-mode forward is ported: BN uses
-the running statistics. Public tensors are NHWC as in the JAX package; inside,
+``load_state_dict``. Public tensors are NHWC as in the JAX package; inside,
 the convolutions run on NCHW views in the channels_last memory format, which
 is what a permuted NHWC tensor already is.
+
+Train and eval mode are an explicit ``train`` argument, as in the JAX
+package (``net.training`` is never read: the train step and the eval decoder
+share one net). Convolutions run in the input's dtype (the fp32 kernels cast
+to it). Train-mode BN is ``F.batch_norm(training=True)``: batch statistics in
+fp32, the output in the input's dtype, the running statistics updated in
+place with momentum 0.1 and the unbiased variance, as the JAX package's
+``_bn`` does; torch's backward has the two-reduction form of JAX's
+``_bn_train`` custom_vjp.
 """
 
 from __future__ import annotations
@@ -27,6 +35,12 @@ RESNET_SPECS = {
     "resnet152": ("bottleneck", (3, 8, 36, 3)),
 }
 
+BN_MOMENTUM = 0.1  # torch BatchNorm2d default
+# torchvision child order of the truncated backbone (model_factory.py:35
+# slices children()[start_layer:])
+CHILD_NAMES = ["conv1", "bn1", "relu", "maxpool", "layer1", "layer2", "layer3", "layer4"]
+
+
 def feature_channels(arch: str) -> int:
     return 2048 if RESNET_SPECS[arch][0] == "bottleneck" else 512
 
@@ -35,9 +49,15 @@ def _conv(cin, cout, k, stride=1):
     return nn.Conv2d(cin, cout, k, stride, (k - 1) // 2, bias=False)
 
 
-def _bn_eval(x, bn: nn.BatchNorm2d):
+def _conv_apply(conv: nn.Conv2d, x):
+    if conv.weight.dtype == x.dtype:
+        return conv(x)  # the module call runs its forward hooks (calibrate_bn_)
+    return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding)
+
+
+def _bn(x, bn: nn.BatchNorm2d, train: bool):
     return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                        False, 0.0, bn.eps)
+                        train, BN_MOMENTUM, bn.eps)
 
 
 class Bottleneck(nn.Module):
@@ -51,12 +71,12 @@ class Bottleneck(nn.Module):
             if has_down else None
         )
 
-    def forward(self, x):
-        y = F.relu(_bn_eval(self.conv1(x), self.bn1))
-        y = F.relu(_bn_eval(self.conv2(y), self.bn2))
-        y = _bn_eval(self.conv3(y), self.bn3)
-        sc = x if self.downsample is None else _bn_eval(
-            self.downsample[0](x), self.downsample[1])
+    def forward(self, x, train: bool = False):
+        y = F.relu(_bn(_conv_apply(self.conv1, x), self.bn1, train))
+        y = F.relu(_bn(_conv_apply(self.conv2, y), self.bn2, train))
+        y = _bn(_conv_apply(self.conv3, y), self.bn3, train)
+        sc = x if self.downsample is None else _bn(
+            _conv_apply(self.downsample[0], x), self.downsample[1], train)
         return F.relu(y + sc)
 
 
@@ -70,11 +90,11 @@ class BasicBlock(nn.Module):
             if has_down else None
         )
 
-    def forward(self, x):
-        y = F.relu(_bn_eval(self.conv1(x), self.bn1))
-        y = _bn_eval(self.conv2(y), self.bn2)
-        sc = x if self.downsample is None else _bn_eval(
-            self.downsample[0](x), self.downsample[1])
+    def forward(self, x, train: bool = False):
+        y = F.relu(_bn(_conv_apply(self.conv1, x), self.bn1, train))
+        y = _bn(_conv_apply(self.conv2, y), self.bn2, train)
+        sc = x if self.downsample is None else _bn(
+            _conv_apply(self.downsample[0], x), self.downsample[1], train)
         return F.relu(y + sc)
 
 
@@ -82,7 +102,7 @@ class ResNet(nn.Sequential):
     """torchvision ResNet minus avgpool/fc, as the reference wraps it:
     nn.Sequential([conv1, bn1, relu, maxpool, layer1..4]), so its state_dict
     keys are the reference's ``encoder.resnet_conv.<i>...`` below the encoder.
-    forward: NHWC float -> NHWC [B, H/32, W/32, C], eval-mode BN."""
+    forward: NHWC float -> NHWC [B, H/32, W/32, C]."""
 
     def __init__(self, arch: str = "resnet152"):
         block_type, stages = RESNET_SPECS[arch]
@@ -108,12 +128,29 @@ class ResNet(nn.Sequential):
         """(layer1, ..., layer4)."""
         return tuple(self[i] for i in range(4, len(self)))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, grad_from: int = 0):
+        """grad_from: children before CHILD_NAMES[grad_from] run without
+        autograd (a frozen prefix keeps no activations and runs no backward;
+        len(CHILD_NAMES) freezes the whole trunk). Their BN statistics still
+        update in train mode."""
         y = x.permute(0, 3, 1, 2)
-        y = self[3](F.relu(_bn_eval(self[0](y), self[1])))
-        for layer in self.layers():
-            y = layer(y)
+        grad = torch.is_grad_enabled()
+        with torch.set_grad_enabled(grad and grad_from <= 0):
+            y = _conv_apply(self[0], y)
+        with torch.set_grad_enabled(grad and grad_from <= 1):
+            y = _bn(y, self[1], train)
+        with torch.set_grad_enabled(grad and grad_from <= 2):  # relu, maxpool: no params
+            y = self[3](F.relu(y))
+        for i, layer in enumerate(self.layers(), start=4):
+            with torch.set_grad_enabled(grad and grad_from <= i):
+                for blk in layer:
+                    y = blk(y, train)
         return y.permute(0, 2, 3, 1)
+
+    def bn_buffers(self):
+        """Every BN's running mean and variance."""
+        return [b for m in self.modules() if isinstance(m, nn.BatchNorm2d)
+                for b in (m.running_mean, m.running_var)]
 
 
 def _conv_bn_pairs(net: ResNet):
@@ -165,6 +202,14 @@ def calibrate_bn_(net: ResNet, x: torch.Tensor, residual_gain: float = 0.2) -> N
             h.remove()
     for bn in _residual_bns(net):
         bn.weight.fill_(residual_gain)
+
+
+def finetune_mask(start_layer: int):
+    """{child name: trainable} over CHILD_NAMES: True for the children
+    [start_layer:] that hold parameters (model_factory.py:27-39); relu and
+    maxpool have none."""
+    return {name: i >= start_layer and name not in ("relu", "maxpool")
+            for i, name in enumerate(CHILD_NAMES)}
 
 
 @torch.no_grad()

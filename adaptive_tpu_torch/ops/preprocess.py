@@ -1,5 +1,11 @@
-"""Eval-time image preprocessing on the device: uint8 NHWC -> resized,
-ImageNet-normalized float NHWC (counterpart of adaptive_tpu/ops/preprocess.py).
+"""Image preprocessing on the device (counterpart of
+adaptive_tpu/ops/preprocess.py): uint8 NHWC -> ImageNet-normalized float
+NHWC; at train time a random crop and horizontal flip first, at eval time a
+resize.
+
+The random draws are split from the crop: ``draw_crop_flip`` draws (tops,
+lefts, flips) from an explicit ``torch.Generator``, ``crop_flip`` applies
+them, so any draws (the JAX package's, in the tests) can be fed to it.
 
 The JAX package resizes with ``jax.image.resize(..., "bilinear")``, which
 antialiases on downscale; ``F.interpolate(mode="bilinear",
@@ -19,10 +25,51 @@ def normalize(images: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """uint8/float NHWC -> normalized float NHWC, math in fp32."""
     x = images.to(torch.float32)
     if images.dtype == torch.uint8:
-        x = x / 255.0
+        x = x / torch.full((), 255.0, device=x.device)  # a true division (eval_preprocess)
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
     return ((x - mean) / std).to(dtype)
+
+
+def draw_crop_flip(gen: torch.Generator, batch: int, height: int, width: int,
+                   crop: int):
+    """(tops [B], lefts [B], flips [B] bool) on gen's device: a uniform
+    corner of a crop x crop window and a fair coin for each image."""
+    dev = gen.device
+    tops = torch.randint(0, height - crop + 1, (batch,), generator=gen, device=dev)
+    lefts = torch.randint(0, width - crop + 1, (batch,), generator=gen, device=dev)
+    flips = torch.rand((batch,), generator=gen, device=dev) < 0.5
+    return tops, lefts, flips
+
+
+def crop_flip(images: torch.Tensor, tops, lefts, flips, crop: int) -> torch.Tensor:
+    """Image b's crop x crop window at (tops[b], lefts[b]), mirrored
+    left-right where flips[b]; NHWC of any dtype, one gather."""
+    dev = images.device
+    tops, lefts, flips = (torch.as_tensor(a, device=dev) for a in (tops, lefts, flips))
+    r = torch.arange(crop, device=dev)
+    rows = tops[:, None] + r
+    cols = lefts[:, None] + torch.where(flips[:, None], crop - 1 - r, r)
+    b = torch.arange(images.shape[0], device=dev)[:, None, None]
+    return images[b, rows[:, :, None], cols[:, None, :]]
+
+
+def random_crop_flip(gen: torch.Generator, images: torch.Tensor, crop: int) -> torch.Tensor:
+    """RandomCrop(crop) + RandomHorizontalFlip (train.py:30-31), per image."""
+    B, H, W, _ = images.shape
+    return crop_flip(images, *draw_crop_flip(gen, B, H, W, crop), crop)
+
+
+def center_crop(images: torch.Tensor, crop: int) -> torch.Tensor:
+    _, H, W, _ = images.shape
+    top, left = (H - crop) // 2, (W - crop) // 2
+    return images[:, top:top + crop, left:left + crop, :]
+
+
+def train_preprocess(gen: torch.Generator, images_u8: torch.Tensor, crop: int,
+                     dtype=torch.float32) -> torch.Tensor:
+    """uint8 NHWC (resized 256) -> augmented normalized float NHWC (crop)."""
+    return normalize(random_crop_flip(gen, images_u8, crop), dtype)
 
 
 def _resize(x: torch.Tensor, size: int) -> torch.Tensor:

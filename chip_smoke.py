@@ -74,10 +74,26 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    gap rules of phases 4 and 4b; then valid mode on the card from a
    model.npz of the same weights ("auto"), equal to the in-memory run.
 
-Phases run in the order 1, 2, 2b, 3, 3b, 2c, 5, 4, 4b, 6, 7, 7b.
+8. trains (training/): 8a make_train_step at full width in bf16, batch
+   256, captions in bucket 24, with the encoder off and on (fine-tuning
+   layers 2-4): images/s (mean of 10 steps after 2), forward, backward and
+   optimizer ms of an instrumented step (CUDA events), peak allocated
+   memory, the step's convolution and matmul TFLOP (FlopCounterMode) and
+   their share of the bf16 peak, finite losses (--profile: a table each);
+   8b main_train end to end in bf16 on a 1,024-image split in memory, 2
+   epochs (encoder on in the second), a step checkpoint every 2 steps, the
+   per-epoch eval on 400-image train_eval and val splits in memory:
+   launches of kernels 1 and 2 (2 epochs x 2 evals x 30 steps), the epoch
+   checkpoints (the step ones pruned), valid mode "auto" restoring the best
+   one and writing its epoch's captions; 8c one fp32 step (TF32 off), encoder
+   off and on, card vs CPU from phase 4's weights at batch 4: loss, LSTM
+   grad norm, BN statistics and weights within their bounds.
+
+Phases run in the order 1, 2, 2b, 3, 3b, 2c, 5, 4, 4b, 6, 7, 7b, 8a, 8b, 8c.
 
 Prints one JSON line of per-kernel numbers, one of the eval driver's
-numbers ({"eval_driver": ...}), then as its last line
+numbers ({"eval_driver": ...}), one of training's ({"train": ...}), then as
+its last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Exits 2 without a result where
 there is no CUDA card or the package is not beside this script.
@@ -141,6 +157,26 @@ QUANTUM_SHARE = 2e-3
 # (cfg_wzn.py:84); phase 7b: a small fp32 split whose last batch is short
 EVAL_IMAGES, EVAL_REFS, EVAL_BATCH, EVAL_CHUNK = 5000, 5, 400, 500
 EVAL_PARITY_IMAGES, EVAL_PARITY_BATCH = 16, 12
+# phase 8: training at the flagship config's batch (configs/coco_adaptive.py:33)
+# with captions in bucket 24; main_train on 1,024 images (4 steps an epoch)
+# with the eval on 400-image splits (one eval batch each)
+TRAIN_B, TRAIN_T, TRAIN_WARMUP, TRAIN_STEPS = 256, 24, 2, 10
+TRAIN_IMAGES, TRAIN_EVAL_IMAGES, TRAIN_EPOCHS, TRAIN_PARITY_B = 1024, 400, 2, 4
+# phase 8c, card vs CPU in fp32 after one step: loss and LSTM grad norm
+# (relative); BN running statistics (relative to max(1, |value|): calibrated
+# running variances reach the hundreds); gradients (atol + rtol, the bound
+# of tests/test_torch_train_step.py); weights (absolute), except that Adam's
+# first update lr * g / (|g| + eps) takes the sign of a gradient that is 0
+# within the gradient bound: there up to 2 lr. The gradient bound scales
+# with the tensor's largest gradient: a weight gradient sums B*T or B*H*W
+# products, so its rounding follows the tensor's scale, not each element's.
+# Weights: two fp32 ulps of a value below 8 (the N(0, 1) embedding's reach)
+TRAIN_RTOL, TRAIN_BN_TOL, TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL, TRAIN_PARAM_ATOL = (
+    1e-4, 1e-5, 1e-5, 1e-4, 2e-6)
+# the encoder group's gradients with the encoder on, relative to their norm:
+# ten times the CPU's own spread between thread counts (1.03% measured at
+# these weights on the build host; train_parity prints the card machine's)
+TRAIN_ENC_GRAD_REL = 0.1
 
 
 def log(msg):
@@ -978,7 +1014,8 @@ def profile_decode(run, out_dir, smi, tag):
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]  # e.g. Optimizer.step ranges
     busy, end = 0.0, float("-inf")
     for s, e in sorted((k.time_range.start, k.time_range.end) for k in kernels):
         if e > end:
@@ -1450,6 +1487,364 @@ def eval_parity(cf, model_g, net_g, model_c, net_c, smi):
     return runs
 
 
+# ----------------------------------------------------------------- phase 8
+def train_batch(n, seed, device):
+    """n seeded 256 px images with captions in bucket 24 (lengths 17..24:
+    <start>, random words, <end>, padding), on device."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(TRAIN_T - 7, TRAIN_T + 1, n)
+    caps = rng.integers(4, VOCAB, (n, TRAIN_T))
+    caps[:, 0] = 1
+    caps[np.arange(n), lengths - 1] = 2
+    caps[np.arange(TRAIN_T)[None, :] >= lengths[:, None]] = 0
+    return {"images": torch.as_tensor(seeded_images(n, seed + 1), device=device),
+            "captions": torch.as_tensor(caps.astype(np.int32), device=device),
+            "lengths": torch.as_tensor(lengths.astype(np.int32), device=device)}
+
+
+@contextlib.contextmanager
+def step_marks():
+    """CUDA events at the train step's seams: before the augmentation
+    (forward starts), after the masked loss (forward ends, backward
+    starts), before the LSTM clip (backward and the gradients' division
+    end) and after each group's update. Yields the list of (label, event)
+    the calls record; restores the functions on exit."""
+    import torch
+
+    from adaptive_tpu_torch.ops import preprocess
+    from adaptive_tpu_torch.training import optim, step
+
+    marks = []
+
+    def mark(label):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((label, ev))
+
+    def around(owner, attr, before=None, after=None):
+        fn = getattr(owner, attr)
+
+        @functools.wraps(fn)
+        def wrapped(*a, **kw):
+            if before:
+                mark(before)
+            out = fn(*a, **kw)
+            if after:
+                mark(after)
+            return out
+        return owner, attr, fn, wrapped
+
+    patches = [around(preprocess, "train_preprocess", before="start"),
+               around(step, "masked_ce_sum", after="forward"),
+               around(step, "clip_lstm_grads", before="backward"),
+               around(optim.DualOptimizer, "step", after="optimizer")]
+    for owner, attr, _, wrapped in patches:
+        setattr(owner, attr, wrapped)
+    try:
+        yield marks
+    finally:
+        for owner, attr, fn, _ in patches:
+            setattr(owner, attr, fn)
+
+
+def train_throughput(smi, profile_dir=None):
+    """Phase 8a: make_train_step at full width in bf16, batch 256, encoder
+    off and on (fine-tuning layers 2-4): TRAIN_WARMUP steps, then
+    TRAIN_STEPS timed (host clock around synchronised steps), the peak of
+    allocated memory over them, one instrumented step split into forward,
+    backward and optimizer by CUDA events, and one step under
+    torch.utils.flop_counter.FlopCounterMode (the operations of every
+    convolution and matmul, forward and backward, from their shapes)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from adaptive_tpu_torch import Config
+    from adaptive_tpu_torch.models import build_model
+    from adaptive_tpu_torch.training.optim import make_dual_optimizer
+    from adaptive_tpu_torch.training.step import make_train_step
+
+    cf = Config(compute_dtype="bfloat16", vocab_pad_multiple=128, train_batch_size=TRAIN_B)
+    model = build_model(cf)
+    net = model.init(SEED)
+    dual = make_dual_optimizer(net, cf)
+    step = make_train_step(model, dual, cf)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = train_batch(TRAIN_B, SEED + 300, "cuda")
+    out = {}
+    for tag, on in (("encoder_off", False), ("encoder_on", True)):
+        for _ in range(TRAIN_WARMUP):
+            step(net, batch, gen, on)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [step(net, batch, gen, on).loss for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        losses = torch.stack(losses).float().cpu()
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f"train {tag}: losses {losses.tolist()}")
+        with step_marks() as marks:
+            step(net, batch, gen, on)
+        torch.cuda.synchronize()
+        ev = dict(marks[:3])
+        split = {"forward": ev["start"].elapsed_time(ev["forward"]),
+                 "backward": ev["forward"].elapsed_time(ev["backward"]),
+                 "optimizer": ev["backward"].elapsed_time(marks[-1][1])}
+        with FlopCounterMode(display=False) as fc:
+            step(net, batch, gen, on)
+        flops = fc.get_total_flops()
+        share = flops / (ms * 1e-3) / PEAK_FLOPS["bfloat16"]
+        log(f"[train step {tag} bf16] {smi}: batch {TRAIN_B}, captions {TRAIN_T}, mean of "
+            f"{TRAIN_STEPS} steps after {TRAIN_WARMUP}: {ms:.3f} ms a step, "
+            f"{TRAIN_B / ms * 1e3:.1f} images/s; one instrumented step: forward "
+            f"{split['forward']:.3f} ms, backward {split['backward']:.3f} ms, optimizer "
+            f"{split['optimizer']:.3f} ms; peak allocated {peak / 2**30:.2f} GiB; "
+            f"{flops / 1e12:.3f} TFLOP a step (convolutions and matmuls), "
+            f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {share:.4f} of the bf16 peak; losses "
+            f"{[round(v, 4) for v in losses.tolist()]}")
+        if profile_dir:
+            profile_decode(lambda: step(net, batch, gen, on), profile_dir, smi, f"train_{tag}")
+        out[tag] = {"ms": ms, "images_per_s": TRAIN_B / ms * 1e3, **{f"{k}_ms": v for k, v in
+                    split.items()}, "peak_bytes": peak, "tflop": flops / 1e12,
+                    "bf16_peak_share": share, "losses": losses.tolist()}
+    del net, dual, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_split(root, vocab):
+    """Phase 8b's train split: TRAIN_IMAGES seeded 256 px images held in
+    memory, one synthetic caption each, served through CocoCaptionDataset's
+    interface (TrainBatches reads its ids, coco.anns and vocab)."""
+    from adaptive_tpu_torch.data.loader import CocoCaptionDataset
+    from adaptive_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    ann, _ = make_synthetic_dataset(os.path.join(root, "train"), num_images=TRAIN_IMAGES,
+                                    seed=SEED + 400, write_images=False)
+    images = seeded_images(TRAIN_IMAGES, SEED + 401)
+
+    class Memory(CocoCaptionDataset):
+        def __getitem__(self, index):
+            a = self.coco.anns[self.ids[index]]
+            return images[a["image_id"] - 1], self.vocab.encode_caption(a["caption"]), a["image_id"]
+
+    return ann, Memory(root, ann, vocab)
+
+
+def train_loop(smi):
+    """Phase 8b: main_train at full width in bf16 on a 1,024-image train
+    split in memory (batch 256, 4 steps an epoch), 2 epochs, fine-tuning
+    from epoch 2, a step checkpoint every 2 steps, the per-epoch eval
+    (greedy, one shared decoder) on 400-image train_eval and val splits in
+    memory. Checks the launches (2 epochs x 2 coco_eval x 1 batch x 30
+    steps of kernels 1 and 2, none of 3-6), the two epoch checkpoints, no
+    step checkpoint left, and that valid mode "auto" restores the best one
+    and writes the captions its epoch's val eval wrote."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from adaptive_tpu_torch import Config
+    from adaptive_tpu_torch.evalcap import coco_eval as ce
+    from adaptive_tpu_torch.evalcap.coco_eval import _results_name
+    from adaptive_tpu_torch.training import checkpoint as ckpt
+    from adaptive_tpu_torch.training.train_loop import main_train
+
+    with tempfile.TemporaryDirectory() as root:
+        val_ann, _, val_split, vocab = eval_split(os.path.join(root, "val"), TRAIN_EVAL_IMAGES,
+                                                  SEED + 500)
+        te_ann, _, te_split, _ = eval_split(os.path.join(root, "train_eval"),
+                                            TRAIN_EVAL_IMAGES, SEED + 600)
+        vocab_path = os.path.join(root, "vocab.json")
+        vocab.save(vocab_path)
+        ann, train_ds = train_split(root, vocab)
+        cf = Config(compute_dtype="bfloat16", vocab_pad_multiple=128, vocab_path=vocab_path,
+                    train_anno_path=ann, val_anno_path=val_ann, train_eval_anno_path=te_ann,
+                    exp_dir=root, train_batch_size=TRAIN_B, train_num_epochs=TRAIN_EPOCHS,
+                    opt_fine_tune_cnn_start_epoch=1, train_evalOrnot=True,
+                    train_checkpoint_every_steps=2, eval_batch_size=EVAL_BATCH)
+        spans = [(ce, "coco_eval", "eval"), (ckpt, "_model_flat", "copy_model"),
+                 (ckpt, "_opt_flat", "copy_opt"), (ckpt.AsyncCheckpointer, "wait", "ckpt_wait")]
+        torch.cuda.synchronize()
+        with timed_spans(spans) as t:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            net, best, best_epoch = main_train(
+                cf, dataset=train_ds, eval_datasets={"val": val_split, "train_eval": te_split})
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+        loop = TRAIN_EPOCHS * 2 * STEPS
+        expect = {"adaptive_decode_cell_fused": loop, "greedy_head_argmax": loop,
+                  "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0,
+                  "bottleneck_identity_int8": 0, "tail_conv1_int8": 0}
+        if launches != expect:
+            raise AssertionError(f"main_train launches {launches}, expected {expect}")
+        d = os.path.join(root, "trained_models")
+        names = sorted(os.listdir(d))
+        want = [n for n in names if n.startswith("cider-") and n.endswith(("_model-1", "_model-2"))]
+        if len(want) != 2 or len(names) != 2:
+            raise AssertionError(f"trained_models holds {names}")
+        with open(os.path.join(d, names[-1], "manifest.json")) as f:
+            meta = json.load(f)
+        losses = meta["train_epoch_losses"]
+        if len(losses) != TRAIN_EPOCHS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"epoch losses {losses}")
+        sizes = {n: sum(os.path.getsize(os.path.join(d, n, f)) for f in os.listdir(
+            os.path.join(d, n))) for n in names}
+
+        # valid mode "auto": the best checkpoint, restored, writes its epoch's captions
+        vcf = cf.replace(valid_pretrained_model="auto", vocab_length=len(vocab))
+        t1 = time.perf_counter()
+        cider = ce.coco_eval(vcf, valid_mode=True, vocab=vocab, dataset=val_split)
+        valid_s = time.perf_counter() - t1
+        path = ckpt.find_best_checkpoint(d)
+        with open(os.path.join(root, "val_results", _results_name(path))) as f:
+            restored = json.load(f)
+        epoch = ckpt.epoch_from_filename(path)
+        with open(os.path.join(root, "val_results", f"validation-{epoch}.json")) as f:
+            in_memory = json.load(f)
+        if restored != in_memory or cider != meta["cider_scores"][epoch - 1]:
+            raise AssertionError(f"valid 'auto' from {path}: captions or CIDEr {cider} differ "
+                                 f"from epoch {epoch}'s val eval")
+    steps = TRAIN_EPOCHS * TRAIN_IMAGES // TRAIN_B
+    copy_s = t["copy_model"] + t["copy_opt"]
+    train_s = wall - t["eval"] - copy_s - t["ckpt_wait"]
+    log(f"[train loop bf16] {smi}: main_train, {TRAIN_IMAGES} images, batch {TRAIN_B}, "
+        f"{TRAIN_EPOCHS} epochs ({steps} steps, encoder on in epoch 2), eval on 2 x "
+        f"{TRAIN_EVAL_IMAGES} images an epoch: {wall:.3f} s ({wall / TRAIN_EPOCHS:.3f} s an epoch "
+        f"with its eval); the per-epoch coco_eval {t['eval']:.3f} s, checkpoints' host copies "
+        f"{copy_s:.3f} s (weights {t['copy_model']:.3f}, moments {t['copy_opt']:.3f}), waits "
+        f"for the writer thread {t['ckpt_wait']:.3f} s, the rest (loader, steps, "
+        f"logging) {train_s:.3f} s; launches { {k: v for k, v in launches.items() if v} }; "
+        f"epoch losses {losses}, CIDEr {meta['cider_scores']} (best epoch {best_epoch}); "
+        f"checkpoints {names} ({[round(v / 2**30, 3) for v in sizes.values()]} GiB), step "
+        f"checkpoints pruned; valid 'auto' restored {os.path.basename(path)} in {valid_s:.3f} s: "
+        f"captions and CIDEr equal to epoch {epoch}'s val eval")
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "epoch_s": wall / TRAIN_EPOCHS, "eval_s": t["eval"],
+            "ckpt_copy_s": copy_s, "ckpt_wait_s": t["ckpt_wait"], "rest_s": train_s,
+            "launches": launches, "epoch_losses": losses, "cider": meta["cider_scores"],
+            "checkpoint_bytes": sizes, "valid_auto_equal": True}
+
+
+def train_parity(cf, net_g, net_c, smi):
+    """Phase 8c: one train step in fp32 (TF32 off) from the same full-width
+    weights (phase 4's) and batch of TRAIN_PARITY_B on the card and on the
+    CPU, with the encoder off and then on (each from the original weights),
+    the crops and flips drawn once on the CPU for both. Held: loss and LSTM
+    grad norm within TRAIN_RTOL (relative); BN running statistics within
+    TRAIN_BN_TOL; the decoder group's gradients within TRAIN_GRAD_ATOL +
+    TRAIN_GRAD_RTOL max|g| (the tensor's) and its weights within
+    TRAIN_PARAM_ATOL where the gradient is past that bound (elsewhere Adam may
+    take either sign: up to 2 lr). The encoder group's gradients
+    (encoder on) are ill-conditioned at these weights: train-mode BN's
+    backward subtracts each channel's mean gradient over 4 images, and the
+    cancellation grows rounding through ResNet-152's blocks, so the CPU run
+    again with another thread count (another summation order) moves them by
+    about 1% of their norm. They are held to TRAIN_ENC_GRAD_REL of their
+    norm, and the encoder's weights to Adam's bound on a first update, lr
+    each way. With the encoder off its weights do not move on either."""
+    import torch
+
+    from adaptive_tpu_torch.models import build_model
+    from adaptive_tpu_torch.training.optim import make_dual_optimizer
+    from adaptive_tpu_torch.training.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    start = {k: v.detach().cpu().clone() for k, v in net_c.state_dict().items()}
+    batch = train_batch(TRAIN_PARITY_B, SEED + 700, "cpu")
+    threads = torch.get_num_threads()
+
+    def run(net, on):
+        device = next(net.parameters()).device
+        net.load_state_dict(start)
+        model = build_model(cf, device=device)
+        dual = make_dual_optimizer(net, cf)
+        res = make_train_step(model, dual, cf)(
+            net, {k: v.to(device) for k, v in batch.items()}, torch.Generator().manual_seed(SEED),
+            on)
+        grads = {n: p.grad.detach().cpu() for n, p in net.named_parameters()
+                 if p.grad is not None}
+        return (float(res.loss), float(res.lstm_grad_norm), grads,
+                {k: v.detach().cpu() for k, v in net.state_dict().items()}, dual)
+
+    def group_rel(ga, gb, names):
+        num = sum(float((ga[k] - gb[k]).double().pow(2).sum()) for k in names)
+        den = sum(float(gb[k].double().pow(2).sum()) for k in names)
+        return (num / den) ** 0.5
+
+    out = {}
+    for tag, on in (("encoder_off", False), ("encoder_on", True)):
+        lg, ng, gg, sg, _ = run(net_g, on)
+        lc, nc, gc, sc, dual = run(net_c, on)
+        d_loss, d_norm = abs(lg - lc) / abs(lc), abs(ng - nc) / abs(nc)
+        bn = [k for k in sc if k.endswith(("running_mean", "running_var"))]
+        d_bn = max(float(((sg[k] - sc[k]).abs() / sc[k].abs().clamp(min=1)).max()) for k in bn)
+        d_bn_abs = max(float((sg[k] - sc[k]).abs().max()) for k in bn)
+        if d_loss > TRAIN_RTOL or d_norm > TRAIN_RTOL or d_bn > TRAIN_BN_TOL:
+            raise AssertionError(f"train parity {tag}: loss {lg} vs {lc}, LSTM norm {ng} vs {nc}, "
+                                 f"BN statistics {d_bn:.3e}")
+        dec, enc = dual.names("decoder"), dual.names("encoder")
+        g_tol = {k: TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL * float(gc[k].abs().max()) for k in dec}
+        d_grad = max(float((gg[k] - gc[k]).abs().max()) / g_tol[k] for k in dec)
+        if d_grad > 1:
+            worst = max(dec, key=lambda k: float((gg[k] - gc[k]).abs().max()) / g_tol[k])
+            raise AssertionError(f"train parity {tag}: the gradient of {worst} differs by "
+                                 f"{float((gg[worst] - gc[worst]).abs().max()):.3e}, max |g| "
+                                 f"{float(gc[worst].abs().max()):.3e}")
+        # weights whose gradient's sign the bound determines, and the rest
+        d_param, flips, d_flip = 0.0, 0, 0.0
+        for k in dec:
+            d = (sg[k] - sc[k]).abs()
+            floor = gc[k].abs() <= g_tol[k]
+            if (~floor).any():
+                d_param = max(d_param, float(d[~floor].max()))
+            if floor.any():
+                d_flip = max(d_flip, float(d[floor].max()))
+                flips += int((d[floor] > TRAIN_PARAM_ATOL).sum())
+        if d_param > TRAIN_PARAM_ATOL or d_flip > 2 * cf.opt_rnn_adam_learning_rate \
+                + TRAIN_PARAM_ATOL:
+            raise AssertionError(f"train parity {tag}: decoder weights differ by {d_param:.3e} "
+                                 f"where the gradient's sign is determined, {d_flip:.3e} where "
+                                 f"it is not")
+        d_enc = max(float((sg[k] - sc[k]).abs().max()) for k in enc)
+        line = {"loss_rel": d_loss, "norm_rel": d_norm, "bn_rel": d_bn, "bn_abs": d_bn_abs,
+                "dec_grad_of_bound": d_grad, "dec_param_abs": d_param, "dec_sign_flips": flips,
+                "dec_sign_flip_abs": d_flip, "enc_param_abs": d_enc}
+        text = ""
+        if on:
+            torch.set_num_threads(max(1, threads // 2))
+            try:
+                gc2 = run(net_c, on)[2]
+            finally:
+                torch.set_num_threads(threads)
+            line["enc_grad_rel"] = group_rel(gg, gc, enc)
+            line["enc_grad_rel_cpu_vs_cpu"] = group_rel(gc2, gc, enc)
+            enc_bound = 2 * cf.opt_cnn_adam_learning_rate + TRAIN_PARAM_ATOL
+            if line["enc_grad_rel"] > TRAIN_ENC_GRAD_REL or d_enc > enc_bound:
+                raise AssertionError(f"train parity {tag}: encoder gradients "
+                                     f"{line['enc_grad_rel']:.3e} of their norm, weights {d_enc:.3e}")
+            text = (f"; encoder group: gradients |d| {line['enc_grad_rel']:.2e} of their norm (the "
+                    f"CPU against itself at {max(1, threads // 2)} threads, not {threads}: "
+                    f"{line['enc_grad_rel_cpu_vs_cpu']:.2e}), weights max |d| {d_enc:.2e}")
+        elif d_enc != 0.0:
+            raise AssertionError(f"train parity {tag}: the frozen encoder moved by {d_enc:.3e}")
+        log(f"[train parity fp32 {tag}, TF32 off] {smi}: batch {TRAIN_PARITY_B}, card vs CPU: "
+            f"loss {lg:.7f} vs {lc:.7f} (rel {d_loss:.2e}), LSTM grad norm rel {d_norm:.2e}, BN "
+            f"running statistics max |d| {d_bn_abs:.2e} (relative to max(1, |v|) {d_bn:.2e}); "
+            f"decoder group: gradients max |d| {d_grad:.2e} of their bound, weights max |d| "
+            f"{d_param:.2e} where the gradient is past its bound ({flips} elements of gradients "
+            f"0 within it moved past {TRAIN_PARAM_ATOL}, max |d| {d_flip:.2e}){text}")
+        out[tag] = line
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -1539,6 +1934,17 @@ def main() -> int:
     eval_line["phase_s"] = {"7a": t1 - t0, "7b": time.perf_counter() - t1}
     log(f"[eval phases] 7a {eval_line['phase_s']['7a']:.1f} s, 7b {eval_line['phase_s']['7b']:.1f} s")
 
+    # phase 8: training; 8a the step's throughput at batch 256, 8b main_train
+    # end to end, 8c one fp32 step card vs CPU on phase 4's weights
+    t2 = time.perf_counter()
+    train_line = {"card": smi, "step": train_throughput(smi, args.profile)}
+    t3 = time.perf_counter()
+    train_line["main_train"] = train_loop(smi)
+    t4 = time.perf_counter()
+    train_line["parity_fp32"] = train_parity(fp32[0], fp32[2], fp32[4], smi)
+    train_line["phase_s"] = {"8a": t3 - t2, "8b": t4 - t3, "8c": time.perf_counter() - t4}
+    log(f"[train phases] " + ", ".join(f"{k} {v:.1f} s" for k, v in train_line["phase_s"].items()))
+
     csrc = "adaptive_tpu_torch/ops/cuda/csrc/"
     sources = {
         "adaptive_decode_cell_fused": ("adaptive_tpu/ops/pallas/fused_step.py:221",
@@ -1581,6 +1987,7 @@ def main() -> int:
                     **{f"end_to_end_int8_{t}_bf16": v for t, v in e2e_int8.items()},
                     "card": smi}))
     log(json.dumps({"eval_driver": eval_line}))
+    log(json.dumps({"train": train_line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -172,8 +172,9 @@ def test_prepare_cached_serves_a_replaced_parameter_until_clear(setup):
 
 def test_port_imports_no_jax():
     """A fresh process imports the port and decodes on the CPU, greedy and
-    beam, then scores a 2-image synthetic split through the eval driver,
-    without loading jax or any module of the JAX package."""
+    beam, scores a 2-image synthetic split through the eval driver, and
+    takes a train step and writes its checkpoint, without loading jax or any
+    module of the JAX package."""
     code = textwrap.dedent("""
         import sys
         import tempfile
@@ -184,7 +185,9 @@ def test_port_imports_no_jax():
         from adaptive_tpu_torch.data import loader, synthetic
         from adaptive_tpu_torch.data.vocab import Vocabulary
         from adaptive_tpu_torch.evalcap.coco_eval import coco_eval
-        from adaptive_tpu_torch.training import checkpoint
+        from adaptive_tpu_torch.training import checkpoint, main_train, optim, schedule, step
+        from adaptive_tpu_torch.utils import logging
+        from adaptive_tpu_torch.ops import dropout
         cf = Config(encoder_backbone="resnet18", train_crop_size=64, vocab_length=32,
                     adaptive_word_embed_size=8, adaptive_lstm_hidden_size=16,
                     decode_max_len=3, beam_size=2)
@@ -204,6 +207,15 @@ def test_port_imports_no_jax():
             assert len(loader.EvalImageDataset(resized, ann)) == 2
             assert np.isfinite(coco_eval(ecf, model, net, vocab=vocab))
         assert checkpoint.find_best_checkpoint(root) is None
+        dual = optim.make_dual_optimizer(net, cf)
+        batch = {"images": np.zeros((2, 72, 72, 3), np.uint8),
+                 "captions": np.ones((2, 4), np.int32), "lengths": np.array([4, 3], np.int32)}
+        import torch
+        out = step.make_train_step(model, dual, cf)(net, batch, torch.Generator(), True)
+        assert np.isfinite(float(out.loss))
+        with tempfile.TemporaryDirectory() as root:
+            checkpoint.save_checkpoint(root + "/cider-0.0000_model-1", net, dual)
+            checkpoint.restore_opt_state(root + "/cider-0.0000_model-1", dual, net)
         bad = [m for m in sys.modules
                if m in ("jax", "adaptive_tpu") or m.startswith(("jax.", "adaptive_tpu."))]
         print("BAD", bad)
