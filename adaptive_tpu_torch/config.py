@@ -1,35 +1,80 @@
-"""Configuration for the PyTorch port: the knobs the greedy and beam
-captioning paths, the eval driver and training read, with the same names
-and defaults as the JAX package's ``Config`` (adaptive_tpu/config/config.py).
+"""Configuration for the PyTorch port: every knob of the JAX package's
+``Config`` (adaptive_tpu/config/config.py), with the same names, defaults and
+field order, and its loader ``load_config``.
 
 The port keeps its own copy instead of importing the JAX package's module,
-so the two packages can be installed and run apart. Only the fields that the
-ported slice reads are here; later slices add theirs under the same names.
+so the two packages can be installed and run apart. A Python file, a JSON
+file, a dict or a Config is the source, as in the JAX package: the
+reference's "config file is the experiment record" workflow (cfg_wzn.py,
+configuration.py:25-40).
+
+Checks run when a Config is made (``_validate``, the JAX package's, which it
+runs in ``load_config`` only). Knobs of paths the port has not taken yet
+(NOT_PORTED: the mesh, ZeRO-1 and multi-host knobs, and the other decoder
+variants' sizes) exist so that a config file loads, but a value other than
+the default raises NotImplementedError naming the ROADMAP.md queue: a run
+must not go on as if it were honoured. ``param_dtype`` and
+``train_tb_gradOrnot`` are read nowhere in the JAX package and nowhere here;
+``decode_scan_prefix`` changes no id and the port's decode loops are Python
+loops either way (ROADMAP.md §3).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from dataclasses import dataclass
+from typing import Any, Dict, Tuple
 
 VARIANTS = ("baseline_attention", "adaptive_attention", "rnn_attention")
 OPTIMIZERS = ("adam", "sgd", "lbfgs")
-LBFGS_NOT_PORTED = ("the lbfgs optimizer is not ported yet: ROADMAP.md, queue 1 "
-                    "(training/lbfgs.py)")
+_QUEUE6 = "multi-device (ROADMAP.md, queue 1, item 6)"
+_QUEUE7 = "the baseline_attention and rnn_attention decoders (ROADMAP.md, queue 1, item 7)"
+# knob -> the not-ported path that would read it
+NOT_PORTED = {
+    "base_word_embed_size": _QUEUE7,
+    "base_lstm_hidden_size": _QUEUE7,
+    "rnn_attention_bidirectional": _QUEUE7,
+    "rnn_attention_embed_size": _QUEUE7,
+    "rnn_attention_numlayers": _QUEUE7,
+    "rnn_attention_hiddensize": _QUEUE7,
+    "mesh_axes": _QUEUE6,
+    "mesh_shape": _QUEUE6,
+    "opt_state_sharding": _QUEUE6,
+    "distributed_init": _QUEUE6,
+}
 
 
 @dataclass
 class Config:
-    # paths the eval driver reads (cfg_wzn.py:1-12)
+    # paths (cfg_wzn.py:1-12)
+    experiment_path: str = "Experiments"
     vocab_path: str = "data/vocab.json"
+    image_dir: str = "data/MSCOCO"
     resized_image_dir: str = "data/MSCOCO/resized"
+    captions_val_origin: str = "data/MSCOCO/annotations/captions_val2014.json"
+    captions_train_origin: str = "data/MSCOCO/annotations/captions_train2014.json"
+    splited_anno_path_prefix: str = "data/annotations/karpathy_split_"
+    train_anno_path: str = "data/annotations/karpathy_split_train.json"
     val_anno_path: str = "data/annotations/karpathy_split_val.json"
     test_anno_path: str = "data/annotations/karpathy_split_test.json"
     train_eval_anno_path: str = "data/annotations/karpathy_split_train_eval.json"
-    train_anno_path: str = "data/annotations/karpathy_split_train.json"
+
+    atten_model_name: str = "adaptive_attention"  # baseline_attention|adaptive_attention|rnn_attention
+
+    # stage flags (main.py), the reference's names and spelling
+    trainOrnot: bool = False
+    validOrnot: bool = False
+    testOrnot: bool = False
+    resizeOrnot: bool = False
+    vacab_build_Ornot: bool = False
+    KarpathySplitOrnot: bool = False
+
     # train knobs (cfg_wzn.py:19-34)
+    train_crop_size: int = 224
     train_log_step: int = 10
-    train_random_seed: int = 123  # cfg_wzn.py:21; seeds model.init and the train draws
+    train_random_seed: int = 123  # seeds model.init, the split and the train draws
     train_pretrained: bool = False
     train_pretrained_model: str = ""  # a checkpoint dir to start from
     train_num_epochs: int = 30
@@ -38,17 +83,20 @@ class Config:
     train_early_stop_patience: int = 6
     train_evalOrnot: bool = False  # per-epoch CIDEr on train_eval and val
     train_tb_interval_batches: int = 1180  # weight histograms + batch loss cadence
+    train_tb_gradOrnot: bool = True  # read nowhere (as in the JAX package)
     train_tb_lstm_clip_grad: bool = True  # also log the LSTM grad norm then
     train_lstm_maxnormal: float = 5.0  # clip_grad_norm_ over the decoder LSTM
-    # inverted dropout at the reference's (rate-0) Dropout sites; 0 = off
+    # inverted dropout at the reference's (rate-0) Dropout sites; 0 = off.
+    # The L-BFGS step draws one set of masks a batch (training/lbfgs.py).
     train_dropout_rate: float = 0.0
+
     # optimization (cfg_wzn.py:37-75): ResNet children [start_layer:] are
     # fine-tuned from epoch start_epoch + 1
     opt_fine_tune_cnn_start_layer: int = 5
     opt_fine_tune_cnn_start_epoch: int = 20
     opt_lrdecay_patience: int = 3
     opt_lrdecay_factor: float = 0.5
-    opt_rnn_optimization: str = "adam"  # adam|sgd (lbfgs: not ported)
+    opt_rnn_optimization: str = "adam"  # adam|sgd|lbfgs
     opt_rnn_adam_alpha: float = 0.8  # beta1
     opt_rnn_adam_beta: float = 0.999  # beta2
     opt_rnn_adam_learning_rate: float = 1e-3
@@ -70,37 +118,49 @@ class Config:
     opt_cnn_lbfgs_lr: float = 0.01
     opt_cnn_lbfgs_max_iter: int = 20
     opt_cnn_lbfgs_history: int = 50
-    # recompute the encoder's trunk in the backward instead of keeping its
-    # activations (torch.utils.checkpoint)
-    remat_encoder: bool = False
-    # a mid-epoch 'cider-0.0000_model-E_step-K' checkpoint every N steps
-    # (0 = per-epoch only); auto-resume restarts at step K of epoch E
-    train_checkpoint_every_steps: int = 0
-    # microbatches a batch's gradient is summed over (the exact full-batch
-    # gradient); 1 = off
-    train_grad_accum_steps: int = 1
-    # ImageNet weights converted from torch (not ported: ROADMAP.md, queue 1)
-    encoder_pretrained_npz: str = ""
+
     # eval knobs (cfg_wzn.py:78-86)
     test_pretrained_model: str = ""  # a checkpoint dir, its model.npz, or "auto"
     valid_pretrained_model: str = ""
     eval_batch_size: int = 400
     dataloader_num_workers: int = 8  # host-side prefetch threads
-    # valid/test "auto" also searches here after exp_dir/trained_models
-    train_auto_resume_dir: str = ""
-    exp_dir: str = ""  # results files land here ("" = the working directory)
-    atten_model_name: str = "adaptive_attention"  # baseline_attention|adaptive_attention|rnn_attention
-    train_crop_size: int = 224
     decode_max_len: int = 30
     beam_size: int = 1  # 1 = greedy; > 1 is make_beam_decoder's default width
+
+    # preprocessing stages (cfg_wzn.py:90-94)
+    resized_image_size: int = 256
+    vocab_threshold: int = 5
+
+    # Karpathy split sizes (cfg_wzn.py:96-106)
+    num_val: int = 5000
+    num_test: int = 5000
+    num_train_eval: int = 5000
+    num_train_overfit: int = 20
+    num_train_hyperparameter: int = 5000
+    num_train_eval_hyperparameter: int = 1000
+    num_val_hyperparameter: int = 1000
+
+    # per-model sizes (cfg_wzn.py:108-122)
     vocab_length: int = 10123
     # Pad the embedding/head vocab dim to a multiple; padded logits are masked
     # so argmax equals the unpadded model's. 1 = no padding.
     vocab_pad_multiple: int = 1
+    base_word_embed_size: int = 256  # NOT_PORTED
+    base_lstm_hidden_size: int = 512  # NOT_PORTED
     adaptive_word_embed_size: int = 256
     adaptive_lstm_hidden_size: int = 512
+    rnn_attention_bidirectional: bool = True  # NOT_PORTED
+    rnn_attention_embed_size: int = 256  # NOT_PORTED
+    rnn_attention_numlayers: int = 1  # NOT_PORTED
+    rnn_attention_hiddensize: int = 512  # NOT_PORTED
+
     encoder_backbone: str = "resnet152"  # resnet18|34|50|101|152
+    # a trunk converted from torchvision weights (the JAX package's
+    # save_resnet_npz), installed before a training checkpoint restores over
+    # it (models/torch_import.py)
+    encoder_pretrained_npz: str = ""
     compute_dtype: str = "float32"  # float32|bfloat16
+    param_dtype: str = "float32"  # read nowhere (as in the JAX package)
     # auto|always: the decode step runs the fused kernels (ops/fused_step.py);
     # never: the plain op-by-op path (ops/lstm.py + ops/attention.py).
     use_pallas: str = "auto"
@@ -123,45 +183,46 @@ class Config:
     sampler_sentinel_uses_prev_hidden: bool = False
     decode_eos_token: int = 2
     decode_start_token: int = 1
-    # Stop once every row (greedy) or every beam (beam search) has emitted
-    # <end>; ids equal the fixed loop's.
-    decode_early_exit: bool = False
     # Beam decode slot layout on the fused path: True passes V/pv untiled
     # and the cell kernel maps row r to image r // W (each image's slots are
     # read once a step); False repeats V/pv per beam row. Same outputs.
     decode_beam_major: bool = True
+    # Stop once every row (greedy) or every beam (beam search) has emitted
+    # <end>; ids equal the fixed loop's.
+    decode_early_exit: bool = False
+    # accepted with no effect: the JAX package's fixed-scan prefix of the
+    # early-exit loop changes no id (ROADMAP.md §3)
+    decode_scan_prefix: int = 0
+    mesh_axes: Tuple[str, ...] = ("data", "model")  # NOT_PORTED
+    mesh_shape: Tuple[int, ...] = (-1, 1)  # NOT_PORTED
+    # recompute the encoder's trunk in the backward instead of keeping its
+    # activations (torch.utils.checkpoint)
+    remat_encoder: bool = False
+    # valid/test "auto" also searches here after exp_dir/trained_models; a
+    # checkpoint here is resumed (training/train_loop.py)
+    train_auto_resume_dir: str = ""
+    # a mid-epoch 'cider-0.0000_model-E_step-K' checkpoint every N steps
+    # (0 = per-epoch only); auto-resume restarts at step K of epoch E
+    train_checkpoint_every_steps: int = 0
+    # microbatches a batch's gradient is summed over (the exact full-batch
+    # gradient); 1 = off
+    train_grad_accum_steps: int = 1
+    opt_state_sharding: str = "replicated"  # NOT_PORTED
+    distributed_init: bool = False  # NOT_PORTED
+
+    # filled by Experiment.setup (experiment.py)
+    exp_dir: str = ""  # results files land here ("" = the working directory)
+    model_description: str = ""
+    log_file: str = ""
 
     def __post_init__(self):
-        for knob in ("opt_rnn_optimization", "opt_cnn_optimization"):
-            v = getattr(self, knob)
-            if v not in OPTIMIZERS:
-                raise ValueError(f"{knob}={v!r} — must be adam|sgd|lbfgs")
-        if not 0.0 <= self.train_dropout_rate < 1.0:
-            raise ValueError(
-                f"train_dropout_rate={self.train_dropout_rate} — must be in [0, 1) "
-                "(0 disables dropout, matching the reference's hardcoded Dropout(0))"
-            )
-        if self.train_grad_accum_steps < 1:
-            raise ValueError(
-                f"train_grad_accum_steps={self.train_grad_accum_steps} — must be >= 1")
-        if self.train_batch_size % self.train_grad_accum_steps != 0:
-            raise ValueError(
-                f"train_grad_accum_steps={self.train_grad_accum_steps} must divide "
-                f"train_batch_size={self.train_batch_size}"
-            )
-        lbfgs = "lbfgs" in (self.opt_rnn_optimization, self.opt_cnn_optimization)
-        if self.train_grad_accum_steps > 1 and lbfgs:
-            raise NotImplementedError(
-                "train_grad_accum_steps > 1 is not supported with lbfgs optimizer groups")
-        if lbfgs:
-            raise NotImplementedError(LBFGS_NOT_PORTED)
-        if self.encoder_quant not in ("none", "int8"):
-            raise ValueError(f"encoder_quant={self.encoder_quant!r} — must be none|int8")
-        if self.encoder_quant_granularity not in ("channel", "tensor"):
-            raise ValueError(
-                f"encoder_quant_granularity={self.encoder_quant_granularity!r} — "
-                "must be channel|tensor"
-            )
+        _validate(self)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, default=str)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -169,15 +230,133 @@ class Config:
     @property
     def word_embed_size(self) -> int:
         if self.atten_model_name != "adaptive_attention":
-            raise NotImplementedError(
-                f"{self.atten_model_name} is not ported yet (ROADMAP.md, queue 1)"
-            )
+            raise NotImplementedError(f"{self.atten_model_name} is not ported yet: {_QUEUE7}")
         return self.adaptive_word_embed_size
 
     @property
     def lstm_hidden_size(self) -> int:
         if self.atten_model_name != "adaptive_attention":
-            raise NotImplementedError(
-                f"{self.atten_model_name} is not ported yet (ROADMAP.md, queue 1)"
-            )
+            raise NotImplementedError(f"{self.atten_model_name} is not ported yet: {_QUEUE7}")
         return self.adaptive_lstm_hidden_size
+
+
+_CONFIG_FIELDS = {f.name for f in dataclasses.fields(Config)}
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(Config)}
+
+
+def load_config(source: Any = None, **overrides) -> Config:
+    """Build a Config from a Python file path, a JSON file path, a dict, a
+    Config, or keyword overrides (the JAX package's load_config).
+
+    The module-level variables of a Python file whose names are Config
+    fields become field values; other names are ignored (the reference
+    tolerated extras), but a near-miss of a field's name is warned about.
+    An unknown override raises KeyError."""
+    values: Dict[str, Any] = {}
+    if isinstance(source, str) and source.endswith(".py"):
+        ns: Dict[str, Any] = {}
+        with open(source) as f:
+            exec(compile(f.read(), source, "exec"), ns)  # noqa: S102 - by design
+        values = {k: v for k, v in ns.items() if k in _CONFIG_FIELDS}
+        _warn_near_misses(ns, source)
+    elif isinstance(source, str) and source.endswith(".json"):
+        with open(source) as f:
+            raw = json.load(f)
+        values = {k: v for k, v in raw.items() if k in _CONFIG_FIELDS}
+    elif isinstance(source, dict):
+        values = {k: v for k, v in source.items() if k in _CONFIG_FIELDS}
+    elif isinstance(source, Config):
+        values = source.to_dict()
+    elif source is not None:
+        raise TypeError(f"Unsupported config source: {type(source)}")
+
+    values.update({k: v for k, v in overrides.items() if k in _CONFIG_FIELDS})
+    unknown = set(overrides) - _CONFIG_FIELDS
+    if unknown:
+        raise KeyError(f"Unknown config fields: {sorted(unknown)}")
+    # tuple-typed fields may arrive as lists from JSON
+    for k in ("mesh_axes", "mesh_shape"):
+        if k in values and isinstance(values[k], list):
+            values[k] = tuple(values[k])
+    return Config(**values)
+
+
+def _warn_near_misses(ns: Dict[str, Any], source: str) -> None:
+    """Print a warning for each file variable that looks like a typo of a
+    field (num_epochs for train_num_epochs): a long shared suffix first,
+    then difflib's closest match."""
+    import difflib
+    import types
+
+    def suffix(a, b):
+        return len(os.path.commonprefix([a[::-1], b[::-1]]))
+
+    for k, v in ns.items():
+        if (k.startswith("_") or k in _CONFIG_FIELDS
+                or callable(v) or isinstance(v, types.ModuleType)):
+            continue
+        by_suffix = max(sorted(_CONFIG_FIELDS), key=lambda f: suffix(k, f))
+        if suffix(k, by_suffix) >= 8:
+            hint = [by_suffix]
+        else:
+            hint = difflib.get_close_matches(k, _CONFIG_FIELDS, n=1, cutoff=0.7)
+        if hint:
+            print(f"[config] WARNING: '{k}' in {source} is not a Config "
+                  f"field and was IGNORED — did you mean '{hint[0]}'?")
+
+
+def _validate(cf: Config) -> None:
+    """Fail fast on invalid knobs, before any data loading starts: the JAX
+    package's checks in its order, then the knobs the port does not honour
+    yet (NOT_PORTED)."""
+    if cf.atten_model_name not in VARIANTS:
+        raise ValueError(
+            f"atten_model_name={cf.atten_model_name!r} — must be one of {VARIANTS}"
+        )
+    for knob in ("opt_rnn_optimization", "opt_cnn_optimization"):
+        v = getattr(cf, knob)
+        if v not in OPTIMIZERS:
+            raise ValueError(f"{knob}={v!r} — must be adam|sgd|lbfgs")
+    if cf.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype={cf.compute_dtype!r}")
+    if cf.use_pallas not in ("auto", "always", "never"):
+        raise ValueError(f"use_pallas={cf.use_pallas!r}")
+    if cf.encoder_quant not in ("none", "int8"):
+        raise ValueError(f"encoder_quant={cf.encoder_quant!r} — must be none|int8")
+    if cf.encoder_quant_granularity not in ("channel", "tensor"):
+        raise ValueError(
+            f"encoder_quant_granularity={cf.encoder_quant_granularity!r} — "
+            "must be channel|tensor"
+        )
+    if cf.opt_state_sharding not in ("replicated", "data"):
+        raise ValueError(
+            f"opt_state_sharding={cf.opt_state_sharding!r} — must be replicated|data"
+        )
+    if not 0.0 <= cf.train_dropout_rate < 1.0:
+        raise ValueError(
+            f"train_dropout_rate={cf.train_dropout_rate} — must be in [0, 1) "
+            "(0 disables dropout, matching the reference's hardcoded Dropout(0))"
+        )
+    if cf.train_grad_accum_steps < 1:
+        raise ValueError(
+            f"train_grad_accum_steps={cf.train_grad_accum_steps} — must be >= 1"
+        )
+    if cf.train_batch_size % max(1, cf.train_grad_accum_steps) != 0:
+        raise ValueError(
+            f"train_grad_accum_steps={cf.train_grad_accum_steps} must divide "
+            f"train_batch_size={cf.train_batch_size}"
+        )
+    if cf.train_grad_accum_steps > 1 and "lbfgs" in (
+        cf.opt_rnn_optimization, cf.opt_cnn_optimization
+    ):
+        # the L-BFGS closure step (training/lbfgs.py) is monolithic; accepting
+        # the knob there would silently skip the requested microbatching
+        raise NotImplementedError(
+            "train_grad_accum_steps > 1 is not supported with lbfgs optimizer groups"
+        )
+    for knob, path in NOT_PORTED.items():
+        v = getattr(cf, knob)
+        if (tuple(v) if isinstance(v, list) else v) != _DEFAULTS[knob]:
+            raise NotImplementedError(
+                f"{knob}={v!r}: the port does not honour it yet, only its default "
+                f"{_DEFAULTS[knob]!r}; it belongs to {path}")

@@ -21,7 +21,7 @@ import json
 import os
 import queue
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,13 +49,16 @@ def _image_subdir(filename: str) -> str:
 class CocoCaptionDataset:
     """One sample per annotation: (uint8 image, caption ids, image id).
 
-    Parity: data_loader.py:12-61."""
+    Parity: data_loader.py:12-61. image_source: a callable (file path ->
+    uint8 HWC array) in place of the JPEG decode (_load_image_uint8)."""
 
-    def __init__(self, root: str, anno_path: str, vocab: Vocabulary):
+    def __init__(self, root: str, anno_path: str, vocab: Vocabulary,
+                 image_source: Optional[Callable[[str], np.ndarray]] = None):
         self.root = root
         self.coco = COCO(anno_path)
         self.ids: List[int] = list(self.coco.anns.keys())
         self.vocab = vocab
+        self.load = image_source or _load_image_uint8
 
     def __len__(self) -> int:
         return len(self.ids)
@@ -65,18 +68,21 @@ class CocoCaptionDataset:
         img_id = ann["image_id"]
         filename = self.coco.loadImgs(img_id)[0]["file_name"]
         path = os.path.join(self.root, _image_subdir(filename), filename)
-        image = _load_image_uint8(path)
+        image = self.load(path)
         caption = self.vocab.encode_caption(ann["caption"])
         return image, caption, img_id
 
 
 class EvalImageDataset:
-    """One sample per image: (uint8 image, image id). Parity: utils.py:71-104."""
+    """One sample per image: (uint8 image, image id). Parity: utils.py:71-104.
+    image_source: as CocoCaptionDataset's."""
 
-    def __init__(self, root: str, anno_path: str):
+    def __init__(self, root: str, anno_path: str,
+                 image_source: Optional[Callable[[str], np.ndarray]] = None):
         self.root = root
         with open(anno_path) as f:
             self.imgs = json.load(f)["images"]
+        self.load = image_source or _load_image_uint8
 
     def __len__(self) -> int:
         return len(self.imgs)
@@ -84,7 +90,7 @@ class EvalImageDataset:
     def __getitem__(self, index: int) -> Tuple[np.ndarray, int]:
         info = self.imgs[index]
         path = os.path.join(self.root, _image_subdir(info["file_name"]), info["file_name"])
-        return _load_image_uint8(path), info["id"]
+        return self.load(path), info["id"]
 
 
 class EvalBatches:

@@ -8,8 +8,10 @@ vocab as JSON (portable, no pickle) but can also read the reference's
 vocab.pkl for checkpoint-fidelity runs.
 
 The PyTorch port's own copy of adaptive_tpu/data/vocab.py: the same code, so
-the port scores captions without importing the JAX package. Its pipeline stage
-``main_build_vocab`` comes with the port's CLI and data stages.
+the port scores captions without importing the JAX package. Its pipeline
+stage ``main_build_vocab`` reads the captions through the COCO API only (the
+JAX package's native JSON scanner is not ported; both read the same captions
+in the same order).
 """
 
 from __future__ import annotations
@@ -124,3 +126,18 @@ def build_vocab(annotations: Iterable[str], threshold: int) -> Vocabulary:
     for w in words:
         v.add_word(w)
     return v
+
+
+def main_build_vocab(cf) -> Vocabulary:
+    """Pipeline stage: build the vocab from the train split and save it
+    (build_vocab.py:58-65). The captions come through the COCO API in the
+    annotations' order, the order the JAX package's native scanner reads
+    them in too (adaptive_tpu/data/vocab.py:125-144)."""
+    from adaptive_tpu_torch.data.coco_api import COCO
+
+    coco = COCO(cf.train_anno_path)
+    vocab = build_vocab((coco.anns[a]["caption"] for a in coco.anns), cf.vocab_threshold)
+    vocab.save(cf.vocab_path)
+    print("Total vocabulary size: %d" % len(vocab))
+    print("Saved the vocabulary wrapper to '%s'" % cf.vocab_path)
+    return vocab

@@ -14,7 +14,8 @@ results file per process) come with the port's multi-device slice
 (ROADMAP.md §1, item 6). ``dataset=`` serves the split's images from any
 object with ``__len__`` and ``__getitem__(i) -> (uint8 HWC image, image
 id)`` in place of the JPEGs under ``cf.resized_image_dir``; it changes no
-result.
+result. ``image_source=`` (a callable: file path -> uint8 HWC array) reads
+those files in place of the JPEG decode, as the CLI's ``main`` passes it.
 """
 
 from __future__ import annotations
@@ -53,7 +54,8 @@ def _results_name(model_path: str) -> str:
 
 
 def decode_split(
-    cf, model, net, ann_path: str, vocab: Vocabulary, decoder=None, dataset=None
+    cf, model, net, ann_path: str, vocab: Vocabulary, decoder=None, dataset=None,
+    image_source=None,
 ) -> List[Dict]:
     """Generate {'image_id', 'caption'} results for every image in a split."""
     if decoder is None:
@@ -61,7 +63,7 @@ def decode_split(
             make_beam_decoder(model, cf) if cf.beam_size > 1 else make_greedy_decoder(model, cf)
         )
     if dataset is None:
-        dataset = EvalImageDataset(cf.resized_image_dir, ann_path)
+        dataset = EvalImageDataset(cf.resized_image_dir, ann_path, image_source)
     batches = EvalBatches(dataset, cf.eval_batch_size, cf.dataloader_num_workers)
 
     results: List[Dict] = []
@@ -96,6 +98,7 @@ def coco_eval(
     per_image_out: Optional[Dict] = None,
     device="cuda",
     dataset=None,
+    image_source=None,
 ) -> float:
     """Returns the split's CIDEr (utils.py:108-250). Pass a prebuilt decoder
     to share one decoder (and its prepared weights) across calls (per-epoch
@@ -103,7 +106,8 @@ def coco_eval(
     the per-image scores back paired statistics (e.g. the int8 gate's
     bootstrap-CI deltas). device: where valid and test mode build the model
     (the CPU only when asked for). dataset: the split's images in place of
-    its JPEGs (the module docstring)."""
+    its JPEGs; image_source: the reader of those files (the module
+    docstring)."""
     # at most ONE mode: pairwise conflicts would silently score the wrong
     # split (test wins every tiebreak below)
     assert sum((test_mode, valid_mode, train_mode)) <= 1, (
@@ -136,7 +140,8 @@ def coco_eval(
         # must never silently score a different int8 path than production.
         from adaptive_tpu_torch.models.infer import calibrate_model
 
-        ds = dataset if dataset is not None else EvalImageDataset(cf.resized_image_dir, ann_path)
+        ds = dataset if dataset is not None else EvalImageDataset(
+            cf.resized_image_dir, ann_path, image_source)
         calib = np.stack([ds[i][0] for i in range(min(32, len(ds)))])
         model = calibrate_model(model, cf, net, calib)
         print(f"int8: calibrated static scales on {calib.shape[0]} split images")
@@ -155,7 +160,8 @@ def coco_eval(
         banner = "evaluating a subset of training data on MS-COCO dataset"
     print(f"---------------------Start {banner}-----------------------")
 
-    results = decode_split(cf, model, net, ann_path, vocab, decoder=decoder, dataset=dataset)
+    results = decode_split(cf, model, net, ann_path, vocab, decoder=decoder, dataset=dataset,
+                           image_source=image_source)
     print("#-----------------------Caption Generated-----------------------#")
 
     # results file naming per mode (utils.py:205-222)

@@ -27,7 +27,7 @@ from adaptive_tpu_torch.ops import inits
 from adaptive_tpu_torch.ops.dropout import Drop, maybe_drop as _d
 from adaptive_tpu_torch.ops.lstm import lstm_cell, lstm_scan
 
-NOT_PORTED = "{} is not ported yet: ROADMAP.md, queue 1 (non-adaptive decoder variants)"
+NOT_PORTED = "{} is not ported yet: ROADMAP.md, queue 1, item 7 (non-adaptive decoder variants)"
 
 
 class DecoderSpec(NamedTuple):

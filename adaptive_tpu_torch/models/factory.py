@@ -94,22 +94,23 @@ class CaptionModel(NamedTuple):
         return net
 
     def encode(self, net: Encoder2Decoder, images: torch.Tensor, train: bool = False,
-               drop=None, grad_from: int = 0):
+               drop=None, grad_from: int = 0, update_stats: bool = True):
         """Preprocessed float NHWC images -> (V, v_g, h0, c0) on the net's
-        own weights; train mode updates the BN statistics in place.
-        grad_from: the trunk's frozen prefix (ResNet.forward). With
+        own weights; train mode updates the BN statistics in place unless
+        update_stats is False. grad_from: the trunk's frozen prefix
+        (ResNet.forward). With
         remat_encoder the trunk's activations are recomputed in the backward
         (torch.utils.checkpoint); the heads, where dropout draws, stay
         outside the recomputed region, so no draw is replayed."""
         images = images.to(self.compute_dtype)
         if not (self.remat_encoder and train and torch.is_grad_enabled()):
-            return E.encoder_apply(net.encoder, images, train, drop, grad_from)
-        A_flat, a_g = _remat_features(net.encoder, images, grad_from)
+            return E.encoder_apply(net.encoder, images, train, drop, grad_from, update_stats)
+        A_flat, a_g = _remat_features(net.encoder, images, grad_from, update_stats)
         return E.encoder_heads(E.head_params(net.encoder, detach=False), A_flat, a_g, drop)
 
     def forward(self, net: Encoder2Decoder, images: torch.Tensor, captions: torch.Tensor,
                 train: bool = False, gen: Optional[torch.Generator] = None,
-                grad_from: int = 0):
+                grad_from: int = 0, update_stats: bool = True):
         """Teacher-forced (scores [B,T,vocab], (alpha, beta)) (Encoder2Decoder.
         forward, baseline_attention.py:206-230, without the packing: padded
         scores and a masked loss replace pack_padded_sequence). gen draws
@@ -117,7 +118,7 @@ class CaptionModel(NamedTuple):
         from adaptive_tpu_torch.ops.dropout import make_dropout
 
         drop = make_dropout(gen, self.dropout_rate) if train else None
-        V, v_g, h0, c0 = self.encode(net, images, train, drop, grad_from)
+        V, v_g, h0, c0 = self.encode(net, images, train, drop, grad_from, update_stats)
         scores, alpha, beta = D.decoder_forward(
             D.decoder_params(net.decoder, detach=False), self.spec, V, v_g,
             captions.long(), h0, c0, drop=drop)
@@ -231,7 +232,8 @@ def build_model(cf, device="cuda") -> CaptionModel:
     )
 
 
-def _remat_features(enc: AttentiveCNN, images: torch.Tensor, grad_from: int):
+def _remat_features(enc: AttentiveCNN, images: torch.Tensor, grad_from: int,
+                    update_stats: bool = True):
     """encoder_features in train mode under torch.utils.checkpoint. The
     backward's recompute would update the BN running statistics a second
     time: it restores them as the forward left them."""
@@ -243,11 +245,11 @@ def _remat_features(enc: AttentiveCNN, images: torch.Tensor, grad_from: int):
     def trunk(x):
         if not ran:
             ran.append(True)
-            return E.encoder_features(enc, x, True, grad_from)
+            return E.encoder_features(enc, x, True, grad_from, update_stats)
         with torch.no_grad():
             saved = [b.clone() for b in bufs]
         try:
-            return E.encoder_features(enc, x, True, grad_from)
+            return E.encoder_features(enc, x, True, grad_from, update_stats)
         finally:  # also when the recompute stops early
             with torch.no_grad():
                 for b, v in zip(bufs, saved):
@@ -258,14 +260,17 @@ def _remat_features(enc: AttentiveCNN, images: torch.Tensor, grad_from: int):
 
 def get_model(cf, seed: Optional[int] = None, device="cuda"):
     """(model, net, start_epoch): the net drawn from seed (default
-    cf.train_random_seed), then a training checkpoint restored over it, the
-    start epoch parsed from its name (model_factory.py:14-21)."""
-    if cf.encoder_pretrained_npz:
-        raise NotImplementedError(
-            "encoder_pretrained_npz is not ported yet: ROADMAP.md, queue 1, item 5 "
-            "(models/torch_import.py)")
+    cf.train_random_seed), a pretrained trunk (encoder_pretrained_npz)
+    installed, then a training checkpoint restored over them, the start
+    epoch parsed from its name (model_factory.py:14-21). The order matters:
+    the pretrained weights are the base, as the reference loads them at
+    construction; a resume never resets a fine-tuned trunk to them."""
     model = build_model(cf, device=device)
     net = model.init(cf.train_random_seed if seed is None else seed)
+    if cf.encoder_pretrained_npz:
+        from adaptive_tpu_torch.models.torch_import import load_pretrained_resnet
+
+        load_pretrained_resnet(cf.encoder_pretrained_npz, net)
     start_epoch = 1
     if cf.train_pretrained and cf.train_pretrained_model:
         from adaptive_tpu_torch.training import checkpoint as ckpt

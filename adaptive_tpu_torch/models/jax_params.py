@@ -118,20 +118,27 @@ def param_keys(arch: str) -> Dict[str, Tuple[str, str]]:
 def to_layout(t: torch.Tensor, layout: str) -> np.ndarray:
     """A tensor in torch's layout -> a numpy host copy in JAX's (a view of
     the copy, transposed)."""
-    a = _n(t)
+    return np_to_layout(_n(t), layout)
+
+
+def np_to_layout(a: np.ndarray, layout: str) -> np.ndarray:
+    """to_layout on a numpy array (a transposed view)."""
     if layout == "conv":
         return np.transpose(a, (2, 3, 1, 0))
     return a.T if layout == "linear" else a
 
 
-def from_layout(a, layout: str) -> torch.Tensor:
-    """Inverse of to_layout (a CPU tensor)."""
+def np_from_layout(a, layout: str) -> np.ndarray:
+    """Inverse of np_to_layout (a transposed view)."""
     a = np.asarray(a)
     if layout == "conv":
-        a = np.transpose(a, (3, 2, 0, 1))
-    elif layout == "linear":
-        a = a.T
-    return _t(a)
+        return np.transpose(a, (3, 2, 0, 1))
+    return a.T if layout == "linear" else a
+
+
+def from_layout(a, layout: str) -> torch.Tensor:
+    """Inverse of to_layout (a CPU tensor)."""
+    return _t(np_from_layout(a, layout))
 
 
 def from_jax(params: Dict, state: Dict, arch: str) -> Dict[str, torch.Tensor]:

@@ -55,9 +55,12 @@ def _conv_apply(conv: nn.Conv2d, x):
     return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding)
 
 
-def _bn(x, bn: nn.BatchNorm2d, train: bool):
-    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                        train, BN_MOMENTUM, bn.eps)
+def _bn(x, bn: nn.BatchNorm2d, train: bool, update_stats: bool = True):
+    """update_stats=False in train mode normalises with the batch statistics
+    and leaves the running ones as they are."""
+    keep = train and not update_stats
+    return F.batch_norm(x, None if keep else bn.running_mean, None if keep else bn.running_var,
+                        bn.weight, bn.bias, train, BN_MOMENTUM, bn.eps)
 
 
 class Bottleneck(nn.Module):
@@ -71,12 +74,13 @@ class Bottleneck(nn.Module):
             if has_down else None
         )
 
-    def forward(self, x, train: bool = False):
-        y = F.relu(_bn(_conv_apply(self.conv1, x), self.bn1, train))
-        y = F.relu(_bn(_conv_apply(self.conv2, y), self.bn2, train))
-        y = _bn(_conv_apply(self.conv3, y), self.bn3, train)
+    def forward(self, x, train: bool = False, update_stats: bool = True):
+        u = update_stats
+        y = F.relu(_bn(_conv_apply(self.conv1, x), self.bn1, train, u))
+        y = F.relu(_bn(_conv_apply(self.conv2, y), self.bn2, train, u))
+        y = _bn(_conv_apply(self.conv3, y), self.bn3, train, u)
         sc = x if self.downsample is None else _bn(
-            _conv_apply(self.downsample[0], x), self.downsample[1], train)
+            _conv_apply(self.downsample[0], x), self.downsample[1], train, u)
         return F.relu(y + sc)
 
 
@@ -90,11 +94,12 @@ class BasicBlock(nn.Module):
             if has_down else None
         )
 
-    def forward(self, x, train: bool = False):
-        y = F.relu(_bn(_conv_apply(self.conv1, x), self.bn1, train))
-        y = _bn(_conv_apply(self.conv2, y), self.bn2, train)
+    def forward(self, x, train: bool = False, update_stats: bool = True):
+        u = update_stats
+        y = F.relu(_bn(_conv_apply(self.conv1, x), self.bn1, train, u))
+        y = _bn(_conv_apply(self.conv2, y), self.bn2, train, u)
         sc = x if self.downsample is None else _bn(
-            _conv_apply(self.downsample[0], x), self.downsample[1], train)
+            _conv_apply(self.downsample[0], x), self.downsample[1], train, u)
         return F.relu(y + sc)
 
 
@@ -128,23 +133,25 @@ class ResNet(nn.Sequential):
         """(layer1, ..., layer4)."""
         return tuple(self[i] for i in range(4, len(self)))
 
-    def forward(self, x, train: bool = False, grad_from: int = 0):
+    def forward(self, x, train: bool = False, grad_from: int = 0, update_stats: bool = True):
         """grad_from: children before CHILD_NAMES[grad_from] run without
         autograd (a frozen prefix keeps no activations and runs no backward;
         len(CHILD_NAMES) freezes the whole trunk). Their BN statistics still
-        update in train mode."""
+        update in train mode. update_stats=False: train-mode BN on the batch
+        statistics without updating the running ones (the L-BFGS step's
+        re-evaluations of a batch, training/lbfgs.py)."""
         y = x.permute(0, 3, 1, 2)
         grad = torch.is_grad_enabled()
         with torch.set_grad_enabled(grad and grad_from <= 0):
             y = _conv_apply(self[0], y)
         with torch.set_grad_enabled(grad and grad_from <= 1):
-            y = _bn(y, self[1], train)
+            y = _bn(y, self[1], train, update_stats)
         with torch.set_grad_enabled(grad and grad_from <= 2):  # relu, maxpool: no params
             y = self[3](F.relu(y))
         for i, layer in enumerate(self.layers(), start=4):
             with torch.set_grad_enabled(grad and grad_from <= i):
                 for blk in layer:
-                    y = blk(y, train)
+                    y = blk(y, train, update_stats)
         return y.permute(0, 2, 3, 1)
 
     def bn_buffers(self):

@@ -20,7 +20,12 @@ The optimizer codec: each group ("decoder", "encoder") is the JAX package's
 sgd's ``trace|<param key>`` (``momentum_buffer``), for the group's own
 parameters only, in JAX's layouts (jax_params.param_keys: HWIO convs,
 [in, out] linear kernels and LSTM weights). A group never stepped writes
-zeros, as optax's initial state holds.
+zeros, as optax's initial state holds. An L-BFGS group's inject state has
+``count`` and ``learning_rate`` only (JAX's lr carrier is never updated, so
+its count stays 0 there; the port counts steps, and neither side reads it
+for an L-BFGS group); its curvature memory is ``<group>_lbfgs|<field>``, the
+JAX package's LBFGSMemory over the group's flat vector in JAX's order and
+layouts (training/lbfgs.py::memory_to_jax).
 """
 
 from __future__ import annotations
@@ -116,6 +121,7 @@ def _opt_flat(dual, net) -> Dict[str, np.ndarray]:
     """The optimizer state under the JAX package's opt.npz keys (module
     docstring), host copies."""
     from adaptive_tpu_torch.models.jax_params import param_keys, to_layout
+    from adaptive_tpu_torch.training.lbfgs import group_segments, memory_to_jax
 
     keys = param_keys(net.encoder.resnet_conv.arch)
     params = dict(net.named_parameters())
@@ -125,6 +131,10 @@ def _opt_flat(dual, net) -> Dict[str, np.ndarray]:
         pg = opt.param_groups[0]
         flat[f"{pre}{SEP}count"] = np.asarray(pg["count"], np.int32)
         flat[f"{pre}{SEP}hyperparams{SEP}learning_rate"] = np.asarray(pg["lr"], np.float32)
+        if isinstance(opt, torch.optim.LBFGS):
+            mem = memory_to_jax(opt, group_segments(net, dual.names(group)))
+            flat.update({f"{group}_lbfgs{SEP}{f}": v for f, v in mem.items()})
+            continue
         inner = f"{pre}{SEP}inner_state{SEP}#1"
         adam = isinstance(opt, torch.optim.Adam)
         fields = ((("mu", "exp_avg"), ("nu", "exp_avg_sq")) if adam
@@ -150,10 +160,15 @@ def restore_opt_state(path: str, dual, net):
     file with the same shape (KeyError / ValueError naming it, as the JAX
     package's restore); the file's other keys are ignored."""
     from adaptive_tpu_torch.models.jax_params import from_layout, param_keys
+    from adaptive_tpu_torch.training.lbfgs import (
+        MEMORY_FIELDS, group_segments, memory_from_jax,
+    )
 
     with np.load(os.path.join(path, "opt.npz")) as data:
         flat = dict(data)
-    want = _opt_flat(dual, net)  # the template: every key, its shape
+    # the template: every key, its shape (a fresh L-BFGS group's zeros are
+    # allocated, never written)
+    want = _opt_flat(dual, net)
     for key, leaf in want.items():
         if key not in flat:
             raise KeyError(f"checkpoint missing leaf {key!r}")
@@ -167,6 +182,10 @@ def restore_opt_state(path: str, dual, net):
         pg = opt.param_groups[0]
         pg["count"] = int(flat[f"{pre}{SEP}count"])
         pg["lr"] = float(flat[f"{pre}{SEP}hyperparams{SEP}learning_rate"])
+        if isinstance(opt, torch.optim.LBFGS):
+            memory_from_jax(opt, {f: flat[f"{group}_lbfgs{SEP}{f}"] for f in MEMORY_FIELDS},
+                            group_segments(net, dual.names(group)))
+            continue
         inner = f"{pre}{SEP}inner_state{SEP}#1"
         adam = isinstance(opt, torch.optim.Adam)
         count = int(flat[f"{inner}{SEP}count"]) if adam else pg["count"]

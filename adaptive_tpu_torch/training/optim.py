@@ -11,23 +11,27 @@ Reference parity: model_factory.py:27-93 —
   opt_fine_tune_cnn_start_epoch+1 (train.py:89-91,111-115).
 * per-group adam (betas (alpha, beta), eps 1e-8) or sgd (Nesterov,
   dampening 0), weight decay as L2 added to the gradient: torch's own
-  semantics, which the JAX package's optax chains reproduce.
+  semantics, which the JAX package's optax chains reproduce; or lbfgs:
+  torch.optim.LBFGS(lr, max_iter, history_size) with torch's defaults for
+  the rest (model_factory.py:54-56,74-76), stepped with a closure by
+  training/lbfgs.py.
 
 Each group's first param_group also counts its updates under "count"
 (optax's inject_hyperparams count; torch's SGD keeps no step), so that
 checkpoints carry it both ways (training/checkpoint.py). Learning rates are
 held at fp32 values, as optax's injected hyperparameters are: a resumed run
-reads back from opt.npz the rate it ran with.
+reads back from opt.npz the rate it ran with. get_lr/set_lr reach an L-BFGS
+group's lr the same way, so the plateau scheduler rescales it
+(train.py:57-60,184-194).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from adaptive_tpu_torch.config import LBFGS_NOT_PORTED
 from adaptive_tpu_torch.models.resnet import CHILD_NAMES, finetune_mask
 
 GROUPS = ("decoder", "encoder")
@@ -52,11 +56,22 @@ class DualOptimizer(NamedTuple):
     def names(self, name: str) -> List[str]:
         return getattr(self, f"{name}_names")
 
-    def step(self, name: str) -> None:
-        """One update of a group from the gradients in .grad."""
+    @property
+    def decoder_is_lbfgs(self) -> bool:
+        return isinstance(self.decoder, torch.optim.LBFGS)
+
+    @property
+    def encoder_is_lbfgs(self) -> bool:
+        return isinstance(self.encoder, torch.optim.LBFGS)
+
+    def step(self, name: str, closure: Optional[Callable[[], torch.Tensor]] = None):
+        """One update of a group: from the gradients in .grad, or for an
+        L-BFGS group one step(closure) (up to max_iter evaluations); returns
+        what the optimizer's step returns (L-BFGS: the first loss)."""
         opt = self.group(name)
-        opt.step()
+        loss = opt.step() if closure is None else opt.step(closure)
         opt.param_groups[0]["count"] += 1
+        return loss
 
 
 def param_group_names(net, cf) -> Dict[str, List[str]]:
@@ -93,7 +108,11 @@ def make_group_optimizer(kind: str, params, cf) -> torch.optim.Optimizer:
             group, lr=_f32(knob("sgd_learning_rate")), momentum=knob("sgd_momentum"),
             dampening=0, weight_decay=knob("sgd_weight_decay"), nesterov=True)
     if opt_name == "lbfgs":
-        raise NotImplementedError(LBFGS_NOT_PORTED)
+        # no line_search_fn, default max_eval and tolerances, as the
+        # reference builds it (model_factory.py:54-56,74-76)
+        return torch.optim.LBFGS(
+            group, lr=_f32(knob("lbfgs_lr")), max_iter=knob("lbfgs_max_iter"),
+            history_size=knob("lbfgs_history"))
     raise ValueError(f"unknown optimizer {opt_name!r}")
 
 

@@ -10,8 +10,9 @@ splits, early stop (patience 6), per-epoch checkpoint named
 'cider-%.4f_model-%d' (train.py:176-178), plus mid-epoch checkpoints and
 auto-resume.
 
-The JAX package's mesh branches and its L-BFGS step are not ported
-(ROADMAP.md, queue 1). The random draws (crop, flip, dropout) come from one
+The JAX package's mesh branches are not ported (ROADMAP.md, queue 1, item
+6). When either optimizer group is L-BFGS the step is training/lbfgs.py's
+closure step (train_loop.py:174-177). The random draws (crop, flip, dropout) come from one
 torch.Generator on the model's device, seeded from train_random_seed; its
 state rides in each checkpoint's manifest under "torch_generator_state" in
 place of the JAX package's "rng_key". A JAX checkpoint resumed here restores
@@ -30,6 +31,7 @@ from adaptive_tpu_torch.data.loader import CocoCaptionDataset, TrainBatches, dev
 from adaptive_tpu_torch.data.vocab import Vocabulary
 from adaptive_tpu_torch.models.factory import get_model, resolve_device
 from adaptive_tpu_torch.training import checkpoint as ckpt
+from adaptive_tpu_torch.training.lbfgs import make_lbfgs_train_step
 from adaptive_tpu_torch.training.optim import get_lr, make_dual_optimizer, set_lr
 from adaptive_tpu_torch.training.schedule import ReduceLROnPlateau, early_stop_Ornot
 from adaptive_tpu_torch.training.step import make_train_step
@@ -38,14 +40,16 @@ from adaptive_tpu_torch.utils.logging import MetricWriter
 GEN_KEY = "torch_generator_state"
 
 
-def main_train(cf, dataset=None, device="cuda", eval_datasets=None):
+def main_train(cf, dataset=None, device="cuda", eval_datasets=None, image_source=None):
     """Returns (net, best_cider, best_epoch); net is the trained
     Encoder2Decoder on the device.
 
     dataset: the train split in place of CocoCaptionDataset over
     cf.train_anno_path's JPEGs (anything TrainBatches takes).
     eval_datasets: {"train_eval": ..., "val": ...}, the per-epoch eval's
-    images in place of their JPEGs (coco_eval's dataset=)."""
+    images in place of their JPEGs (coco_eval's dataset=).
+    image_source: the reader of those JPEGs (file path -> uint8 HWC array)
+    in place of the JPEG decode, for the train split and the evals."""
     device = resolve_device(device)  # no card: raise before any work
     trained_model_path = cf.train_auto_resume_dir or os.path.join(
         cf.exp_dir or ".", "trained_models"
@@ -69,7 +73,8 @@ def main_train(cf, dataset=None, device="cuda", eval_datasets=None):
             print("auto-resume: no checkpoint in", cf.train_auto_resume_dir, "- fresh start")
 
     if dataset is None:
-        dataset = CocoCaptionDataset(cf.resized_image_dir, cf.train_anno_path, vocab)
+        dataset = CocoCaptionDataset(cf.resized_image_dir, cf.train_anno_path, vocab,
+                                     image_source)
     loader = TrainBatches(dataset, cf.train_batch_size, seed=cf.train_random_seed,
                           num_workers=cf.dataloader_num_workers)
 
@@ -134,7 +139,10 @@ def main_train(cf, dataset=None, device="cuda", eval_datasets=None):
             resumed_n_steps = int(meta["epoch_n_steps"])
             print("mid-epoch resume: epoch %d from step %d" % (start_epoch, start_step))
 
-    train_step = make_train_step(model, dual, cf)
+    if dual.decoder_is_lbfgs or dual.encoder_is_lbfgs:
+        train_step = make_lbfgs_train_step(model, dual, cf)
+    else:
+        train_step = make_train_step(model, dual, cf)
 
     # one shared eval decoder: its prepared weights are re-made when the
     # weights change (prepare_cached) and released after each epoch's eval
@@ -255,6 +263,7 @@ def main_train(cf, dataset=None, device="cuda", eval_datasets=None):
             cider_train_eval = coco_eval(
                 cf, model, net, epoch=epoch, train_mode=True, vocab=vocab,
                 decoder=eval_decoder, dataset=eval_datasets.get("train_eval"),
+                image_source=image_source,
             )
             cider_scores_train_eval.append(cider_train_eval)
             print("#---printing train_eval cider_scores---#")
@@ -262,7 +271,7 @@ def main_train(cf, dataset=None, device="cuda", eval_datasets=None):
 
             cider = coco_eval(
                 cf, model, net, epoch=epoch, vocab=vocab, decoder=eval_decoder,
-                dataset=eval_datasets.get("val"),
+                dataset=eval_datasets.get("val"), image_source=image_source,
             )
             cider_scores.append(cider)
             print("#---printing validation cider_scores---#")

@@ -115,3 +115,10 @@ def HMS(sec: float) -> str:
     m, s = divmod(sec, 60)
     h, m = divmod(m, 60)
     return "%dh:%02dm:%02ds" % (h, m, s)
+
+
+def configurationPATH(cf):
+    """Print the experiment's save path (tools/utils.py:286-295)."""
+    print("\n###########################")
+    print(' > Save Path = "%s"' % cf.exp_dir)
+    print("###########################\n")

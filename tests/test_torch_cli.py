@@ -1,0 +1,464 @@
+"""The PyTorch port's CLI pipeline against the JAX package's, on the CPU:
+``load_config`` on every config file, its near-miss warning, ``_validate``'s
+refusals and the knobs the port does not honour yet; ``Experiment`` (the
+experiment dir's name, the stdout tee, the config.json snapshot); the data
+stages (the Karpathy split, the vocabulary, the resize) equal (``==``) to
+JAX's; a pretrained trunk .npz written by JAX's ``save_resnet_npz``; and
+``main(["-c", path], device="cpu")`` through every stage at tiny widths,
+training with an L-BFGS decoder group."""
+
+import glob
+import json
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from adaptive_tpu.config import Config as JConfig
+from adaptive_tpu.config import Experiment as JExperiment
+from adaptive_tpu.config import load_config as jload
+from adaptive_tpu.config.experiment import get_model_description as j_description
+from adaptive_tpu_torch import config as TCF
+from adaptive_tpu_torch.config import Config, load_config
+from adaptive_tpu_torch.experiment import Experiment, get_model_description
+from tests.test_karpathy_split import SUBSETS, _cf, _fake_coco_origin
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.py")))
+
+
+def _fields(cf):
+    return {k: (tuple(v) if isinstance(v, list) else v) for k, v in cf.to_dict().items()}
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
+def test_config_files_load_as_jax(path, capsys):
+    """Every field of every configs/*.py equals JAX's load_config's, with
+    the same warnings printed; a config that sets a knob the port does not
+    honour yet (the v5e-8 mesh and ZeRO-1) raises NotImplementedError
+    naming its ROADMAP.md queue instead of running as if it were honoured."""
+    want = jload(path)
+    want_out = capsys.readouterr().out
+    refused = {k: v for k, v in _fields(want).items()
+               if k in TCF.NOT_PORTED and v != TCF._DEFAULTS[k]}
+    if refused:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, queue 1, item 6"):
+            load_config(path)
+        assert set(refused) <= {"mesh_shape", "mesh_axes", "opt_state_sharding",
+                                "distributed_init"}
+        return
+    got = load_config(path)
+    assert capsys.readouterr().out == want_out
+    assert _fields(got) == _fields(want)
+
+
+def test_near_miss_warning_equal(tmp_path, capsys):
+    """A file variable that is a near-miss of a knob is ignored with JAX's
+    warning, word for word; helper variables stay silent."""
+    p = tmp_path / "cfg.py"
+    p.write_text("num_epochs = 2\nmy_data_root = '/tmp'\ntrain_hidden_size = 3\n"
+                 "vocab_treshold = 4\ntrain_batch_size = 7\nimport os\n_private = 1\n")
+    want = jload(str(p))
+    want_out = capsys.readouterr().out
+    got = load_config(str(p))
+    got_out = capsys.readouterr().out
+    assert got_out == want_out and "IGNORED" in got_out and "my_data_root" not in got_out
+    assert _fields(got) == _fields(want) and got.train_batch_size == 7
+
+
+@pytest.mark.parametrize("source", ["dict", "json", "config"])
+def test_sources_equal(tmp_path, source):
+    """A dict, a .json file and a Config are sources too; unknown keys of a
+    dict or file are dropped, an unknown override raises KeyError."""
+    vals = {"train_batch_size": 5, "mesh_axes": ["data", "model"], "not_a_knob": 1,
+            "opt_rnn_optimization": "lbfgs"}
+    if source == "json":
+        path = tmp_path / "cfg.json"
+        path.write_text(json.dumps(vals))
+        src = jsrc = str(path)
+    elif source == "dict":
+        src = jsrc = vals
+    else:
+        src, jsrc = Config(train_batch_size=5), JConfig(train_batch_size=5)
+    assert _fields(load_config(src)) == _fields(jload(jsrc))
+    for loader in (load_config, jload):
+        with pytest.raises(KeyError, match="nonsense_knob"):
+            loader(None, nonsense_knob=1)
+
+
+BAD = [
+    {"atten_model_name": "transformer"},
+    {"opt_rnn_optimization": "rmsprop"},
+    {"opt_cnn_optimization": "adagrad"},
+    {"compute_dtype": "float16"},
+    {"use_pallas": "sometimes"},
+    {"encoder_quant": "int4"},
+    {"encoder_quant_granularity": "block"},
+    {"opt_state_sharding": "zero3"},
+    {"train_dropout_rate": 1.0},
+    {"train_grad_accum_steps": 0},
+    {"train_batch_size": 6, "train_grad_accum_steps": 4},
+    {"opt_rnn_optimization": "lbfgs", "train_batch_size": 4, "train_grad_accum_steps": 2},
+]
+
+
+@pytest.mark.parametrize("bad", BAD, ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_validate_refusals_equal(bad):
+    """_validate's refusals: the same exception type and message as JAX's
+    load_config, from load_config and from Config itself."""
+    with pytest.raises((ValueError, NotImplementedError)) as want:
+        jload(None, **bad)
+    with pytest.raises(want.type) as got:
+        load_config(None, **bad)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(want.type) as direct:
+        Config(**bad)
+    assert str(direct.value) == str(want.value)
+
+
+NOT_PORTED_VALUES = {
+    "base_word_embed_size": 128, "base_lstm_hidden_size": 256,
+    "rnn_attention_bidirectional": False, "rnn_attention_embed_size": 128,
+    "rnn_attention_numlayers": 2, "rnn_attention_hiddensize": 256,
+    "mesh_axes": ("batch", "model"), "mesh_shape": (4, 2), "opt_state_sharding": "data",
+    "distributed_init": True,
+}
+
+
+@pytest.mark.parametrize("knob", list(NOT_PORTED_VALUES))
+def test_not_ported_knobs_refused(knob):
+    """A knob of a path the port has not taken yet loads at its default and
+    raises NotImplementedError naming its queue at any other value (JAX
+    accepts it); param_dtype, train_tb_gradOrnot and decode_scan_prefix
+    load at any value, as JAX reads the first two nowhere and the third
+    changes no id."""
+    assert set(NOT_PORTED_VALUES) == set(TCF.NOT_PORTED)
+    value = NOT_PORTED_VALUES[knob]
+    jload(None, **{knob: value})
+    item = 6 if knob in ("mesh_axes", "mesh_shape", "opt_state_sharding",
+                         "distributed_init") else 7
+    with pytest.raises(NotImplementedError, match=rf"{knob}=.*queue 1, item {item}"):
+        load_config(None, **{knob: value})
+    assert getattr(load_config(None, **{knob: TCF._DEFAULTS[knob]}), knob) == TCF._DEFAULTS[knob]
+    ok = load_config(None, param_dtype="bfloat16", train_tb_gradOrnot=False, decode_scan_prefix=5)
+    assert ok.decode_scan_prefix == 5
+
+
+FLAGS = [
+    {},
+    {"resizeOrnot": True, "vacab_build_Ornot": True, "KarpathySplitOrnot": True},
+    {"trainOrnot": True},
+    {"trainOrnot": True, "train_pretrained": True, "train_pretrained_model": "a/b/model-3.npz"},
+    {"testOrnot": True, "test_pretrained_model": "Experiments/x/cider-0.9_model-2"},
+    {"validOrnot": True, "valid_pretrained_model": "auto", "trainOrnot": True,
+     "KarpathySplitOrnot": True},
+]
+
+
+@pytest.mark.parametrize("flags", FLAGS, ids=range(len(FLAGS)))
+def test_model_description_equal(flags):
+    assert get_model_description(Config(**flags)) == j_description(JConfig(**flags))
+
+
+def test_experiment_snapshot_and_tee(tmp_path):
+    """The experiment dir '<description>___<stamp>' under experiment_path,
+    the filled-in exp_dir, model_description and log_file, and config.json
+    equal JAX's (but for the paths under each run's own dir); the stdout
+    tee writes logfile.log and is torn down."""
+    kw = dict(trainOrnot=True, train_batch_size=7, opt_rnn_optimization="lbfgs")
+    dirs = {}
+    for name, cls, exp_cls in (("jax", JConfig, JExperiment), ("port", Config, Experiment)):
+        stdout = sys.stdout
+        exp = exp_cls(cls(experiment_path=str(tmp_path / name), **kw))
+        cf = exp.setup()
+        print("inside the tee")
+        exp.teardown()
+        assert sys.stdout is stdout
+        assert os.path.basename(cf.exp_dir).startswith("Train_adaptive_attention___")
+        assert cf.log_file == os.path.join(cf.exp_dir, "logfile.log")
+        with open(cf.log_file) as f:
+            assert "inside the tee" in f.read()
+        with open(os.path.join(cf.exp_dir, "config.json")) as f:
+            snap = json.load(f)
+        dirs[name] = cf.exp_dir
+        for k in ("experiment_path", "exp_dir", "log_file"):
+            snap[k] = os.path.relpath(snap[k], str(tmp_path / name)).replace(
+                os.path.basename(cf.exp_dir), "<run>")
+        dirs[name + "_snap"] = snap
+    assert dirs["port_snap"] == dirs["jax_snap"]
+
+
+def test_karpathy_split_equal(tmp_path):
+    """main_KarpathySplit's 8 files equal (==) JAX's on JAX's fake origin
+    (tests/test_karpathy_split.py), byte for byte."""
+    from adaptive_tpu.data.karpathy_split import main_KarpathySplit as j_split
+    from adaptive_tpu_torch.data.karpathy_split import main_KarpathySplit
+
+    tp, vp = _fake_coco_origin(tmp_path)
+    want = j_split(_cf(tmp_path, "jax_", tp, vp))
+    got = main_KarpathySplit(_cf(tmp_path, "port_", tp, vp))
+    assert got == want and list(got) == SUBSETS
+    for subset in SUBSETS:
+        with open(tmp_path / f"jax_{subset}.json", "rb") as a, \
+                open(tmp_path / f"port_{subset}.json", "rb") as b:
+            assert a.read() == b.read(), subset
+
+
+def test_build_vocab_equal(tmp_path):
+    """main_build_vocab's file equals JAX's (the COCO API path here, JAX's
+    native scanner or API there: the same captions in the same order), at
+    the default threshold and at 1."""
+    from adaptive_tpu.data.synthetic import make_synthetic_dataset
+    from adaptive_tpu.data.vocab import main_build_vocab as j_build
+    from adaptive_tpu_torch.data.vocab import main_build_vocab
+
+    ann, _ = make_synthetic_dataset(str(tmp_path), num_images=40, captions_per_image=3,
+                                    seed=4, write_images=False)
+    for threshold in (5, 1):
+        jp, tp = str(tmp_path / f"j{threshold}.json"), str(tmp_path / f"t{threshold}.json")
+        j_build(JConfig(train_anno_path=ann, vocab_path=jp, vocab_threshold=threshold))
+        v = main_build_vocab(Config(train_anno_path=ann, vocab_path=tp,
+                                    vocab_threshold=threshold))
+        with open(jp, "rb") as a, open(tp, "rb") as b:
+            assert a.read() == b.read()
+        assert len(v) > 4
+
+
+def test_resize_equal(tmp_path):
+    """main_resize_images' files equal JAX's byte for byte (PIL LANCZOS to
+    resized_image_size, the source's format), both splits, a bad file
+    skipped."""
+    from PIL import Image
+
+    from adaptive_tpu.data.resize import main_resize_images as j_resize
+    from adaptive_tpu_torch.data.resize import main_resize_images
+
+    rng = np.random.default_rng(0)
+    for split in ("train2014", "val2014"):
+        d = tmp_path / "raw" / split
+        d.mkdir(parents=True)
+        for i in range(2):
+            Image.fromarray(rng.integers(0, 255, (90 + 9 * i, 70, 3), dtype=np.uint8)).save(
+                d / f"img{i}.jpg")
+    (tmp_path / "raw" / "val2014" / "broken.jpg").write_bytes(b"not a jpeg")
+    for fn, out, cls in ((j_resize, "jax", JConfig), (main_resize_images, "port", Config)):
+        fn(cls(image_dir=str(tmp_path / "raw"), resized_image_dir=str(tmp_path / out),
+               resized_image_size=48))
+    for split in ("train2014", "val2014"):
+        names = sorted(os.listdir(tmp_path / "jax" / split))
+        assert names == sorted(os.listdir(tmp_path / "port" / split)) and len(names) == 2
+        for n in names:
+            a = (tmp_path / "jax" / split / n).read_bytes()
+            assert a == (tmp_path / "port" / split / n).read_bytes()
+            with Image.open(tmp_path / "port" / split / n) as im:
+                assert im.size == (48, 48)
+
+
+def test_pretrained_trunk_equal(tmp_path, tiny_cf):
+    """A trunk .npz written by JAX's save_resnet_npz (a torchvision-layout
+    ResNet-18 with random BN statistics) loads through the port's get_model
+    equal (exact) to JAX's get_model; the heads and decoder keep their init;
+    a training checkpoint restores over the trunk; a wrong arch raises."""
+    import jax
+
+    from adaptive_tpu.models.factory import get_model as j_get_model
+    from adaptive_tpu.models.torch_import import save_resnet_npz
+    from adaptive_tpu_torch.models.factory import get_model
+    from adaptive_tpu_torch.models.jax_params import to_jax
+    from adaptive_tpu_torch.training import checkpoint as TC
+    from tests.test_torch_import import BasicBlock, TorchResNet
+    from tests.torch_port_util import port_cf
+
+    torch.manual_seed(0)
+    tm = TorchResNet(BasicBlock, (2, 2, 2, 2))
+    with torch.no_grad():
+        for m in tm.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_()
+                m.running_var.uniform_(0.5, 2.0)
+    npz = str(tmp_path / "trunk.npz")
+    save_resnet_npz(tm.state_dict(), "resnet18", npz)
+    jcf = tiny_cf.replace(encoder_pretrained_npz=npz)
+    _, jp, js, _ = j_get_model(jcf)
+    _, net, start = get_model(port_cf(jcf), device="cpu")
+    assert start == 1
+    tp, ts = to_jax(net.state_dict(), "resnet18")
+    want = TC.flatten_tree({"resnet": jax.tree.map(np.asarray, jp["encoder"]["resnet"]),
+                            "state": jax.tree.map(np.asarray, js["resnet"])})
+    got = TC.flatten_tree({"resnet": tp["encoder"]["resnet"], "state": ts["resnet"]})
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    _, net0, _ = get_model(port_cf(tiny_cf), device="cpu")  # the same seed, no trunk file
+    for (k, a), b in zip(net.state_dict().items(), net0.state_dict().values()):
+        if not k.startswith("encoder.resnet_conv."):
+            assert torch.equal(a, b), k
+
+    ck = str(tmp_path / "cider-0.1000_model-2")
+    TC.save_checkpoint(ck, net0)
+    _, net2, start = get_model(port_cf(jcf, train_pretrained=True, train_pretrained_model=ck),
+                               device="cpu")
+    assert start == 3
+    assert torch.equal(net2.encoder.resnet_conv[0].weight, net0.encoder.resnet_conv[0].weight)
+    with pytest.raises(KeyError, match="checkpoint missing leaf"):
+        get_model(port_cf(jcf, encoder_backbone="resnet34"), device="cpu")
+
+
+def test_image_source_seam(tmp_path):
+    """CocoCaptionDataset and EvalImageDataset read each image through
+    image_source (called with the file's path) in place of the JPEG decode."""
+    from adaptive_tpu_torch.data.loader import CocoCaptionDataset, EvalImageDataset
+    from adaptive_tpu_torch.data.synthetic import make_synthetic_dataset
+    from adaptive_tpu_torch.data.vocab import Vocabulary
+
+    ann, resized = make_synthetic_dataset(str(tmp_path), num_images=2, write_images=False)
+    seen = []
+
+    def source(path):
+        seen.append(path)
+        return np.full((5, 5, 3), len(seen), np.uint8)
+
+    vocab = Vocabulary(["<pad>", "<start>", "<end>", "<unk>", "a"])
+    image, caption, img_id = CocoCaptionDataset(resized, ann, vocab, source)[1]
+    assert (image == 1).all() and img_id == 2 and caption[0] == 1
+    image, img_id = EvalImageDataset(resized, ann, source)[0]
+    assert (image == 2).all() and img_id == 1
+    assert seen == [os.path.join(resized, "train2014", "COCO_train2014_%012d.jpg" % i)
+                    for i in (2, 1)]
+
+
+def _coco_origin(root, n_train, n_val, size, seed):
+    """Raw COCO-style splits: train2014/ and val2014/ JPEGs of `size` px
+    (the synthetic patterns) and captions_{train,val}2014.json, 2 captions
+    an image from the synthetic grammar."""
+    from PIL import Image
+
+    from adaptive_tpu_torch.data.synthetic import synthetic_caption, synthetic_image
+
+    rng = np.random.default_rng(seed)
+    paths = {}
+    ann_id = 1
+    for split, n, offset in (("train2014", n_train, 0), ("val2014", n_val, 1000)):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        images, anns = [], []
+        for i in range(n):
+            img_id = offset + i + 1
+            name = "COCO_%s_%012d.jpg" % (split, img_id)
+            Image.fromarray(synthetic_image(img_id % 97, size)).save(os.path.join(root, split, name))
+            images.append({"id": img_id, "file_name": name, "height": size, "width": size})
+            for _ in range(2):
+                anns.append({"id": ann_id, "image_id": img_id, "caption": synthetic_caption(rng)})
+                ann_id += 1
+        path = os.path.join(root, "annotations", f"captions_{split}.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump({"info": {}, "licenses": [], "images": images, "annotations": anns}, f)
+        paths[split] = path
+    return paths["train2014"], paths["val2014"]
+
+
+def test_main_runs_every_stage(tmp_path, capsys):
+    """main(["-c", config.py], device="cpu"): resize -> Karpathy split ->
+    vocab -> train (1 epoch, an L-BFGS decoder group, the per-epoch eval) ->
+    valid ("auto") -> test ("auto") at tiny widths. It writes the experiment
+    dir (logfile.log with every stage's banner, config.json; the start,
+    end and ET lines on stdout, outside the tee as in JAX), the split files at the configured sizes, the vocabulary,
+    an epoch checkpoint whose opt.npz holds the L-BFGS memory
+    (decoder_lbfgs|s of shape [history, n]), the eval results, and tears
+    the stdout tee down."""
+    data = tmp_path / "data"
+    train_o, val_o = _coco_origin(str(data / "raw"), 16, 8, 80, seed=1)
+    cfg = tmp_path / "cfg.py"
+    cfg.write_text(f"""
+root = {str(data)!r}
+experiment_path = {str(tmp_path / "Experiments")!r}
+vocab_path = root + "/vocab.json"
+image_dir = root + "/raw"
+resized_image_dir = root + "/resized"
+captions_train_origin = {train_o!r}
+captions_val_origin = {val_o!r}
+splited_anno_path_prefix = root + "/annotations/karpathy_split_"
+train_anno_path = splited_anno_path_prefix + "train.json"
+val_anno_path = splited_anno_path_prefix + "val.json"
+test_anno_path = splited_anno_path_prefix + "test.json"
+train_eval_anno_path = splited_anno_path_prefix + "train_eval.json"
+resizeOrnot = KarpathySplitOrnot = vacab_build_Ornot = True
+trainOrnot = validOrnot = testOrnot = True
+valid_pretrained_model = test_pretrained_model = "auto"
+num_val, num_test, num_train_eval = 4, 4, 4
+num_train_overfit, num_train_hyperparameter = 2, 6
+num_train_eval_hyperparameter, num_val_hyperparameter = 2, 2
+resized_image_size = 72
+vocab_threshold = 1
+encoder_backbone = "resnet18"
+train_crop_size = 64
+adaptive_word_embed_size, adaptive_lstm_hidden_size = 8, 16
+train_num_epochs = 1
+train_batch_size = 8
+eval_batch_size = 4
+decode_max_len = 6
+train_evalOrnot = True
+train_log_step = 1
+dataloader_num_workers = 2
+opt_rnn_optimization = "lbfgs"
+opt_rnn_lbfgs_max_iter = 3
+opt_rnn_lbfgs_history = 4
+""")
+    from adaptive_tpu_torch.main import main
+
+    stdout = sys.stdout
+    main(["-c", str(cfg)], device="cpu")
+    assert sys.stdout is stdout
+    out = capsys.readouterr().out
+    assert "Start Time" in out and "End Time" in out and "ET: " in out
+
+    (exp,) = glob.glob(str(tmp_path / "Experiments" / "*"))
+    assert os.path.basename(exp).startswith(
+        "resize_images_size_72build_vocabulary_vocab_threshold1Karpathy_SplitTrain_"
+        "adaptive_attentionTest_autoValid_auto___")
+    with open(os.path.join(exp, "logfile.log")) as f:
+        log = f.read()
+    for banner in ("resize images", "KarpathySplit", "vocal build", "start train",
+                   "start valid", "start test", "Save Path"):
+        assert banner in log, banner
+    with open(os.path.join(exp, "config.json")) as f:
+        assert json.load(f)["exp_dir"] == exp
+    sizes = {"val": 4, "test": 4, "train": 16, "train_eval": 4, "train_overfit": 2}
+    for subset, n in sizes.items():
+        with open(data / "annotations" / f"karpathy_split_{subset}.json") as f:
+            assert len(json.load(f)["images"]) == n, subset
+    assert len(os.listdir(data / "resized" / "train2014")) == 16
+    vocab = json.loads((data / "vocab.json").read_text())["words"]
+    assert vocab[:4] == ["<pad>", "<start>", "<end>", "<unk>"] and len(vocab) > 20
+
+    (ckpt,) = glob.glob(os.path.join(exp, "trained_models", "cider-*_model-1"))
+    with np.load(os.path.join(ckpt, "opt.npz")) as opt:
+        s, n_iter = opt["decoder_lbfgs|s"], int(opt["decoder_lbfgs|n_iter"])
+    # 4 steps (32 captions, batch 8) of 2 iterations each: torch's default
+    # max_eval = max_iter * 5 // 4 = 3 evaluations stops max_iter 3 at 2
+    assert s.shape[0] == 4 and s.shape[1] > 1000 and n_iter == 4 * 2
+    results = os.listdir(os.path.join(exp, "val_results"))
+    assert "validation-1.json" in results and any(r.startswith("Experiments") or "cider" in r
+                                                  for r in results)
+    test_res = [r for r in os.listdir(exp) if r.endswith(".json") and "cider" in r]
+    assert len(test_res) == 1
+    with open(os.path.join(exp, test_res[0])) as f:
+        assert len(json.load(f)) == 4
+
+
+def test_main_refuses_without_card(tmp_path, monkeypatch):
+    """The entry points run on the card unless asked for the CPU: with no
+    card, main raises before it makes the experiment dir, and process
+    before any stage."""
+    from adaptive_tpu_torch.main import main, process
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tmp_path / "cfg.py"
+    cfg.write_text(f"experiment_path = {str(tmp_path / 'E')!r}\nKarpathySplitOrnot = True\n")
+    with pytest.raises(RuntimeError, match="is_available"):
+        main(["-c", str(cfg)])
+    assert not (tmp_path / "E").exists()
+    with pytest.raises(RuntimeError, match="is_available"):
+        process(Config(KarpathySplitOrnot=True))

@@ -172,9 +172,10 @@ def test_prepare_cached_serves_a_replaced_parameter_until_clear(setup):
 
 def test_port_imports_no_jax():
     """A fresh process imports the port and decodes on the CPU, greedy and
-    beam, scores a 2-image synthetic split through the eval driver, and
-    takes a train step and writes its checkpoint, without loading jax or any
-    module of the JAX package."""
+    beam, scores a 2-image synthetic split through coco_eval, takes a
+    train step and writes its checkpoint, takes an L-BFGS step (both groups)
+    and writes its checkpoint, and runs the CLI's main on a config file with
+    no stage on, without loading jax or any module of the JAX package."""
     code = textwrap.dedent("""
         import sys
         import tempfile
@@ -216,6 +217,23 @@ def test_port_imports_no_jax():
         with tempfile.TemporaryDirectory() as root:
             checkpoint.save_checkpoint(root + "/cider-0.0000_model-1", net, dual)
             checkpoint.restore_opt_state(root + "/cider-0.0000_model-1", dual, net)
+        from adaptive_tpu_torch import experiment, main as cli
+        from adaptive_tpu_torch.config import load_config
+        from adaptive_tpu_torch.data import karpathy_split, resize
+        from adaptive_tpu_torch.models import torch_import
+        from adaptive_tpu_torch.training import lbfgs
+        lcf = load_config(cf, opt_rnn_optimization="lbfgs", opt_cnn_optimization="lbfgs",
+                          opt_rnn_lbfgs_max_iter=2, opt_cnn_lbfgs_max_iter=2,
+                          opt_rnn_lbfgs_history=2, opt_cnn_lbfgs_history=2)
+        dual = optim.make_dual_optimizer(net, lcf)
+        out = lbfgs.make_lbfgs_train_step(model, dual, lcf)(net, batch, torch.Generator(), True)
+        assert np.isfinite(float(out.loss))
+        with tempfile.TemporaryDirectory() as root:
+            checkpoint.save_checkpoint(root + "/cider-0.0000_model-1", net, dual)
+            checkpoint.restore_opt_state(root + "/cider-0.0000_model-1", dual, net)
+            with open(root + "/cfg.py", "w") as f:
+                f.write(f"experiment_path = {root!r}\\n")
+            cli.main(["-c", root + "/cfg.py"], device="cpu")
         bad = [m for m in sys.modules
                if m in ("jax", "adaptive_tpu") or m.startswith(("jax.", "adaptive_tpu."))]
         print("BAD", bad)

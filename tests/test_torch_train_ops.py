@@ -224,15 +224,15 @@ def test_plateau_and_early_stop_equal_jax():
 
 
 def test_config_training_checks():
-    """The JAX _validate checks of the training knobs; lbfgs is not ported."""
+    """The JAX _validate checks of the training knobs; lbfgs is accepted
+    (training/lbfgs.py), but not with accumulation."""
     for kw in ({"opt_rnn_optimization": "rmsprop"}, {"train_dropout_rate": 1.0},
                {"train_grad_accum_steps": 0}, {"train_batch_size": 6, "train_grad_accum_steps": 4}):
         with pytest.raises(ValueError):
             Config(**kw)
     with pytest.raises(NotImplementedError, match="not supported with lbfgs"):
         Config(opt_cnn_optimization="lbfgs", train_grad_accum_steps=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
-        Config(opt_rnn_optimization="lbfgs")
+    assert Config(opt_rnn_optimization="lbfgs").opt_rnn_lbfgs_max_iter == 20
     cf = Config(train_batch_size=6, train_grad_accum_steps=3, train_dropout_rate=0.5)
     assert cf.opt_fine_tune_cnn_start_layer == 5 and cf.train_lstm_maxnormal == 5.0
 
