@@ -22,7 +22,7 @@ import torch
 
 from adaptive_tpu_torch.decoding.greedy import prepare_cached
 from adaptive_tpu_torch.models.decoders import DecodeState
-from adaptive_tpu_torch.ops.fused_step import topk_lower_index_first
+from adaptive_tpu_torch.ops.fused_step import topk_lower_index_first, tracing
 from adaptive_tpu_torch.ops.preprocess import eval_preprocess
 
 NEG_INF = -1e9  # a dead beam's score (the head kernels' mask is -1e30)
@@ -60,7 +60,8 @@ def backtrack(hist):
 
 def make_beam_decoder(model, cf, beam_size: int = None, length_alpha: float = 0.0):
     """Returns decode(net, images_u8) -> BeamOutput, beam width beam_size
-    (cf.beam_size when None). images_u8 and net as make_greedy_decoder's.
+    (cf.beam_size when None). images_u8 and net as make_greedy_decoder's;
+    traced by torch.export, early exit runs as make_greedy_decoder's does.
 
     On the fused path with cf.decode_beam_major (the default), V/pv stay
     untiled and the cell kernel reads each image's slots once for its W beam
@@ -112,10 +113,14 @@ def make_beam_decoder(model, cf, beam_size: int = None, length_alpha: float = 0.
             return x.reshape(B, W, *x.shape[1:])[img[:, None], src].reshape(B * W, *x.shape[1:])
 
         hist = []  # per step: (token [B,W], parent [B,W], alpha [B,W,K], beta [B,W])
+        traced = tracing(V)  # torch.export: no break on data
         for _ in range(max_len):
             logp_top, tok_top, alpha, beta, dstate = model.beam_decode_step(
                 dec, tokens.reshape(B * W), vg_t, dstate, V_t, W, sentinel_prev,
                 pv=pv_t, head=head, beam_w=beam_w, cell_t=cell)
+            if early_exit and traced:  # the steps after the exit: zero maps
+                live = ~finished.all()
+                alpha, beta = alpha * live, beta * live
             logp_top = torch.where(finished[..., None], eos_row, logp_top.reshape(B, W, W))
             tok_top = tok_top.reshape(B, W, W).masked_fill(finished[..., None], eos)
             cand = scores[..., None] + logp_top  # [B, W, W] fp32
@@ -128,7 +133,7 @@ def make_beam_decoder(model, cf, beam_size: int = None, length_alpha: float = 0.
             hist.append((new_tok, src, alpha.float().reshape(B, W, K),
                          beta.float().reshape(B, W)))
             tokens = new_tok
-            if early_exit and bool(finished.all()):
+            if early_exit and not traced and bool(finished.all()):
                 break
         # early exit: the fixed loop's all-finished steps. Scores are sorted
         # after every step and ties rank the lower flat index first, so the

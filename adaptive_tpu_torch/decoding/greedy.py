@@ -6,6 +6,9 @@ Like the reference sampler, all decode_max_len steps run by default, from
 <end> downstream. ``decode_early_exit=True`` stops once every row has
 emitted <end>: ids stay identical (the tail is filled with the <end> the
 fixed loop would emit); attention and beta after the global exit are zeros.
+Traced by torch.export (export.py), where the loop cannot break on data,
+the early-exit decoder runs every step and zeroes attention and beta after
+the exit step, which gives the same outputs.
 
 The JAX package scans the step inside one compiled program; here the step is
 a Python loop over eager calls, two kernel launches per step on the fused
@@ -19,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from adaptive_tpu_torch.ops.fused_step import tracing
 from adaptive_tpu_torch.ops.preprocess import eval_preprocess
 
 
@@ -89,16 +93,20 @@ def make_greedy_decoder(model, cf):
         tok = torch.full((B,), start, dtype=torch.int32, device=model.device)
         finished = torch.zeros((B,), dtype=torch.bool, device=model.device)
         ids, alphas, betas = [], [], []
+        traced = tracing(V)  # torch.export: no break on data (module docstring)
         for _ in range(max_len):
             nxt, alpha, beta, dstate = model.greedy_decode_step(
                 dec, tok, v_g, dstate, V, sentinel_prev, pv=pv, head=head, cell_t=cell)
+            if early_exit and traced:  # the steps after the exit: zero maps
+                live = ~finished.all()
+                alpha, beta = alpha * live, beta * live
             nxt = torch.where(finished, torch.full_like(nxt, eos), nxt)
             finished = finished | (nxt == eos)
             ids.append(nxt)
             alphas.append(alpha)
             betas.append(beta[:, 0])
             tok = nxt
-            if early_exit and bool(finished.all()):
+            if early_exit and not traced and bool(finished.all()):
                 break
         for _ in range(max_len - len(ids)):  # early exit: the fixed loop's tail
             ids.append(torch.full_like(ids[-1], eos))

@@ -181,12 +181,14 @@ def from_jax(params: Dict, state: Dict, arch: str) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def to_jax(sd: Dict[str, torch.Tensor], arch: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """Inverse of from_jax: state_dict -> JAX (params, state), numpy leaves."""
+def resnet_to_jax(sd: Dict[str, torch.Tensor], arch: str,
+                  prefix: str = "encoder.resnet_conv.") -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The backbone's part of to_jax: the (params, BN state) trees of the
+    ResNet whose state_dict keys start with prefix."""
     rn_p: Dict[str, Any] = {}
     rn_s: Dict[str, Any] = {}
-    for prefix, ppath, spath in _resnet_entries(arch):
-        key = f"encoder.resnet_conv.{prefix}"
+    for name, ppath, spath in _resnet_entries(arch):
+        key = f"{prefix}{name}"
         if f"{key}.weight" not in sd:
             continue
         w = _n(sd[f"{key}.weight"])
@@ -196,6 +198,12 @@ def to_jax(sd: Dict[str, torch.Tensor], arch: str) -> Tuple[Dict[str, Any], Dict
             _set(rn_p, ppath, {"scale": w, "bias": _n(sd[f"{key}.bias"])})
             _set(rn_s, spath, {"mean": _n(sd[f"{key}.running_mean"]),
                                "var": _n(sd[f"{key}.running_var"])})
+    return rn_p, rn_s
+
+
+def to_jax(sd: Dict[str, torch.Tensor], arch: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Inverse of from_jax: state_dict -> JAX (params, state), numpy leaves."""
+    rn_p, rn_s = resnet_to_jax(sd, arch)
     enc: Dict[str, Any] = {"resnet": rn_p}
     for name in _HEADS:
         enc[name] = {"kernel": _n(sd[f"encoder.{name}.weight"]).T,

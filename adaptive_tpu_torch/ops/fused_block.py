@@ -43,7 +43,7 @@ from typing import Iterator, NamedTuple, Tuple
 import torch
 
 from adaptive_tpu_torch.ops.fused_step import (
-    _check_cuda, _check_device, _check_shape, _ptr, _raise_on,
+    _check_cuda, _check_device, _check_runs_on, _check_shape, _ptr, _raise_on, define_op,
 )
 from adaptive_tpu_torch.ops.int8 import f32, im2col, int_mm, requant
 
@@ -242,13 +242,17 @@ def bottleneck_identity_int8(x, H: int, W: int, w1, w2, w3, sc1, b1, sc2, b2, sc
                              s2: float, s3: float, s_in: float, s_out: float):
     """The fused identity bottleneck block (arguments as the twin's).
     Launches the CUDA kernel for CUDA tensors; runs the plain twin for CPU
-    tensors."""
+    tensors; under a tracer it calls the operator
+    adaptive_tpu_torch::bottleneck_identity_int8 (ops/fused_step.py::
+    define_op)."""
     rows = (sc1, b1, sc2, b2, sc3, b3)
     _check_block(x, H, W, w1, w2, w3, rows)
-    if x.device.type == "cpu":
-        return bottleneck_identity_int8_plain(x, H, W, w1, w2, w3, *rows, s2, s3, s_in, s_out)
-    if x.device.type != "cuda":
-        raise ValueError(f"bottleneck_identity_int8 runs on cuda or cpu, not {x.device}")
+    _check_runs_on("bottleneck_identity_int8", x.device)
+    return _bottleneck_op(x, H, W, w1, w2, w3, *rows, s2, s3, s_in, s_out)
+
+
+def _bottleneck_cuda(x, H, W, w1, w2, w3, sc1, b1, sc2, b2, sc3, b3, s2, s3, s_in, s_out):
+    rows = (sc1, b1, sc2, b2, sc3, b3)
     _check_cuda(("x", "w1", "w2", "w3"), (x, w1, w2, w3), torch.int8, x.device)
     _check_cuda(("sc1", "b1", "sc2", "b2", "sc3", "b3"), rows, torch.float32, x.device)
     N, C = x.shape
@@ -258,4 +262,9 @@ def bottleneck_identity_int8(x, H: int, W: int, w1, w2, w3, sc1, b1, sc2, b2, sc
     return out
 
 
+_bottleneck_op = define_op(
+    "bottleneck_identity_int8(Tensor x, int H, int W, Tensor w1, Tensor w2, Tensor w3, "
+    "Tensor sc1, Tensor b1, Tensor sc2, Tensor b2, Tensor sc3, Tensor b3, float s2, float s3, "
+    "float s_in, float s_out) -> Tensor",
+    bottleneck_identity_int8_plain, _bottleneck_cuda, lambda x, *rest: torch.empty_like(x))
 bottleneck_identity_int8.launches = 0

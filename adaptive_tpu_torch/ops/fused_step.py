@@ -19,6 +19,16 @@ arithmetic the kernel must reproduce: fp32 inside, the same casts, the same
 attribute, ``<wrapper>.launches`` (``decode_cell.launches_beam`` for the
 beam-major cell, beam_w > 1): one call counts one launch.
 
+Each wrapper's kernel and twin are also an operator of the
+``adaptive_tpu_torch`` namespace (``define_op``): the operator's CUDA
+implementation is the checked launch and its count, its CPU implementation
+the twin, and its fake implementation the output shapes. The launches are
+ctypes calls on raw pointers, which ``torch.export`` cannot trace; under a
+tracer the wrapper calls the operator, so that an exported decoder
+(export.py) records it and runs the same launches, counted, when it is
+called. On real tensors the wrapper runs the same implementations without
+the dispatcher.
+
 The cell has two instances, picked by ``cell_instance``. In bf16 with H and
 E2 multiples of 64, "mma": two kernels that one call starts back to back.
 Stage 1 runs the LSTM gates and the sentinel's pre-activation as bf16
@@ -99,6 +109,49 @@ def _check_shape(name, t, shape):
 def _raise_on(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: cudaError_t {err}")
+
+
+def _check_runs_on(what: str, device):
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {device}")
+
+
+def tracing(t: torch.Tensor) -> bool:
+    """Whether t is a tracer's tensor (torch.export, torch.compile), not a
+    real one: a traced program records operators and cannot branch on
+    data."""
+    return type(t) is not torch.Tensor or torch.compiler.is_compiling()
+
+
+# The operators of the kernels (module docstring). One library holds them
+# all; ops/fused_block.py and ops/fused_tail.py define theirs in it too.
+LIBRARY = torch.library.Library("adaptive_tpu_torch", "DEF")
+
+
+def define_op(schema: str, cpu, cuda, fake, on: int = 0):
+    """Define ``adaptive_tpu_torch::<name>`` by its schema, with the plain
+    twin as its CPU kernel, the launch as its CUDA kernel and the output
+    shapes as its fake kernel. Returns call(*args): for a real tensor as
+    argument ``on`` it runs the CPU or CUDA kernel itself (through the
+    dispatcher's boxed call a host-bound decode step took ~60-100 us more
+    host time, PERF.md §6); for a tracer's tensor (torch.export,
+    torch.compile) it calls the operator, which the trace records. call.op
+    is the operator."""
+    name = schema.split("(", 1)[0]
+    LIBRARY.define(schema)
+    LIBRARY.impl(name, cpu, "CPU")
+    LIBRARY.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"adaptive_tpu_torch::{name}", fake, lib=LIBRARY)
+    op = getattr(torch.ops.adaptive_tpu_torch, name)
+
+    def call(*args):
+        x = args[on]
+        if tracing(x):
+            return op(*args)
+        return (cuda if x.is_cuda else cpu)(*args)
+
+    call.op = op
+    return call
 
 
 # ----------------------------------------------------------------- decode cell
@@ -296,10 +349,19 @@ def decode_cell(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh, beam_w=1,
     (beam_w > 1, the beam-major kernel): one a call, though the mma
     instance starts two kernels."""
     _check_beam_rows(h.shape[0], V, pv, beam_w)
-    if gx.device.type == "cpu":
-        return decode_cell_plain(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh, beam_w)
-    if gx.device.type != "cuda":
-        raise ValueError(f"decode_cell runs on cuda or cpu, not {gx.device}")
+    _check_runs_on("decode_cell", gx.device)
+    tiles = (None, None, None) if cell_t is None else tuple(cell_t)
+    return tuple(_decode_cell_op(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh, beam_w,
+                                 *tiles))
+
+
+def _decode_cell_cpu(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh, beam_w, *tiles):
+    return decode_cell_plain(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh, beam_w)
+
+
+def _decode_cell_cuda(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh, beam_w, whh_t,
+                      wsen_t, watt_t):
+    cell_t = None if whh_t is None else CellTiles(whh_t, wsen_t, watt_t)
     out = decode_cell_run(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh, beam_w,
                           cell_t=cell_t)
     if beam_w == 1:
@@ -309,6 +371,19 @@ def decode_cell(gx, h, c, x, hp, pv, V, whh, bhh, wx, whs, wg, ws, wh, beam_w=1,
     return out[:5]
 
 
+def _decode_cell_fake(gx, h, c, x, hp, pv, V, *weights_and_tiles):
+    R, H = h.shape
+    return (*(h.new_empty((R, H)) for _ in range(3)),
+            h.new_empty((R, pv.shape[1]), dtype=torch.float32),
+            h.new_empty((R, 1), dtype=torch.float32))
+
+
+_decode_cell_op = define_op(
+    "decode_cell(Tensor gx, Tensor h, Tensor c, Tensor x, Tensor hp, Tensor pv, Tensor V, "
+    "Tensor whh, Tensor bhh, Tensor wx, Tensor whs, Tensor wg, Tensor ws, Tensor wh, "
+    "int beam_w, Tensor? whh_t, Tensor? wsen_t, Tensor? watt_t) "
+    "-> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _decode_cell_cpu, _decode_cell_cuda, _decode_cell_fake)
 decode_cell.launches = 0
 decode_cell.launches_beam = 0
 
@@ -453,10 +528,15 @@ def greedy_head_argmax(head_kernel, head_bias, chat, h, vocab_len: int, head_ker
     the tiled weight (made here, a copy a call, where the tensor-core
     instance runs without it). Launches the CUDA kernel for CUDA tensors;
     runs the plain twin for CPU tensors."""
-    if chat.device.type == "cpu":
-        return greedy_head_argmax_plain(head_kernel, head_bias, chat, h, vocab_len)
-    if chat.device.type != "cuda":
-        raise ValueError(f"greedy_head_argmax runs on cuda or cpu, not {chat.device}")
+    _check_runs_on("greedy_head_argmax", chat.device)
+    return _greedy_head_argmax_op(head_kernel, head_bias, chat, h, vocab_len, head_kernel_t)
+
+
+def _greedy_head_argmax_cpu(head_kernel, head_bias, chat, h, vocab_len, head_kernel_t):
+    return greedy_head_argmax_plain(head_kernel, head_bias, chat, h, vocab_len)
+
+
+def _greedy_head_argmax_cuda(head_kernel, head_bias, chat, h, vocab_len, head_kernel_t):
     from adaptive_tpu_torch.ops.cuda import build
 
     instance, w_t = _check_head("greedy_head_argmax", head_kernel, head_bias, chat, h,
@@ -481,6 +561,12 @@ def greedy_head_argmax(head_kernel, head_bias, chat, h, vocab_len: int, head_ker
     return out
 
 
+_greedy_head_argmax_op = define_op(
+    "greedy_head_argmax(Tensor head_kernel, Tensor head_bias, Tensor chat, Tensor h, "
+    "int vocab_len, Tensor? head_kernel_t) -> Tensor",
+    _greedy_head_argmax_cpu, _greedy_head_argmax_cuda,
+    lambda head_kernel, head_bias, chat, *rest: chat.new_empty(chat.shape[:1],
+                                                               dtype=torch.int32), on=2)
 greedy_head_argmax.launches = 0
 
 
@@ -517,10 +603,16 @@ def beam_head_topk(head_kernel, head_bias, chat, h, vocab_len: int, W: int, head
     twin for CPU tensors."""
     if not 1 <= W <= HEAD_TILE:
         raise ValueError(f"beam_head_topk takes 1 <= W <= {HEAD_TILE}, got W={W}")
-    if chat.device.type == "cpu":
-        return beam_head_topk_plain(head_kernel, head_bias, chat, h, vocab_len, W)
-    if chat.device.type != "cuda":
-        raise ValueError(f"beam_head_topk runs on cuda or cpu, not {chat.device}")
+    _check_runs_on("beam_head_topk", chat.device)
+    return tuple(_beam_head_topk_op(head_kernel, head_bias, chat, h, vocab_len, W,
+                                    head_kernel_t))
+
+
+def _beam_head_topk_cpu(head_kernel, head_bias, chat, h, vocab_len, W, head_kernel_t):
+    return beam_head_topk_plain(head_kernel, head_bias, chat, h, vocab_len, W)
+
+
+def _beam_head_topk_cuda(head_kernel, head_bias, chat, h, vocab_len, W, head_kernel_t):
     from adaptive_tpu_torch.ops.cuda import build
 
     instance, w_t = _check_head("beam_head_topk", head_kernel, head_bias, chat, h, vocab_len,
@@ -549,6 +641,16 @@ def beam_head_topk(head_kernel, head_bias, chat, h, vocab_len: int, W: int, head
     return topv, topi, lse
 
 
+def _beam_head_topk_fake(head_kernel, head_bias, chat, h, vocab_len, W, head_kernel_t):
+    R = chat.shape[0]
+    return (chat.new_empty((R, W), dtype=torch.float32), chat.new_empty((R, W), dtype=torch.int32),
+            chat.new_empty((R, 1), dtype=torch.float32))
+
+
+_beam_head_topk_op = define_op(
+    "beam_head_topk(Tensor head_kernel, Tensor head_bias, Tensor chat, Tensor h, "
+    "int vocab_len, int W, Tensor? head_kernel_t) -> (Tensor, Tensor, Tensor)",
+    _beam_head_topk_cpu, _beam_head_topk_cuda, _beam_head_topk_fake, on=2)
 beam_head_topk.launches = 0
 
 KERNEL_WRAPPERS = (decode_cell, greedy_head_argmax, beam_head_topk)

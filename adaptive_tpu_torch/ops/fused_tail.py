@@ -36,7 +36,7 @@ from adaptive_tpu_torch.ops.fused_block import (
     MAX_SMEM, RING_PASS, RING_STAGES, TWO_BLOCK_GAIN, TWO_BLOCK_SMEM, _act_ld, _stage_cost,
 )
 from adaptive_tpu_torch.ops.fused_step import (
-    _check_cuda, _check_device, _check_shape, _ptr, _raise_on,
+    _check_cuda, _check_device, _check_runs_on, _check_shape, _ptr, _raise_on, define_op,
 )
 from adaptive_tpu_torch.ops.int8 import f32, int_mm, requant
 
@@ -161,7 +161,8 @@ def tail_conv1_int8(x, z2, w3, sc3, b3, w1, sc1, b1, s_in: float, s_out: float,
                     s_next: float):
     """The fused tail + conv1 pair (arguments as the twin's). Launches the
     CUDA kernel under tail_plan's plan for CUDA tensors; runs the plain
-    twin for CPU tensors."""
+    twin for CPU tensors; under a tracer it calls the operator
+    adaptive_tpu_torch::tail_conv1_int8 (ops/fused_step.py::define_op)."""
     N, C = x.shape
     M, M2 = z2.shape[1], w1.shape[0]
     if C % 8 or M % 8 or M2 % 8:
@@ -172,10 +173,13 @@ def tail_conv1_int8(x, z2, w3, sc3, b3, w1, sc1, b1, s_in: float, s_out: float,
         _check_shape(name, t, shape)
     _check_device(("z2", "w3", "sc3", "b3", "w1", "sc1", "b1"), (z2, w3, sc3, b3, w1, sc1, b1),
                   x.device)
-    if x.device.type == "cpu":
-        return tail_conv1_int8_plain(x, z2, w3, sc3, b3, w1, sc1, b1, s_in, s_out, s_next)
-    if x.device.type != "cuda":
-        raise ValueError(f"tail_conv1_int8 runs on cuda or cpu, not {x.device}")
+    _check_runs_on("tail_conv1_int8", x.device)
+    return tuple(_tail_op(x, z2, w3, sc3, b3, w1, sc1, b1, s_in, s_out, s_next))
+
+
+def _tail_cuda(x, z2, w3, sc3, b3, w1, sc1, b1, s_in, s_out, s_next):
+    N, C = x.shape
+    M, M2 = z2.shape[1], w1.shape[0]
     _check_cuda(("x", "z2", "w3", "w1"), (x, z2, w3, w1), torch.int8, x.device)
     _check_cuda(("sc3", "b3", "sc1", "b1"), (sc3, b3, sc1, b1), torch.float32, x.device)
     out, z1 = _launch_tail(tail_plan(N, C, M, M2), x, z2, w3, sc3, b3, w1, sc1, b1, s_in,
@@ -184,4 +188,12 @@ def tail_conv1_int8(x, z2, w3, sc3, b3, w1, sc1, b1, s_in: float, s_out: float,
     return out, z1
 
 
+def _tail_fake(x, z2, w3, sc3, b3, w1, *rest):
+    return torch.empty_like(x), x.new_empty((x.shape[0], w1.shape[0]))
+
+
+_tail_op = define_op(
+    "tail_conv1_int8(Tensor x, Tensor z2, Tensor w3, Tensor sc3, Tensor b3, Tensor w1, "
+    "Tensor sc1, Tensor b1, float s_in, float s_out, float s_next) -> (Tensor, Tensor)",
+    tail_conv1_int8_plain, _tail_cuda, _tail_fake)
 tail_conv1_int8.launches = 0

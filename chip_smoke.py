@@ -105,13 +105,31 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    vocabulary, the checkpoint's L-BFGS memory, the launches of kernels 1
    and 2, the results and each stage's seconds.
 
+10. serves and exports (serving.py, export.py) and runs the int8 gate:
+   10a CaptionService at batch 32 (max wait 20 ms) on a seeded full-width
+   bf16 model, greedy on the exact encoder, int8 (a) and beam 3: 64 seeded
+   images served in waves of 32 from client threads give the captions of a
+   direct decode of the same images; the service's worker launched kernels
+   1 and 2 (3 and 4) 30 times a batch while the caller launched nothing;
+   requests == completed + errors + shed + invalid + timeouts; the weights
+   prepared once; device_decode_ms (a batch on the card, utils/profiling.py::
+   Timer) and an open-loop sweep of 3 rates (tools/torch_serving_bench.py::
+   run_level: p50/p90/p99, shed share, goodput); 10b the greedy decoder
+   exported at batch 8 (torch.export through the kernels' torch.library
+   operators), saved, loaded and run: ids equal the in-process decoder's,
+   beta within 1e-6, and a torch.profiler trace of one call (read by
+   utils/trace_report.py) shows 30 launches of each of kernels 1 and 2;
+   10c tools/torch_int8_gate.py at 128 images and 2 epochs: all six modes
+   scored, (b) and (c) captioning every image as per-tensor (t) does.
+
 Phases run in the order 1, 2, 2b, 3, 3b, 2c, 5, 4, 4b, 6, 7, 7b, 8a, 8b, 8c,
-9a, 9b, 9c.
+9a, 9b, 9c, 10a, 10b, 10c.
 
 Prints one JSON line of per-kernel numbers, one of the eval driver's
 numbers ({"eval_driver": ...}), one of training's ({"train": ...}), one of
-the L-BFGS step's ({"lbfgs": ...}), one of the CLI's ({"cli": ...}), then
-as its last line
+the L-BFGS step's ({"lbfgs": ...}), one of the CLI's ({"cli": ...}), one of
+serving's, the export's and the gate's ({"serving": ...}), then as its last
+line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Exits 2 without a result where
 there is no CUDA card or the package is not beside this script.
@@ -221,6 +239,16 @@ CLI_IMAGES, CLI_REFS, CLI_SPLIT, CLI_MAX_ITER = 2000, 5, 400, 10
 # the Karpathy split's hyperparameter subsets (train, train_eval, val): the
 # reference's 5,000 / 1,000 / 1,000 cut to the origin's size
 CLI_HYPER = (1000, 200, 200)
+# phase 10: serving at tools/torch_serving_bench.py's batch and window; 10a
+# serves SERVE_IMAGES seeded images in waves of SERVE_B and an open-loop
+# sweep of SERVE_QPS for SERVE_LEVEL_S each; 10b exports greedy at EXPORT_B;
+# 10c the int8 gate (tools/torch_int8_gate.py) cut from 512 images and 7
+# epochs to GATE_IMAGES and GATE_EPOCHS, fine-tuning from epoch 2 (3) so
+# that the encoder group steps
+SERVE_B, SERVE_WAIT_MS, SERVE_IMAGES = 32, 20.0, 64
+SERVE_QPS, SERVE_LEVEL_S = (32, 256, 1024), 4.0
+EXPORT_B, EXPORT_BETA_ATOL = 8, 1e-6
+GATE_IMAGES, GATE_EPOCHS, GATE_FINETUNE_EPOCH = 128, 2, 2
 
 
 def log(msg):
@@ -1045,39 +1073,37 @@ def int8_parity(cf, net_g, net_c):
 
 
 def profile_decode(run, out_dir, smi, tag):
-    """torch.profiler over one end-to-end decode: device time by kernel name
-    (all of it to out_dir/profile_e2e_<tag>.txt, the largest printed) and the
-    device's busy share of the window (union of kernel intervals over the
-    wall time)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """torch.profiler over one end-to-end run (utils/profiling.py::
+    profile_trace, its Chrome trace in a temporary dir), read through
+    utils/trace_report.py: device time by kernel name (all of it to
+    out_dir/profile_e2e_<tag>.txt, the largest printed) and the device's
+    busy share of the window (union of kernel intervals over the wall
+    time). Returns the kernel table [(name, ms, launches)]."""
+    import tempfile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]  # e.g. Optimizer.step ranges
-    busy, end = 0.0, float("-inf")
-    for s, e in sorted((k.time_range.start, k.time_range.end) for k in kernels):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    by_name = {}
-    for k in kernels:
-        us, n = by_name.get(k.name, (0.0, 0))
-        by_name[k.name] = (us + k.time_range.elapsed_us(), n + 1)
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    total = sum(us for us, _ in by_name.values())
+    import torch
+
+    from adaptive_tpu_torch.utils import trace_report
+    from adaptive_tpu_torch.utils.profiling import profile_trace
+
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with profile_trace(trace_dir):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = trace_report.load_trace_events(trace_dir)
+    rows = trace_report.device_op_summary(events)
+    busy = trace_report.stage_split(events)["busy_ms"] * 1e3
+    total = sum(ms for _, ms, _ in rows) * 1e3
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"profile_e2e_{tag}.txt"), "w") as f:
         f.write(f"{smi}; wall {wall_us:.1f} us, busy {busy:.1f} us\n")
-        f.writelines(f"{us:12.1f} us {n:6d}x  {name}\n" for name, (us, n) in rows)
+        f.writelines(f"{ms * 1e3:12.1f} us {n:6d}x  {name}\n" for name, ms, n in rows)
     log(f"[profile {tag} bf16] {smi}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
         f"({busy / wall_us:.4f} of the window), kernel time {total / 1e3:.3f} ms; top: "
-        + "; ".join(f"{name[:70]} {us / 1e3:.3f} ms x{n}" for name, (us, n) in rows[:10]))
+        + "; ".join(f"{name[:70]} {ms:.3f} ms x{n}" for name, ms, n in rows[:10]))
+    return rows
 
 
 # ----------------------------------------------------------------- phase 4
@@ -2443,6 +2469,252 @@ opt_rnn_lbfgs_max_iter = {CLI_MAX_ITER}
             "launches": launches, "cider": ciders}
 
 
+# ---------------------------------------------------------------- phase 10
+def filler_vocab():
+    """VOCAB words: the four specials and filler words (the serving bench's)."""
+    from adaptive_tpu_torch.data.vocab import Vocabulary
+
+    return Vocabulary(["<pad>", "<start>", "<end>", "<unk>"] + [f"w{i}" for i in range(VOCAB - 4)])
+
+
+def tools_module(name):
+    """A module of tools/ (the serving bench, the int8 gate)."""
+    import importlib
+
+    tools = os.path.join(HERE, "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return importlib.import_module(name)
+
+
+def serve_waves(svc, images):
+    """Each image through svc.caption from its own thread, in waves of
+    SERVE_B started together; returns the replies in image order."""
+    import threading
+
+    replies = [None] * len(images)
+
+    def ask(i):
+        replies[i] = svc.caption(images[i], timeout=120)
+
+    for w in range(0, len(images), SERVE_B):
+        threads = [threading.Thread(target=ask, args=(i,))
+                   for i in range(w, min(w + SERVE_B, len(images)))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180)
+            if t.is_alive():
+                raise AssertionError("a served request never returned")
+    bad = [r for r in replies if r is None or "error" in r]
+    if bad:
+        raise AssertionError(f"{len(bad)} requests failed, first: {bad[0]}")
+    return replies
+
+
+def serving_mode(tag, cf, net, vocab, images, calib, smi, profile_dir=None):
+    """Phase 10a, one mode: CaptionService at batch SERVE_B on net, the
+    SERVE_IMAGES images served against a direct decode of the same images
+    by a decoder of this thread (equal captions), the launches of the
+    service's worker (the caller launches nothing in that window), the
+    counter identity, one weight preparation, device_decode_ms (the direct
+    decoder on a batch on the card, utils/profiling.py::Timer, mean of 5;
+    --profile: that decode's kernel table and busy share) and an open-loop
+    sweep (tools/torch_serving_bench.py::run_level)."""
+    import torch
+
+    from adaptive_tpu_torch.decoding import make_beam_decoder, make_greedy_decoder
+    from adaptive_tpu_torch.serving import CaptionService
+    from adaptive_tpu_torch.utils.profiling import Timer
+
+    bench = tools_module("torch_serving_bench")
+    t0 = time.perf_counter()
+    svc = CaptionService(cf, vocab, net=net, batch_size=SERVE_B, max_wait_ms=SERVE_WAIT_MS,
+                         calibration_images=calib)
+    try:
+        svc.warmup()
+        warm_s = time.perf_counter() - t0
+        direct = (make_beam_decoder(svc.model, svc.cf) if cf.beam_size > 1
+                  else make_greedy_decoder(svc.model, svc.cf))
+        want = [vocab.decode_ids(r) for w in range(0, len(images), SERVE_B)
+                for r in direct(net, images[w:w + SERVE_B]).ids.cpu().numpy()]
+        batch = torch.as_tensor(images[:SERVE_B], device="cuda")
+        timer = Timer()
+        for _ in range(5):
+            with timer.measure():
+                direct(net, batch)
+        device_ms = timer.mean() * 1e3
+        if profile_dir:
+            profile_decode(lambda: direct(net, batch), profile_dir, smi, f"serve_{tag}")
+
+        before = svc.stats()["batches"]
+        reset_launch_counts()
+        replies = serve_waves(svc, images)
+        launches = launch_counts()
+        batches = svc.stats()["batches"] - before
+        cell, head = (("adaptive_decode_cell_fused_beam", "beam_head_topk") if cf.beam_size > 1
+                      else ("adaptive_decode_cell_fused", "greedy_head_argmax"))
+        for name, n in launches.items():
+            want_n = STEPS * batches if name in (cell, head) else 0
+            if n != want_n:
+                raise AssertionError(f"[serve {tag}] {name} launched {n} times by the service's "
+                                     f"worker over {batches} batches, expected {want_n}")
+        differ = [i for i, (r, w) in enumerate(zip(replies, want)) if r["caption"] != w]
+        if differ:
+            raise AssertionError(f"[serve {tag}] {len(differ)} of {len(images)} served captions "
+                                 f"differ from the direct decode, first image {differ[0]}: "
+                                 f"{replies[differ[0]]['caption']!r} vs {want[differ[0]]!r}")
+        levels = [bench.run_level(svc, cf.resized_image_size, qps, SERVE_LEVEL_S, seed=i)
+                  for i, qps in enumerate(SERVE_QPS)]
+        st = svc.stats()
+    finally:
+        svc.close()
+    counted = st["completed"] + st["errors"] + st["shed"] + st["invalid"] + st["timeouts"]
+    if st["requests"] != counted:
+        raise AssertionError(f"[serve {tag}] requests {st['requests']} != {counted} counted")
+    if st["prepare_cache_misses"] != 1 or st["prepare_cache_hits"] != st["batches"] - 1:
+        raise AssertionError(f"[serve {tag}] weights prepared {st['prepare_cache_misses']} times, "
+                             f"{st['prepare_cache_hits']} hits over {st['batches']} batches")
+    for lv in levels:
+        lv["shed_share"] = lv["shed"] / max(1, lv["sent"])
+    log(f"[serve {tag} bf16] {smi}: batch {SERVE_B}, max wait {SERVE_WAIT_MS} ms; warm-up "
+        f"{warm_s:.2f} s; device_decode_ms {device_ms:.3f} ({timer.samples}) = "
+        f"{SERVE_B / device_ms * 1e3:.1f} captions/s ceiling; {len(images)} served captions equal "
+        f"the direct decode's; worker launches {launches[cell]} / {launches[head]} over "
+        f"{batches} batches; counters {({k: st[k] for k in ('requests', 'completed', 'errors', 'shed', 'invalid', 'timeouts', 'batches')})}, "
+        f"prepared once ({st['prepare_cache_hits']} hits); levels "
+        + "; ".join(f"{lv['offered_qps']} qps: p50/p90/p99 {lv['p50_ms']}/{lv['p90_ms']}/"
+                    f"{lv['p99_ms']} ms, shed {lv['shed_share']:.4f}, goodput {lv['goodput_qps']}"
+                    for lv in levels))
+    return {"device_decode_ms": device_ms, "device_decode_samples_s": timer.samples,
+            "warmup_s": warm_s, "batches": batches, "launches": {cell: launches[cell],
+                                                                 head: launches[head]},
+            "levels": levels, "batch_fill_hist": st["batch_fill_hist"],
+            "latency_ms_hist": st["latency_ms_hist"], "counters": {
+                k: st[k] for k in ("requests", "completed", "errors", "shed", "invalid",
+                                   "timeouts", "batches", "prepare_cache_hits",
+                                   "prepare_cache_misses")}}
+
+
+def serving(smi, profile_dir=None):
+    """Phase 10a: CaptionService on a seeded full-width model (phase 3's
+    recipe) in bf16 at batch SERVE_B: greedy on the exact encoder, int8 (a)
+    (calibrated on 32 images) and beam 3."""
+    from adaptive_tpu_torch import Config
+
+    images = seeded_images(SERVE_IMAGES, SEED + 1001)
+    calib = seeded_images(INT8_CALIB, SEED)
+    cf = Config(compute_dtype="bfloat16", eval_batch_size=SERVE_B)
+    model, net = random_model(cf, "cuda", calib)
+    vocab = filler_vocab()
+    out = {}
+    for tag, c, cal in (("greedy", cf, None), ("int8_a", cf.replace(encoder_quant="int8"), calib),
+                        (f"beam{BEAM}", cf.replace(beam_size=BEAM), None)):
+        out[tag] = serving_mode(tag, c, net, vocab, images, cal, smi, profile_dir)
+    return model, net, cf, out
+
+
+def export_check(model, net, cf, smi, out_dir):
+    """Phase 10b: export_decoder of the greedy decoder at batch EXPORT_B on
+    the card, saved, loaded (load_decoder) and run: ids equal to the
+    in-process decoder's, beta within EXPORT_BETA_ATOL; a torch.profiler
+    trace of one exported call (read by utils/trace_report.py) shows
+    kernels 1 and 2 STEPS times each (the bf16 cell's two kernels and the
+    head's product and reduction each STEPS times), as do the launch
+    counts of that call; the exported and in-process calls timed (Timer,
+    mean of 5)."""
+    import tempfile
+
+    from adaptive_tpu_torch.decoding import make_greedy_decoder
+    from adaptive_tpu_torch.export import export_decoder, load_decoder
+    from adaptive_tpu_torch.utils.profiling import Timer
+
+    images = seeded_images(EXPORT_B, SEED + 1002)
+    c = cf.replace(eval_batch_size=EXPORT_B)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = export_decoder(model, c, net, os.path.join(tmp, "decoder.pt2"))
+        t1 = time.perf_counter()
+        size_mb = os.path.getsize(path) / 2 ** 20
+        decode = load_decoder(path)
+        t2 = time.perf_counter()
+        got = decode(images)
+        direct = make_greedy_decoder(model, c)
+        want = direct(net, images)
+        if not (got["ids"] == want.ids).all():
+            raise AssertionError("exported decoder's ids differ from the in-process decoder's")
+        beta_err = float((got["beta"].float() - want.beta.float()).abs().max())
+        att_err = float((got["attention"].float() - want.attention.float()).abs().max())
+        if beta_err > EXPORT_BETA_ATOL:
+            raise AssertionError(f"exported beta {beta_err:.3e} from the in-process decoder's")
+        reset_launch_counts()
+        rows = profile_decode(lambda: decode(images), out_dir or tmp, smi, "export_greedy")
+        launches = launch_counts()
+    per_kernel = {k: sum(n for name, _, n in rows if k in name)
+                  for k in ("cell_gates_kernel", "cell_attend_kernel", "head_argmax_mma_kernel",
+                            "head_argmax_reduce")}
+    if any(n != STEPS for n in per_kernel.values()) or \
+            launches["adaptive_decode_cell_fused"] != STEPS or launches["greedy_head_argmax"] != STEPS:
+        raise AssertionError(f"exported call launched {per_kernel} (trace), {launches} (counts); "
+                             f"expected {STEPS} of each of kernels 1 and 2")
+    timers = {"exported": Timer(), "in_process": Timer()}
+    for _ in range(5):
+        for name, fn in (("exported", lambda: decode(images)),
+                         ("in_process", lambda: direct(net, images))):
+            with timers[name].measure():
+                fn()
+    ms = {k: t.mean() * 1e3 for k, t in timers.items()}
+    log(f"[export greedy bf16] {smi}: batch {EXPORT_B}: export {t1 - t0:.2f} s, artifact "
+        f"{size_mb:.1f} MiB, load {t2 - t1:.2f} s; ids equal the in-process decoder's, beta "
+        f"{beta_err:.3e}, attention {att_err:.3e} apart; one call's trace {per_kernel}, counts "
+        f"{launches['adaptive_decode_cell_fused']} / {launches['greedy_head_argmax']}; ms a call "
+        f"exported {ms['exported']:.3f}, in-process {ms['in_process']:.3f} (mean of 5)")
+    return {"export_s": t1 - t0, "load_s": t2 - t1, "artifact_mib": size_mb,
+            "beta_max_abs_err": beta_err, "attention_max_abs_err": att_err,
+            "trace_launches": per_kernel, "ms": ms}
+
+
+def gate_check(smi):
+    """Phase 10c: tools/torch_int8_gate.py::run_gate on the card at
+    GATE_IMAGES images and GATE_EPOCHS epochs (the rest the JAX gate's
+    settings): all six modes scored, finite, (b) and (c) captioning every
+    image as per-tensor does, gate_results.json well formed."""
+    import math
+    import tempfile
+
+    gate = tools_module("torch_int8_gate")
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as work:
+        out = gate.run_gate(work, {"train_num_epochs": GATE_EPOCHS,
+                                   "opt_fine_tune_cnn_start_epoch": GATE_FINETUNE_EPOCH},
+                            images=GATE_IMAGES)
+        with open(os.path.join(work, "gate_results.json")) as f:
+            written = json.load(f)
+    launches = launch_counts()
+    names = [name for name, _, _ in gate.LADDER]
+    batches = len(names) * -(-GATE_IMAGES // gate.DEFAULTS["eval_batch_size"])
+    if launches["adaptive_decode_cell_fused"] != STEPS * batches or \
+            min(launches["bottleneck_identity_int8"], launches["tail_conv1_int8"]) < 1:
+        raise AssertionError(f"gate launches {launches}: expected {STEPS * batches} of kernels "
+                             "1 and 2, and kernels 5 and 6 in modes (b) and (c)")
+    if list(written["modes"]) != names or written["n_images"] != GATE_IMAGES:
+        raise AssertionError(f"gate_results.json malformed: {list(written['modes'])}, "
+                             f"{written['n_images']} images")
+    for name in names[1:]:
+        m = written["modes"][name]
+        lo, hi = m["paired_ci95"]
+        if not (math.isfinite(m["cider"]) and lo <= hi):
+            raise AssertionError(f"gate mode {name}: {m}")
+    if any(out["captions_differ_from_control"].values()):
+        raise AssertionError(f"gate: (b), (c) differ from {gate.CONTROL!r} on "
+                             f"{out['captions_differ_from_control']} images")
+    log(f"[gate reduced] {smi}: {GATE_IMAGES} images, {GATE_EPOCHS} epochs: "
+        + "; ".join(f"{n} CIDEr {written['modes'][n]['cider']:.4f}" for n in names)
+        + f"; captions differing from per-tensor {out['captions_differ_from_control']}; "
+        f"launches {launches}")
+    return {**{k: v for k, v in written.items() if k != "per_image"}, "launches": launches}
+
+
 def main() -> int:
     import argparse
 
@@ -2558,6 +2830,20 @@ def main() -> int:
     lbfgs_line["phase_s"] = {"9a": t6 - t5, "9b": t7 - t6, "9c": time.perf_counter() - t7}
     log(f"[lbfgs phases] " + ", ".join(f"{k} {v:.1f} s" for k, v in lbfgs_line["phase_s"].items()))
 
+    # phase 10: 10a the CaptionService at batch 32, 10b the exported greedy
+    # decoder, 10c the int8 gate at a reduced size
+    t8 = time.perf_counter()
+    serve_model, serve_net, serve_cf, serve_modes = serving(smi, args.profile)
+    t9 = time.perf_counter()
+    export_line = export_check(serve_model, serve_net, serve_cf, smi, args.profile)
+    del serve_model, serve_net
+    torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+    gate_line = gate_check(smi)
+    serve_line = {"card": smi, "modes": serve_modes, "export": export_line, "gate": gate_line,
+                  "phase_s": {"10a": t9 - t8, "10b": t10 - t9, "10c": time.perf_counter() - t10}}
+    log(f"[serving phases] " + ", ".join(f"{k} {v:.1f} s" for k, v in serve_line["phase_s"].items()))
+
     csrc = "adaptive_tpu_torch/ops/cuda/csrc/"
     sources = {
         "adaptive_decode_cell_fused": ("adaptive_tpu/ops/pallas/fused_step.py:221",
@@ -2603,6 +2889,7 @@ def main() -> int:
     log(json.dumps({"train": train_line}))
     log(json.dumps({"lbfgs": lbfgs_line}))
     log(json.dumps({"cli": cli_line}))
+    log(json.dumps({"serving": serve_line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

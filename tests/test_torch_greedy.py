@@ -174,8 +174,10 @@ def test_port_imports_no_jax():
     """A fresh process imports the port and decodes on the CPU, greedy and
     beam, scores a 2-image synthetic split through coco_eval, takes a
     train step and writes its checkpoint, takes an L-BFGS step (both groups)
-    and writes its checkpoint, and runs the CLI's main on a config file with
-    no stage on, without loading jax or any module of the JAX package."""
+    and writes its checkpoint, runs the CLI's main on a config file with
+    no stage on, serves a caption, exports and runs a decoder, converts a
+    checkpoint, and imports the port's tools and examples, without loading
+    jax or any module of the JAX package."""
     code = textwrap.dedent("""
         import sys
         import tempfile
@@ -234,6 +236,26 @@ def test_port_imports_no_jax():
             with open(root + "/cfg.py", "w") as f:
                 f.write(f"experiment_path = {root!r}\\n")
             cli.main(["-c", root + "/cfg.py"], device="cpu")
+        from adaptive_tpu_torch.export import export_decoder, load_decoder
+        from adaptive_tpu_torch.serving import CaptionService
+        from adaptive_tpu_torch.utils import profiling, trace_report
+        svc = CaptionService(cf.replace(eval_batch_size=2, resized_image_size=64), vocab,
+                             net=net, batch_size=2, max_wait_ms=1, device="cpu")
+        try:
+            assert "caption" in svc.caption(imgs[0], timeout=120)
+        finally:
+            svc.close()
+        with tempfile.TemporaryDirectory() as root:
+            dec = load_decoder(export_decoder(model, cf.replace(beam_size=1,
+                                                                resized_image_size=64),
+                                              net, root + "/d.pt2", batch_size=2))
+            assert tuple(dec(imgs)["ids"].shape) == (2, 3)
+            torch_import.save_reference_checkpoint_npz(net.state_dict(), "adaptive_attention",
+                                                       "resnet18", root + "/ckpt")
+        sys.path[:0] = ["tools", "examples"]
+        import torch_decode_timing, torch_int8_gate, torch_serving_bench
+        import torch_caption_image, torch_convert_weights, torch_serve
+        import torch_visualize_attention
         bad = [m for m in sys.modules
                if m in ("jax", "adaptive_tpu") or m.startswith(("jax.", "adaptive_tpu."))]
         print("BAD", bad)
