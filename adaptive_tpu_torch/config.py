@@ -10,10 +10,11 @@ configuration.py:25-40).
 
 Checks run when a Config is made (``_validate``, the JAX package's, which it
 runs in ``load_config`` only). Knobs of paths the port has not taken yet
-(NOT_PORTED: the mesh, ZeRO-1 and multi-host knobs, and the other decoder
-variants' sizes) exist so that a config file loads, but a value other than
-the default raises NotImplementedError naming the ROADMAP.md queue: a run
-must not go on as if it were honoured. ``param_dtype`` and
+(NOT_PORTED: the other decoder variants' sizes) exist so that a config file
+loads, but a value other than the default raises NotImplementedError naming
+the ROADMAP.md queue: a run must not go on as if it were honoured. The mesh
+knobs (``mesh_shape``, ``mesh_axes``), ZeRO-1 (``opt_state_sharding``) and
+``distributed_init`` are read by the ``parallel`` package. ``param_dtype`` and
 ``train_tb_gradOrnot`` are read nowhere in the JAX package and nowhere here;
 ``decode_scan_prefix`` changes no id and the port's decode loops are Python
 loops either way (ROADMAP.md §3).
@@ -29,7 +30,6 @@ from typing import Any, Dict, Tuple
 
 VARIANTS = ("baseline_attention", "adaptive_attention", "rnn_attention")
 OPTIMIZERS = ("adam", "sgd", "lbfgs")
-_QUEUE6 = "multi-device (ROADMAP.md, queue 1, item 6)"
 _QUEUE7 = "the baseline_attention and rnn_attention decoders (ROADMAP.md, queue 1, item 7)"
 # knob -> the not-ported path that would read it
 NOT_PORTED = {
@@ -39,10 +39,6 @@ NOT_PORTED = {
     "rnn_attention_embed_size": _QUEUE7,
     "rnn_attention_numlayers": _QUEUE7,
     "rnn_attention_hiddensize": _QUEUE7,
-    "mesh_axes": _QUEUE6,
-    "mesh_shape": _QUEUE6,
-    "opt_state_sharding": _QUEUE6,
-    "distributed_init": _QUEUE6,
 }
 
 
@@ -193,8 +189,11 @@ class Config:
     # accepted with no effect: the JAX package's fixed-scan prefix of the
     # early-exit loop changes no id (ROADMAP.md §3)
     decode_scan_prefix: int = 0
-    mesh_axes: Tuple[str, ...] = ("data", "model")  # NOT_PORTED
-    mesh_shape: Tuple[int, ...] = (-1, 1)  # NOT_PORTED
+    # the mesh over the ranks of the default process group: axis 0 splits the
+    # batch, axis 1 the decode's vocab head; -1 sizes one axis to the world
+    # (parallel/mesh.py)
+    mesh_axes: Tuple[str, ...] = ("data", "model")
+    mesh_shape: Tuple[int, ...] = (-1, 1)
     # recompute the encoder's trunk in the backward instead of keeping its
     # activations (torch.utils.checkpoint)
     remat_encoder: bool = False
@@ -207,8 +206,12 @@ class Config:
     # microbatches a batch's gradient is summed over (the exact full-batch
     # gradient); 1 = off
     train_grad_accum_steps: int = 1
-    opt_state_sharding: str = "replicated"  # NOT_PORTED
-    distributed_init: bool = False  # NOT_PORTED
+    # "data": ZeRO-1, Adam/SGD moments sharded over the data axis
+    # (training/optim.py::shard_opt_state)
+    opt_state_sharding: str = "replicated"
+    # start torch.distributed at the CLI's start (main.py); torchrun's
+    # WORLD_SIZE > 1 starts it too
+    distributed_init: bool = False
 
     # filled by Experiment.setup (experiment.py)
     exp_dir: str = ""  # results files land here ("" = the working directory)

@@ -1,5 +1,5 @@
 """Host-side data loading: COCO caption datasets and prefetching batch
-iterators (counterpart of adaptive_tpu/data/loader.py, single process).
+iterators (counterpart of adaptive_tpu/data/loader.py).
 
 Reference parity: code_src/data/data_loader.py:12-119 (train loader: one
 sample per annotation, tokenized to <start>+ids+<end>) and
@@ -11,7 +11,8 @@ sorted and packed, and a batch shares one bucket. Images leave here as uint8
 NHWC; the train step crops, flips and normalises them on the model's device
 (ops/preprocess.py). The batch plan is numpy, the same plan as the JAX
 package's for the same seed. PIL is imported inside ``_load_image_uint8``
-only, as in the JAX package.
+only, as in the JAX package. On a mesh each data rank decodes only its rows
+of every batch (``TrainBatches(process_index=, process_count=)``).
 """
 
 from __future__ import annotations
@@ -155,7 +156,21 @@ class TrainBatches:
         prefetch: int = 4,
         drop_last: bool = True,
         epoch: int = 0,
+        process_index: int = 0,
+        process_count: int = 1,
+        microbatches: int = 1,
     ):
+        """batch_size is the GLOBAL batch. With process_count > 1 the batch
+        plan (shuffle, bucketing) is the same on every rank, from the seed,
+        but each rank decodes only its batch_size / process_count rows of
+        every batch (each image read once a step over the ranks): pass the
+        data rank and the data axis's size, since the model ranks of one
+        data row need the same rows. A short tail (drop_last=False) is
+        wrap-padded so that every rank takes an equal slice. microbatches:
+        the train step's train_grad_accum_steps; each rank's rows are then
+        its slice of each microbatch in turn (microbatch k is the global
+        batch's rows [k*m, (k+1)*m), split over the ranks), so that its
+        k-th chunk of rows is its part of microbatch k."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
@@ -164,6 +179,15 @@ class TrainBatches:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.epoch = epoch
+        if batch_size % process_count:
+            raise ValueError(
+                f"global train_batch_size {batch_size} not divisible by "
+                f"process_count {process_count}"
+            )
+        self.process_index = process_index
+        self.process_count = process_count
+        self.microbatches = microbatches if process_count > 1 else 1
+        self.process_sharded = process_count > 1
 
     def __len__(self) -> int:
         n = len(self.dataset) // self.batch_size
@@ -171,9 +195,22 @@ class TrainBatches:
             n += 1
         return n
 
+    def _local(self, idxs: List[int]) -> List[int]:
+        """This rank's rows of a global batch: its slice of each microbatch."""
+        chunks = np.array_split(np.asarray(idxs), self.microbatches)
+        out = []
+        for c in chunks:
+            rows = len(c) // self.process_count
+            out.extend(int(i) for i in c[self.process_index * rows:(self.process_index + 1) * rows])
+        return out
+
     def _make_batch(self, idxs: List[int]) -> Dict[str, np.ndarray]:
+        # every rank agrees on the bucket: it comes from the cached caption
+        # lengths of the whole global batch (no decode)
         lens = self._caption_lengths()
         bucket = max(pad_to_bucket(lens[i], self.buckets) for i in idxs)
+        if self.process_sharded:
+            idxs = self._local(idxs)
         samples = [self.dataset[i] for i in idxs]
         images = np.stack([s[0] for s in samples])
         captions = np.zeros((len(samples), bucket), dtype=np.int32)  # <pad>=0
@@ -203,6 +240,14 @@ class TrainBatches:
         for s in range(0, len(leftovers), self.batch_size):
             chunk = leftovers[s : s + self.batch_size]
             if len(chunk) == self.batch_size or not self.drop_last:
+                parts = self.process_count * self.microbatches
+                if self.process_sharded and len(chunk) % parts:
+                    # wrap-pad the short tail so that every rank takes an
+                    # equal slice (the distributed-sampler contract): no
+                    # sample is skipped, a few repeat within the epoch
+                    need = -len(chunk) % parts
+                    reps = 1 + (need + len(chunk) - 1) // len(chunk)
+                    chunk = (chunk * reps)[: len(chunk) + need]
                 batches.append(chunk)
         rng.shuffle(batches)
         return batches
@@ -231,17 +276,23 @@ class TrainBatches:
         self.epoch += 1
 
 
-def device_prefetch(iterator: Iterator, device, size: int = 2) -> Iterator:
+def device_prefetch(iterator: Iterator, device, size: int = 2, mesh=None,
+                    local: bool = False) -> Iterator:
     """Overlap host->device copies with compute: keep `size` batches in
     flight. On a CUDA device each array goes through pinned host memory
-    with a non_blocking copy; on the CPU it is wrapped as a tensor."""
+    with a non_blocking copy; on the CPU it is wrapped as a tensor. On a
+    mesh each rank places its rows: the batch's own (local=True, the
+    process-sharded loader) or its data rank's slice of a global batch
+    (parallel/mesh.py::place_batch)."""
+    from adaptive_tpu_torch.parallel.mesh import place_batch
+
     device = torch.device(device)
     pin = device.type == "cuda"
 
     def put(batch):
         out = {}
-        for k, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
+        host = {k: np.ascontiguousarray(v) for k, v in batch.items()}
+        for k, t in place_batch(mesh, host, local=local).items():
             out[k] = t.pin_memory().to(device, non_blocking=True) if pin else t
         return out
 

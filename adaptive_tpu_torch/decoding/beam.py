@@ -1,5 +1,5 @@
 """Batched beam search with <end> masking (counterpart of
-adaptive_tpu/decoding/beam.py, single device).
+adaptive_tpu/decoding/beam.py).
 
 Each step scores all B*W beam rows with one decode step, expands the top W
 over the W x W (beam, per-row top-W token) candidates of every image, and
@@ -11,7 +11,9 @@ Histories are not reordered in the loop: each step records (token, parent
 beam, raw alpha, raw beta), and one backward pass over the parent pointers
 rebuilds every beam's path afterwards. The JAX package scans the step
 inside one compiled program; here the step is a Python loop over eager
-calls, two kernel launches a step on the fused path (ops/fused_step.py).
+calls, two kernel launches a step on the fused path (ops/fused_step.py). In a
+process group of more than one rank the fused decode runs over the config's
+mesh, as the greedy decoder's does (decoding/spmd.py).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from adaptive_tpu_torch.decoding import spmd
 from adaptive_tpu_torch.decoding.greedy import prepare_cached
 from adaptive_tpu_torch.models.decoders import DecodeState
 from adaptive_tpu_torch.ops.fused_step import topk_lower_index_first, tracing
@@ -76,7 +79,8 @@ def make_beam_decoder(model, cf, beam_size: int = None, length_alpha: float = 0.
     sentinel_prev = cf.sampler_sentinel_uses_prev_hidden
     early_exit = cf.decode_early_exit
     beam_major = model.fused and cf.decode_beam_major
-    prepare = prepare_cached(model)
+    mesh = spmd.decode_mesh(model, cf)
+    prepare = prepare_cached(model, mesh)
 
     def preprocess(images_u8):
         return eval_preprocess(torch.as_tensor(images_u8, device=model.device), size,
@@ -87,6 +91,7 @@ def make_beam_decoder(model, cf, beam_size: int = None, length_alpha: float = 0.
         dev = model.device
         V, v_g, h0, c0 = model.encode_inference(prepared, images)
         dec, head, cell = prepared["decoder"], prepared["head"], prepared["cell"]
+        tp_group, head_tp = prepared.get("tp") or (None, False)
         B, K = V.shape[0], V.shape[1]
 
         def tile(x):  # [B, ...] -> [B*W, ...], batch-major
@@ -117,7 +122,8 @@ def make_beam_decoder(model, cf, beam_size: int = None, length_alpha: float = 0.
         for _ in range(max_len):
             logp_top, tok_top, alpha, beta, dstate = model.beam_decode_step(
                 dec, tokens.reshape(B * W), vg_t, dstate, V_t, W, sentinel_prev,
-                pv=pv_t, head=head, beam_w=beam_w, cell_t=cell)
+                pv=pv_t, head=head, beam_w=beam_w, cell_t=cell, tp_group=tp_group,
+                head_tp=head_tp)
             if early_exit and traced:  # the steps after the exit: zero maps
                 live = ~finished.all()
                 alpha, beta = alpha * live, beta * live
@@ -155,10 +161,12 @@ def make_beam_decoder(model, cf, beam_size: int = None, length_alpha: float = 0.
         return BeamOutput(ids=all_ids[img, best], score=scores[img, best], all_ids=all_ids,
                           all_scores=scores, attention=att_buf[img, best], beta=beta_buf[img, best])
 
-    def decode_prepared(prepared, images_u8) -> BeamOutput:
-        return decode_images(prepared, preprocess(images_u8))
+    decode_prepared = spmd.wrap_decode_body(
+        lambda prepared, images_u8: decode_images(prepared, preprocess(images_u8)), mesh)
 
     def decode(net, images_u8) -> BeamOutput:
+        if mesh is not None:
+            return decode_prepared(prepare(net), images_u8)
         images = preprocess(images_u8)  # queued first: the card resizes while prepare checks the weights
         return decode_images(prepare(net), images)
 

@@ -1,5 +1,4 @@
-"""Batched greedy decode (counterpart of adaptive_tpu/decoding/greedy.py,
-single device).
+"""Batched greedy decode (counterpart of adaptive_tpu/decoding/greedy.py).
 
 Like the reference sampler, all decode_max_len steps run by default, from
 <start>; finished rows keep emitting <end>, and captions are cut at the first
@@ -12,7 +11,9 @@ the exit step, which gives the same outputs.
 
 The JAX package scans the step inside one compiled program; here the step is
 a Python loop over eager calls, two kernel launches per step on the fused
-path (ops/fused_step.py).
+path (ops/fused_step.py). In a process group of more than one rank the fused
+decode runs over the config's mesh (decoding/spmd.py): every rank is handed
+the whole batch and returns the whole batch's outputs.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from adaptive_tpu_torch.decoding import spmd
 from adaptive_tpu_torch.ops.fused_step import tracing
 from adaptive_tpu_torch.ops.preprocess import eval_preprocess
 
@@ -35,8 +37,8 @@ class GreedyOutput(NamedTuple):
 _VERSION = operator.attrgetter("_version")
 
 
-def prepare_cached(model):
-    """model.prepare_inference memoized on the weights' module and the
+def prepare_cached(model, mesh=None):
+    """model.prepare_inference (on `mesh`: this rank's slice) memoized on the weights' module and the
     version counters of its parameters and buffers, read once a call: a
     serving or bench loop pays it once per checkpoint, and a weight changed
     in place (an optimiser step, load_state_dict, a write under no_grad)
@@ -54,7 +56,7 @@ def prepare_cached(model):
         versions = tuple(map(_VERSION, cache[1]))
         if versions != cache[2]:
             get.misses += 1
-            cache[2:] = [versions, model.prepare_inference(net)]
+            cache[2:] = [versions, model.prepare_inference(net, mesh)]
         else:
             get.hits += 1
         return cache[3]
@@ -77,7 +79,8 @@ def make_greedy_decoder(model, cf):
     size = cf.train_crop_size
     sentinel_prev = cf.sampler_sentinel_uses_prev_hidden
     early_exit = cf.decode_early_exit
-    prepare = prepare_cached(model)
+    mesh = spmd.decode_mesh(model, cf)
+    prepare = prepare_cached(model, mesh)
 
     def preprocess(images_u8):
         return eval_preprocess(torch.as_tensor(images_u8, device=model.device), size,
@@ -87,6 +90,7 @@ def make_greedy_decoder(model, cf):
     def decode_images(prepared, images) -> GreedyOutput:
         V, v_g, h0, c0 = model.encode_inference(prepared, images)
         dec, head, cell = prepared["decoder"], prepared["head"], prepared["cell"]
+        tp_group, head_tp = prepared.get("tp") or (None, False)
         pv = model.precompute_slots(dec, V)  # hoisted out of the loop
         dstate = model.init_decode_state(h0, c0)
         B = V.shape[0]
@@ -96,7 +100,8 @@ def make_greedy_decoder(model, cf):
         traced = tracing(V)  # torch.export: no break on data (module docstring)
         for _ in range(max_len):
             nxt, alpha, beta, dstate = model.greedy_decode_step(
-                dec, tok, v_g, dstate, V, sentinel_prev, pv=pv, head=head, cell_t=cell)
+                dec, tok, v_g, dstate, V, sentinel_prev, pv=pv, head=head, cell_t=cell,
+                tp_group=tp_group, head_tp=head_tp)
             if early_exit and traced:  # the steps after the exit: zero maps
                 live = ~finished.all()
                 alpha, beta = alpha * live, beta * live
@@ -115,10 +120,12 @@ def make_greedy_decoder(model, cf):
         return GreedyOutput(ids=torch.stack(ids, 1), attention=torch.stack(alphas, 1),
                             beta=torch.stack(betas, 1))
 
-    def decode_prepared(prepared, images_u8) -> GreedyOutput:
-        return decode_images(prepared, preprocess(images_u8))
+    decode_prepared = spmd.wrap_decode_body(
+        lambda prepared, images_u8: decode_images(prepared, preprocess(images_u8)), mesh)
 
     def decode(net, images_u8) -> GreedyOutput:
+        if mesh is not None:
+            return decode_prepared(prepare(net), images_u8)
         images = preprocess(images_u8)  # queued first: the card resizes while prepare checks the weights
         return decode_images(prepare(net), images)
 

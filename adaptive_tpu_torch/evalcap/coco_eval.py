@@ -1,5 +1,5 @@
 """Evaluation driver: decode a split, score it with the COCO caption stack
-(counterpart of adaptive_tpu/evalcap/coco_eval.py, single device).
+(counterpart of adaptive_tpu/evalcap/coco_eval.py).
 
 Reference parity: coco_eval (code_src/tools/utils.py:108-250) — decode every
 image of the val/test/train_eval split, cut captions at <end>, write a
@@ -8,10 +8,12 @@ Modes: per-epoch val, per-epoch train_eval, standalone valid, standalone test
 (utils.py:119-146, 205-222).
 
 The weights are an ``Encoder2Decoder`` (``net``); a decoder is called as
-``decoder(net, images_u8)``. The JAX driver's multi-device branches (the
-eval batch sharded over a mesh, the ids all-gathered across processes, a
-results file per process) come with the port's multi-device slice
-(ROADMAP.md §1, item 6). ``dataset=`` serves the split's images from any
+``decoder(net, images_u8)``. In a process group of more than one rank every
+rank reads each eval batch whole and the decoder splits it over the mesh's
+data axis and all-gathers the ids (decoding/spmd.py), so every rank scores
+the whole split and gets the same CIDEr for the scheduler and the early
+stop; rank r > 0 writes its results to ``<results>.proc<r>.json``, as the
+JAX driver's processes do. ``dataset=`` serves the split's images from any
 object with ``__len__`` and ``__getitem__(i) -> (uint8 HWC image, image
 id)`` in place of the JPEGs under ``cf.resized_image_dir``; it changes no
 result. ``image_source=`` (a callable: file path -> uint8 HWC array) reads
@@ -31,6 +33,7 @@ from adaptive_tpu_torch.data.loader import EvalBatches, EvalImageDataset
 from adaptive_tpu_torch.data.vocab import Vocabulary
 from adaptive_tpu_torch.decoding import make_beam_decoder, make_greedy_decoder
 from adaptive_tpu_torch.evalcap.eval import COCOEvalCap
+from adaptive_tpu_torch.parallel.mesh import get_rank
 
 
 _CKPT_EXTS = (".pkl", ".ckpt", ".msgpack", ".npz")
@@ -180,6 +183,12 @@ def coco_eval(
         if valid_mode:
             name = _results_name(cf.valid_pretrained_model)
         resFile = os.path.join(d, name)
+    rank = get_rank()
+    if rank > 0:
+        # every rank scores the whole split: a rank's own file, so that a
+        # peer's write never truncates the one another rank reads back
+        root, ext = os.path.splitext(resFile)
+        resFile = f"{root}.proc{rank}{ext}"
     with open(resFile, "w") as f:
         json.dump(results, f)
 

@@ -67,22 +67,26 @@ class Experiment:
         self._logger: Optional[Logger] = None
         self._saved_stdout = None
 
-    def setup(self) -> Config:
+    def setup(self, stamp: Optional[str] = None, rank: int = 0) -> Config:
         """Make '<experiment_path>/<description>___<timestamp>/', start the
         tee into its logfile.log, write config.json; returns the Config with
-        exp_dir, model_description and log_file filled in."""
+        exp_dir, model_description and log_file filled in. stamp: the
+        timestamp (default now); the ranks of a process group pass rank 0's,
+        and rank r > 0 tees into logfile.proc<r>.log and leaves config.json
+        to rank 0."""
         cf = self.cf
         desc = get_model_description(cf)
-        stamp = datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
+        stamp = stamp or datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
         exp_dir = os.path.join(cf.experiment_path, desc + "_" * 3 + stamp)
         os.makedirs(exp_dir, exist_ok=True)
-        log_file = os.path.join(exp_dir, "logfile.log")
+        log_file = os.path.join(exp_dir, "logfile.log" if rank == 0 else f"logfile.proc{rank}.log")
         cf = cf.replace(exp_dir=exp_dir, model_description=desc, log_file=log_file)
         self._saved_stdout = sys.stdout
         self._logger = Logger(log_file)
         sys.stdout = self._logger
-        with open(os.path.join(exp_dir, "config.json"), "w") as f:
-            f.write(cf.to_json())
+        if rank == 0:
+            with open(os.path.join(exp_dir, "config.json"), "w") as f:
+                f.write(cf.to_json())
         self.cf = cf
         return cf
 

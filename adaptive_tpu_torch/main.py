@@ -16,6 +16,16 @@ There is no flag for the device: the JAX package takes its platform from
 the environment. ``image_source`` (a callable: file path -> uint8 HWC array)
 reads the resized images in place of the JPEG decode, for a machine without
 Pillow (ROADMAP.md §3).
+
+Several cards: one process each, started by torchrun,
+
+    torchrun --nproc_per_node=N -m adaptive_tpu_torch.main -c configs/coco_adaptive_v5e8.py
+
+torchrun's WORLD_SIZE > 1 (or ``distributed_init``) starts the default
+process group, nccl on the card (each rank on its LOCAL_RANK card), gloo on
+the CPU, and the stages run over the config's mesh (parallel/mesh.py). The
+ranks share rank 0's experiment dir; rank r > 0 tees into
+``logfile.proc<r>.log``.
 """
 
 from __future__ import annotations
@@ -24,15 +34,21 @@ import argparse
 import time
 from datetime import datetime
 
+import torch
+
 from adaptive_tpu_torch.config import Config, load_config
 from adaptive_tpu_torch.experiment import Experiment
 from adaptive_tpu_torch.models.factory import resolve_device
+from adaptive_tpu_torch.parallel.mesh import get_rank, get_world_size, init_distributed
 from adaptive_tpu_torch.utils.logging import HMS, configurationPATH
 
 
 def process(cf: Config, device="cuda", image_source=None):
-    """Run the enabled stages in order."""
+    """Run the enabled stages in order (in a process group where
+    cf.distributed_init or torchrun asks for one: parallel/mesh.py::
+    init_distributed)."""
     resolve_device(device)  # no card: raise before any stage runs
+    init_distributed(cf, device)
     if cf.resizeOrnot:
         print(">---------resize images---------<")
         from adaptive_tpu_torch.data.resize import main_resize_images
@@ -82,19 +98,32 @@ def main(argv=None, device="cuda", image_source=None):
     start_time = time.time()
 
     cf = load_config(args.config_path)
+    started = init_distributed(cf, device)
     exp = Experiment(cf)
-    cf = exp.setup()
+    cf = exp.setup(stamp=_shared_stamp(), rank=get_rank())
     configurationPATH(cf)
 
     try:
         process(cf, device=device, image_source=image_source)
     finally:
         exp.teardown()
+        if started:
+            torch.distributed.destroy_process_group()
 
     end_time = time.time()
     print("\n > End Time:")
     print("   " + datetime.now().strftime("%a, %d %b %Y-%m-%d %H:%M:%S"))
     print("\n   ET: " + HMS(end_time - start_time))
+
+
+def _shared_stamp():
+    """Rank 0's timestamp for the experiment dir, on every rank (None: the
+    dir's own, in one process)."""
+    if get_world_size() <= 1:
+        return None
+    box = [datetime.now().strftime("%Y-%m-%d-%H-%M-%S")]
+    torch.distributed.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 if __name__ == "__main__":

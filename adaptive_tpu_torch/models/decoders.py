@@ -12,6 +12,13 @@ sampler_sentinel_uses_prev_hidden is set: the reference's sampler calls the
 decoder one token at a time, and its zero-prefixed shift always yields zero.
 Teacher forcing (``decoder_forward``, the train path) shifts the hiddens with
 a zero prefix, as the reference does (adaptive_attention.py:116-122).
+
+Tensor parallelism (decoding/spmd.py): with ``tp_group`` the embedding rows
+and, with ``head_tp``, the prepared head's columns are this rank's slice of
+the model group's; ``embed_lookup`` assembles each row with an all-reduce
+(one shard owns a token), and the head runs the top-W kernel on the shard
+and merges the shards' lists with the kernel's own tie rule
+(``_tp_merge_topk``), so the ids equal one process's.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from adaptive_tpu_torch.ops import attention as att
@@ -26,6 +34,7 @@ from adaptive_tpu_torch.ops import fused_step as fs
 from adaptive_tpu_torch.ops import inits
 from adaptive_tpu_torch.ops.dropout import Drop, maybe_drop as _d
 from adaptive_tpu_torch.ops.lstm import lstm_cell, lstm_scan
+from adaptive_tpu_torch.parallel.mesh import gather
 
 NOT_PORTED = "{} is not ported yet: ROADMAP.md, queue 1, item 7 (non-adaptive decoder variants)"
 
@@ -212,6 +221,59 @@ def decode_step(
     return logits[:, 0], alpha[:, 0], beta[:, 0], DecodeState(h, c, h_new)
 
 
+def embed_lookup(table: torch.Tensor, token: torch.Tensor, tp_group=None) -> torch.Tensor:
+    """Embedding rows of token [B], tensor-parallel-aware: with tp_group the
+    table is this rank's slice of rows [rank * vloc, (rank + 1) * vloc); each
+    rank contributes its in-range rows (zeros elsewhere) and an all-reduce
+    sums them, exact since one shard owns each token. A whole table on every
+    rank gives the same rows: rank 0's range covers the vocab, the others'
+    none."""
+    if tp_group is None:
+        return table[token]
+    vloc = table.shape[0]
+    rel = token.long() - dist.get_rank(tp_group) * vloc
+    ok = (rel >= 0) & (rel < vloc)
+    emb = torch.where(ok[:, None], table[rel.clamp(0, vloc - 1)], torch.zeros((), dtype=table.dtype,
+                                                                              device=table.device))
+    dist.all_reduce(emb, group=tp_group)
+    return emb
+
+
+def merge_topk(allv: torch.Tensor, alli: torch.Tensor, k: int):
+    """The top-k (values [R, k], ids [R, k] int32) of the shards' lists laid
+    side by side (allv, alli [R, S*k], global ids): k passes of the largest
+    value, ties to the lower id, the taken id masked to -1e30; the rule of
+    the head kernels' chunk merge, so the result equals one kernel's list."""
+    big = torch.full((), 2 ** 30, dtype=alli.dtype, device=alli.device)
+    neg = torch.full((), fs.NEG, dtype=allv.dtype, device=allv.device)
+    vs, ids = [], []
+    for _ in range(k):
+        v = allv.max(dim=1, keepdim=True).values
+        i = torch.where(allv == v, alli, big).min(dim=1, keepdim=True).values
+        vs.append(v)
+        ids.append(i)
+        allv = torch.where(alli == i, neg, allv)
+    return torch.cat(vs, 1), torch.cat(ids, 1)
+
+
+def _tp_merge_topk(topv, topi, k: int, tp_group):
+    """The global top-k of the model group's per-shard lists (global ids):
+    an all-gather over the group, then merge_topk."""
+    return merge_topk(gather(topv, tp_group, 1), gather(topi, tp_group, 1), k)
+
+
+def _shard_topk(head, c_hat, h_new, k: int, tp_group):
+    """The column-sharded head: kernel 4 on this rank's columns with every
+    column live (the -1e30 bias pad masks), its ids moved to global ids,
+    merged over the group. Returns (topv, topi, the shard's lse [R, 1])."""
+    vloc = head[0].shape[1]
+    topv, topi, lse = fs.beam_head_topk(*head, c_hat, h_new, vloc, k,
+                                        head_kernel_t=head.kernel_t)
+    topi = topi + dist.get_rank(tp_group) * vloc
+    topv, topi = _tp_merge_topk(topv, topi, k, tp_group)
+    return topv, topi, lse
+
+
 def prepare_greedy_head(params: Dict, spec: DecoderSpec):
     """Padded vocab head (kernel [H, Vp'], bias [Vp']) for the fused head
     kernels, made once per checkpoint: Vp' is a multiple of 128, and of 1280
@@ -250,17 +312,24 @@ def greedy_decode_step(
     params: Dict, spec: DecoderSpec, token: torch.Tensor, v_g: torch.Tensor,
     state: DecodeState, V: torch.Tensor, sentinel_uses_prev_hidden: bool = False,
     pv: Optional[torch.Tensor] = None, head=None, fused: bool = False, cell_t=None,
+    tp_group=None, head_tp: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, DecodeState]:
     """One GREEDY step: token [B] -> (next_token [B] int32, alpha, beta, state').
     With fused and a prepared head, the cell and the head+argmax each run as
     one kernel call (the cell on the prepared cell_t where given); otherwise
-    argmax over decode_step's logits."""
+    argmax over decode_step's logits. tp_group: the embedding is this rank's
+    rows of the model group's (embed_lookup); head_tp: the head is its
+    columns, and the argmax is kernel 4 at W = 1 on them, merged over the
+    group (_shard_topk)."""
     if fused and head is not None:
-        x = torch.cat([params["embed"][token], v_g], dim=-1)
+        x = torch.cat([embed_lookup(params["embed"], token, tp_group), v_g], dim=-1)
         h_new, c_new, c_hat, alpha, beta = _fused_cell(
             params, x, state, sentinel_uses_prev_hidden, V, pv, cell_t=cell_t)
-        nxt = fs.greedy_head_argmax(*head, c_hat, h_new, spec.vocab_size,
-                                    head_kernel_t=head.kernel_t)
+        if head_tp:
+            nxt = _shard_topk(head, c_hat, h_new, 1, tp_group)[1][:, 0]
+        else:
+            nxt = fs.greedy_head_argmax(*head, c_hat, h_new, spec.vocab_size,
+                                        head_kernel_t=head.kernel_t)
         return nxt, alpha, beta, DecodeState(h_new, c_new, h_new)
     logits, alpha, beta, st = decode_step(
         params, spec, token, v_g, state, V, sentinel_uses_prev_hidden, pv=pv, fused=fused)
@@ -272,7 +341,7 @@ def beam_decode_step(
     params: Dict, spec: DecoderSpec, token: torch.Tensor, v_g: torch.Tensor,
     state: DecodeState, V: torch.Tensor, k: int, sentinel_uses_prev_hidden: bool = False,
     pv: Optional[torch.Tensor] = None, head=None, fused: bool = False, beam_w: int = 1,
-    cell_t=None,
+    cell_t=None, tp_group=None, head_tp: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, DecodeState]:
     """One BEAM step: token [R] -> (logp_top [R,k] fp32 log-probs, tok_top
     [R,k] int32, alpha, beta, state').
@@ -287,14 +356,23 @@ def beam_decode_step(
 
     beam_w > 1: V/pv arrive untiled, one row per image, while token and
     state carry beam_w batch-major rows per image; the plain path repeats
-    them per row.
+    them per row. tp_group, head_tp: as greedy_decode_step's, and the row's
+    logsumexp combines the shards'.
     """
     if fused and head is not None:
-        x = torch.cat([params["embed"][token], v_g], dim=-1)
+        x = torch.cat([embed_lookup(params["embed"], token, tp_group), v_g], dim=-1)
         h_new, c_new, c_hat, alpha, beta = _fused_cell(
             params, x, state, sentinel_uses_prev_hidden, V, pv, beam_w, cell_t)
-        topv, topi, lse = fs.beam_head_topk(*head, c_hat, h_new, spec.vocab_size, k,
-                                            head_kernel_t=head.kernel_t)
+        if head_tp:
+            # the shards' logsumexps cover disjoint columns: their combine is
+            # the row's (to rounding)
+            topv, topi, lse_l = _shard_topk(head, c_hat, h_new, k, tp_group)
+            alls = gather(lse_l, tp_group, 1)
+            m = alls.max(dim=1, keepdim=True).values
+            lse = torch.log(torch.exp(alls - m).sum(dim=1, keepdim=True)) + m
+        else:
+            topv, topi, lse = fs.beam_head_topk(*head, c_hat, h_new, spec.vocab_size, k,
+                                                head_kernel_t=head.kernel_t)
         return topv - lse, topi, alpha, beta, DecodeState(h_new, c_new, h_new)
     if beam_w > 1:
         V = V.repeat_interleave(beam_w, 0)

@@ -83,20 +83,21 @@ def encoder_heads(
 
 
 def encoder_features(enc: AttentiveCNN, images: torch.Tensor, train: bool = False,
-                     grad_from: int = 0,
-                     update_stats: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                     grad_from: int = 0, update_stats: bool = True,
+                     bn_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """ResNet trunk only: images NHWC float -> (A_flat [B,K,C], a_g [B,C]),
     in the images' dtype. Train mode updates the BN running statistics in
-    place unless update_stats is False. grad_from: ResNet.forward's frozen
-    prefix."""
-    A = enc.resnet_conv(images, train, grad_from, update_stats)
+    place unless update_stats is False. grad_from, bn_group: ResNet.forward's
+    frozen prefix and BN process group."""
+    A = enc.resnet_conv(images, train, grad_from, update_stats, bn_group)
     B, Hf, Wf, C = A.shape
     A_flat = A.reshape(B, Hf * Wf, C)  # slot = h*W + w
     return A_flat, A_flat.mean(dim=1)  # AvgPool2d(7) == global mean
 
 
 def encoder_apply(enc: AttentiveCNN, images: torch.Tensor, train: bool = False,
-                  drop: Drop = None, grad_from: int = 0, update_stats: bool = True):
+                  drop: Drop = None, grad_from: int = 0, update_stats: bool = True,
+                  bn_group=None):
     """images NHWC float -> (V, v_g, h0, c0) on the module's weights."""
-    A_flat, a_g = encoder_features(enc, images, train, grad_from, update_stats)
+    A_flat, a_g = encoder_features(enc, images, train, grad_from, update_stats, bn_group)
     return encoder_heads(head_params(enc, detach=False), A_flat, a_g, drop)

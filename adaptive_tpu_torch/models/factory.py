@@ -94,31 +94,37 @@ class CaptionModel(NamedTuple):
         return net
 
     def encode(self, net: Encoder2Decoder, images: torch.Tensor, train: bool = False,
-               drop=None, grad_from: int = 0, update_stats: bool = True):
+               drop=None, grad_from: int = 0, update_stats: bool = True, bn_group=None):
         """Preprocessed float NHWC images -> (V, v_g, h0, c0) on the net's
         own weights; train mode updates the BN statistics in place unless
-        update_stats is False. grad_from: the trunk's frozen prefix
-        (ResNet.forward). With
+        update_stats is False. grad_from, bn_group: the trunk's frozen prefix
+        and BN process group (ResNet.forward). With
         remat_encoder the trunk's activations are recomputed in the backward
         (torch.utils.checkpoint); the heads, where dropout draws, stay
         outside the recomputed region, so no draw is replayed."""
         images = images.to(self.compute_dtype)
         if not (self.remat_encoder and train and torch.is_grad_enabled()):
-            return E.encoder_apply(net.encoder, images, train, drop, grad_from, update_stats)
-        A_flat, a_g = _remat_features(net.encoder, images, grad_from, update_stats)
+            return E.encoder_apply(net.encoder, images, train, drop, grad_from, update_stats,
+                                   bn_group)
+        A_flat, a_g = _remat_features(net.encoder, images, grad_from, update_stats, bn_group)
         return E.encoder_heads(E.head_params(net.encoder, detach=False), A_flat, a_g, drop)
 
     def forward(self, net: Encoder2Decoder, images: torch.Tensor, captions: torch.Tensor,
                 train: bool = False, gen: Optional[torch.Generator] = None,
-                grad_from: int = 0, update_stats: bool = True):
+                grad_from: int = 0, update_stats: bool = True, mesh=None):
         """Teacher-forced (scores [B,T,vocab], (alpha, beta)) (Encoder2Decoder.
         forward, baseline_attention.py:206-230, without the packing: padded
         scores and a masked loss replace pack_padded_sequence). gen draws
-        the dropout masks when train and dropout_rate > 0."""
+        the dropout masks when train and dropout_rate > 0. mesh: the images
+        are this rank's block of the global batch; the masks are drawn for
+        all of it (ops/dropout.py) and train-mode BN takes its moments over
+        the data group."""
         from adaptive_tpu_torch.ops.dropout import make_dropout
 
-        drop = make_dropout(gen, self.dropout_rate) if train else None
-        V, v_g, h0, c0 = self.encode(net, images, train, drop, grad_from, update_stats)
+        rows = mesh.rows if mesh is not None else None
+        group = mesh.data_group if mesh is not None else None
+        drop = make_dropout(gen, self.dropout_rate, rows) if train else None
+        V, v_g, h0, c0 = self.encode(net, images, train, drop, grad_from, update_stats, group)
         scores, alpha, beta = D.decoder_forward(
             D.decoder_params(net.decoder, detach=False), self.spec, V, v_g,
             captions.long(), h0, c0, drop=drop)
@@ -142,13 +148,16 @@ class CaptionModel(NamedTuple):
             )
         return fused, tails, bool(s2d)
 
-    def prepare_inference(self, net: Encoder2Decoder) -> Dict:
+    def prepare_inference(self, net: Encoder2Decoder, mesh=None) -> Dict:
         """{'encoder': folded encoder tree (cast to the compute dtype, or
         int8-quantised once with int8_scales), 'decoder': JAX-layout decoder
         params in the compute dtype, 'head': padded vocab head of the greedy
         and beam head kernels, None unless fused, 'cell': the cell's weights
         reordered for its tensor-core instance (fs.CellTiles), None unless
-        fused and that instance runs}."""
+        fused and that instance runs}. On a mesh (decoding/spmd.py) this
+        rank's slice of it: the embedding's rows and the head's columns (and
+        the shard's tiles) of its model rank, and 'tp', the decode steps'
+        (model group, head_tp)."""
         _, _, s2d = self._resolved_fusion()
         with torch.no_grad():
             enc = prepare_encoder_inference(
@@ -157,7 +166,12 @@ class CaptionModel(NamedTuple):
             dec = cast_floating(D.decoder_params(net.decoder), self.compute_dtype)
             head = self.prepare_greedy_head(dec)
             cell = D.prepare_cell_tiles(dec) if self.fused else None
-        return {"encoder": enc, "decoder": dec, "head": head, "cell": cell}
+            prepared = {"encoder": enc, "decoder": dec, "head": head, "cell": cell}
+            if mesh is not None:
+                from adaptive_tpu_torch.decoding.spmd import prepared_specs
+
+                prepared = prepared_specs(prepared, mesh)
+        return prepared
 
     def encode_inference(self, prepared: Dict, images: torch.Tensor):
         """Preprocessed float NHWC images -> (V, v_g, h0, c0)."""
@@ -184,20 +198,26 @@ class CaptionModel(NamedTuple):
                              sentinel_uses_prev_hidden, pv=pv, fused=self.fused)
 
     def greedy_decode_step(self, dec_params, token, v_g, dstate, V,
-                           sentinel_uses_prev_hidden=False, pv=None, head=None, cell_t=None):
+                           sentinel_uses_prev_hidden=False, pv=None, head=None, cell_t=None,
+                           tp_group=None, head_tp=False):
+        """tp_group, head_tp: the model group of a mesh and whether the head
+        is column-sharded over it (prepare_inference's 'tp')."""
         return D.greedy_decode_step(dec_params, self.spec, token, v_g, dstate, V,
                                     sentinel_uses_prev_hidden, pv=pv, head=head,
-                                    fused=self.fused, cell_t=cell_t)
+                                    fused=self.fused, cell_t=cell_t, tp_group=tp_group,
+                                    head_tp=head_tp)
 
     def beam_decode_step(self, dec_params, token, v_g, dstate, V, k,
                          sentinel_uses_prev_hidden=False, pv=None, head=None, beam_w=1,
-                         cell_t=None):
+                         cell_t=None, tp_group=None, head_tp=False):
         """Each row's top-k log-probs and token ids; the padded head of
         prepare_greedy_head serves the fused top-k head too. beam_w > 1
-        takes V/pv untiled (beam-major)."""
+        takes V/pv untiled (beam-major); tp_group, head_tp as
+        greedy_decode_step's."""
         return D.beam_decode_step(dec_params, self.spec, token, v_g, dstate, V, k,
                                   sentinel_uses_prev_hidden, pv=pv, head=head,
-                                  fused=self.fused, beam_w=beam_w, cell_t=cell_t)
+                                  fused=self.fused, beam_w=beam_w, cell_t=cell_t,
+                                  tp_group=tp_group, head_tp=head_tp)
 
 
 def build_model(cf, device="cuda") -> CaptionModel:
@@ -233,7 +253,7 @@ def build_model(cf, device="cuda") -> CaptionModel:
 
 
 def _remat_features(enc: AttentiveCNN, images: torch.Tensor, grad_from: int,
-                    update_stats: bool = True):
+                    update_stats: bool = True, bn_group=None):
     """encoder_features in train mode under torch.utils.checkpoint. The
     backward's recompute would update the BN running statistics a second
     time: it restores them as the forward left them."""
@@ -245,11 +265,11 @@ def _remat_features(enc: AttentiveCNN, images: torch.Tensor, grad_from: int,
     def trunk(x):
         if not ran:
             ran.append(True)
-            return E.encoder_features(enc, x, True, grad_from, update_stats)
+            return E.encoder_features(enc, x, True, grad_from, update_stats, bn_group)
         with torch.no_grad():
             saved = [b.clone() for b in bufs]
         try:
-            return E.encoder_features(enc, x, True, grad_from, update_stats)
+            return E.encoder_features(enc, x, True, grad_from, update_stats, bn_group)
         finally:  # also when the recompute stops early
             with torch.no_grad():
                 for b, v in zip(bufs, saved):

@@ -16,6 +16,13 @@ fp32, the output in the input's dtype, the running statistics updated in
 place with momentum 0.1 and the unbiased variance, as the JAX package's
 ``_bn`` does; torch's backward has the two-reduction form of JAX's
 ``_bn_train`` custom_vjp.
+
+With ``bn_group`` (the data-parallel train step's data group) train-mode
+BN takes its moments over the group's ranks, as JAX's over a data-sharded
+batch: the shifted sums of ``adaptive_tpu/models/resnet.py::
+_bn_batch_moments`` and the count are all-reduced, the running statistics
+update from the global moments, and the backward all-reduces its two sums
+(``_SyncBatchNorm``; ``nn.SyncBatchNorm`` refuses CPU tensors).
 """
 
 from __future__ import annotations
@@ -55,9 +62,71 @@ def _conv_apply(conv: nn.Conv2d, x):
     return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding)
 
 
-def _bn(x, bn: nn.BatchNorm2d, train: bool, update_stats: bool = True):
+_DIMS = (0, 2, 3)
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """JAX's _bn_train (shifted two-moment forward, two-reduction backward)
+    with its sums all-reduced over a process group. Returns (y, mean, biased
+    var, count); the weight and bias gradients are this rank's share, which
+    the step's gradient all-reduce sums."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, shift, eps, group):
+        import torch.distributed as dist
+
+        C = x.shape[1]
+        xs = x.float() - shift[None, :, None, None]
+        count = torch.full((1,), x.numel() // C, dtype=torch.float32, device=x.device)
+        sums = torch.cat([xs.sum(_DIMS), (xs * xs).sum(_DIMS), count])
+        dist.all_reduce(sums, group=group)
+        n = sums[2 * C]
+        dmean = sums[:C] / n
+        mean = dmean + shift
+        var = torch.clamp(sums[C:2 * C] / n - dmean * dmean, min=0.0)
+        inv = torch.rsqrt(var + eps)
+        y = ((x.float() - mean[None, :, None, None]) * (inv * weight)[None, :, None, None]
+             + bias[None, :, None, None])
+        ctx.save_for_backward(x, mean, inv, weight, n)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var, n)
+        return y.to(x.dtype), mean, var, n
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var, _n):
+        import torch.distributed as dist
+
+        x, mean, inv, weight, n = ctx.saved_tensors
+        C = x.shape[1]
+        dy = dy.float()
+        xhat = (x.float() - mean[None, :, None, None]) * inv[None, :, None, None]
+        sum_dy = dy.sum(_DIMS)
+        sum_dy_xhat = (dy * xhat).sum(_DIMS)
+        sums = torch.cat([sum_dy, sum_dy_xhat])
+        dist.all_reduce(sums, group=ctx.group)
+        dx = (weight * inv)[None, :, None, None] * (
+            dy - (sums[:C] / n)[None, :, None, None]
+            - xhat * (sums[C:] / n)[None, :, None, None])
+        return dx.to(x.dtype), sum_dy_xhat, sum_dy, None, None, None
+
+
+def _sync_bn(x, bn: nn.BatchNorm2d, update_stats: bool, group):
+    y, mean, var, n = _SyncBatchNorm.apply(
+        x, bn.weight, bn.bias, bn.running_mean.detach().float(), bn.eps, group)
+    if update_stats:
+        with torch.no_grad():
+            unbiased = var * n / torch.clamp(n - 1, min=1.0)
+            bn.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+            bn.running_var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * unbiased)
+    return y
+
+
+def _bn(x, bn: nn.BatchNorm2d, train: bool, update_stats: bool = True, group=None):
     """update_stats=False in train mode normalises with the batch statistics
-    and leaves the running ones as they are."""
+    and leaves the running ones as they are. group: train mode's moments
+    over a process group's ranks (_SyncBatchNorm)."""
+    if train and group is not None:
+        return _sync_bn(x, bn, update_stats, group)
     keep = train and not update_stats
     return F.batch_norm(x, None if keep else bn.running_mean, None if keep else bn.running_var,
                         bn.weight, bn.bias, train, BN_MOMENTUM, bn.eps)
@@ -74,13 +143,13 @@ class Bottleneck(nn.Module):
             if has_down else None
         )
 
-    def forward(self, x, train: bool = False, update_stats: bool = True):
-        u = update_stats
-        y = F.relu(_bn(_conv_apply(self.conv1, x), self.bn1, train, u))
-        y = F.relu(_bn(_conv_apply(self.conv2, y), self.bn2, train, u))
-        y = _bn(_conv_apply(self.conv3, y), self.bn3, train, u)
+    def forward(self, x, train: bool = False, update_stats: bool = True, bn_group=None):
+        u, g = update_stats, bn_group
+        y = F.relu(_bn(_conv_apply(self.conv1, x), self.bn1, train, u, g))
+        y = F.relu(_bn(_conv_apply(self.conv2, y), self.bn2, train, u, g))
+        y = _bn(_conv_apply(self.conv3, y), self.bn3, train, u, g)
         sc = x if self.downsample is None else _bn(
-            _conv_apply(self.downsample[0], x), self.downsample[1], train, u)
+            _conv_apply(self.downsample[0], x), self.downsample[1], train, u, g)
         return F.relu(y + sc)
 
 
@@ -94,12 +163,12 @@ class BasicBlock(nn.Module):
             if has_down else None
         )
 
-    def forward(self, x, train: bool = False, update_stats: bool = True):
-        u = update_stats
-        y = F.relu(_bn(_conv_apply(self.conv1, x), self.bn1, train, u))
-        y = _bn(_conv_apply(self.conv2, y), self.bn2, train, u)
+    def forward(self, x, train: bool = False, update_stats: bool = True, bn_group=None):
+        u, g = update_stats, bn_group
+        y = F.relu(_bn(_conv_apply(self.conv1, x), self.bn1, train, u, g))
+        y = _bn(_conv_apply(self.conv2, y), self.bn2, train, u, g)
         sc = x if self.downsample is None else _bn(
-            _conv_apply(self.downsample[0], x), self.downsample[1], train, u)
+            _conv_apply(self.downsample[0], x), self.downsample[1], train, u, g)
         return F.relu(y + sc)
 
 
@@ -133,25 +202,27 @@ class ResNet(nn.Sequential):
         """(layer1, ..., layer4)."""
         return tuple(self[i] for i in range(4, len(self)))
 
-    def forward(self, x, train: bool = False, grad_from: int = 0, update_stats: bool = True):
+    def forward(self, x, train: bool = False, grad_from: int = 0, update_stats: bool = True,
+                bn_group=None):
         """grad_from: children before CHILD_NAMES[grad_from] run without
         autograd (a frozen prefix keeps no activations and runs no backward;
         len(CHILD_NAMES) freezes the whole trunk). Their BN statistics still
         update in train mode. update_stats=False: train-mode BN on the batch
         statistics without updating the running ones (the L-BFGS step's
-        re-evaluations of a batch, training/lbfgs.py)."""
+        re-evaluations of a batch, training/lbfgs.py). bn_group: train-mode
+        BN's moments over the process group's ranks (the data group)."""
         y = x.permute(0, 3, 1, 2)
         grad = torch.is_grad_enabled()
         with torch.set_grad_enabled(grad and grad_from <= 0):
             y = _conv_apply(self[0], y)
         with torch.set_grad_enabled(grad and grad_from <= 1):
-            y = _bn(y, self[1], train, update_stats)
+            y = _bn(y, self[1], train, update_stats, bn_group)
         with torch.set_grad_enabled(grad and grad_from <= 2):  # relu, maxpool: no params
             y = self[3](F.relu(y))
         for i, layer in enumerate(self.layers(), start=4):
             with torch.set_grad_enabled(grad and grad_from <= i):
                 for blk in layer:
-                    y = blk(y, train, update_stats)
+                    y = blk(y, train, update_stats, bn_group)
         return y.permute(0, 2, 3, 1)
 
     def bn_buffers(self):

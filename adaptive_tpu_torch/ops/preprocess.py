@@ -54,10 +54,16 @@ def crop_flip(images: torch.Tensor, tops, lefts, flips, crop: int) -> torch.Tens
     return images[b, rows[:, :, None], cols[:, None, :]]
 
 
-def random_crop_flip(gen: torch.Generator, images: torch.Tensor, crop: int) -> torch.Tensor:
-    """RandomCrop(crop) + RandomHorizontalFlip (train.py:30-31), per image."""
+def random_crop_flip(gen: torch.Generator, images: torch.Tensor, crop: int,
+                     rows=None) -> torch.Tensor:
+    """RandomCrop(crop) + RandomHorizontalFlip (train.py:30-31), per image.
+    rows: (index, count): the images are block index of count equal blocks
+    of a global batch; the draws are made for all of it and this block
+    takes its own (a data-parallel step draws what one process draws)."""
     B, H, W, _ = images.shape
-    return crop_flip(images, *draw_crop_flip(gen, B, H, W, crop), crop)
+    index, count = rows or (0, 1)
+    draws = draw_crop_flip(gen, B * count, H, W, crop)
+    return crop_flip(images, *(d[index * B:(index + 1) * B] for d in draws), crop)
 
 
 def center_crop(images: torch.Tensor, crop: int) -> torch.Tensor:
@@ -67,9 +73,10 @@ def center_crop(images: torch.Tensor, crop: int) -> torch.Tensor:
 
 
 def train_preprocess(gen: torch.Generator, images_u8: torch.Tensor, crop: int,
-                     dtype=torch.float32) -> torch.Tensor:
-    """uint8 NHWC (resized 256) -> augmented normalized float NHWC (crop)."""
-    return normalize(random_crop_flip(gen, images_u8, crop), dtype)
+                     dtype=torch.float32, rows=None) -> torch.Tensor:
+    """uint8 NHWC (resized 256) -> augmented normalized float NHWC (crop);
+    rows as random_crop_flip's."""
+    return normalize(random_crop_flip(gen, images_u8, crop, rows), dtype)
 
 
 def _resize(x: torch.Tensor, size: int) -> torch.Tensor:

@@ -26,6 +26,13 @@ its count stays 0 there; the port counts steps, and neither side reads it
 for an L-BFGS group); its curvature memory is ``<group>_lbfgs|<field>``, the
 JAX package's LBFGSMemory over the group's flat vector in JAX's order and
 layouts (training/lbfgs.py::memory_to_jax).
+
+Under ZeRO-1 (training/optim.py::shard_opt_state) the moments are gathered
+whole before a write, an all-gather every rank of the data group enters,
+and a restore gives each rank its slice again. In a process group rank 0
+writes the files and every rank meets the others at a barrier once the
+write is durable (``AsyncCheckpointer.wait``); the JAX package's processes
+each write the same bytes (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from adaptive_tpu_torch.parallel.mesh import get_rank, get_world_size
 
 SEP = "|"
 
@@ -139,17 +148,20 @@ def _opt_flat(dual, net) -> Dict[str, np.ndarray]:
         adam = isinstance(opt, torch.optim.Adam)
         fields = ((("mu", "exp_avg"), ("nu", "exp_avg_sq")) if adam
                   else (("trace", "momentum_buffer"),))
-        steps = [int(opt.state[params[n]]["step"]) for n in dual.names(group)
-                 if "step" in opt.state.get(params[n], {})]
+        state = {n: opt.state.get(dual.state_key(n, params[n]), {}) for n in dual.names(group)}
+        steps = [int(st["step"]) for st in state.values() if "step" in st]
         if adam:
             flat[f"{inner}{SEP}count"] = np.asarray(max(steps, default=0), np.int32)
         for name in dual.names(group):
             key, layout = keys[name]
-            st = opt.state.get(params[name], {})
+            st = state[name]
+            z = dual.zero.shards.get(name) if dual.zero is not None else None
             for moment, field in fields:
                 t = st.get(field)
                 if t is None:
                     t = torch.zeros_like(params[name], device="cpu")
+                elif z is not None:
+                    t = z.full(t, dual.zero.group)
                 flat[f"{inner}{SEP}{moment}{SEP}{key}"] = to_layout(t, layout)
     return flat
 
@@ -190,14 +202,18 @@ def restore_opt_state(path: str, dual, net):
         adam = isinstance(opt, torch.optim.Adam)
         count = int(flat[f"{inner}{SEP}count"]) if adam else pg["count"]
         for name in dual.names(group):
-            p = params[name]
+            p = dual.state_key(name, params[name])
+            z = dual.zero.shards.get(name) if dual.zero is not None else None
             opt.state.pop(p, None)
             if not count:  # never stepped: torch's empty state is optax's zeros
                 continue
             key, layout = keys[name]
 
             def moment(m):
-                return from_layout(flat[f"{inner}{SEP}{m}{SEP}{key}"], layout).to(p)
+                t = from_layout(flat[f"{inner}{SEP}{m}{SEP}{key}"], layout)
+                if z is not None:  # ZeRO-1: this rank's slice
+                    t = t.narrow(z.dim, z.start, z.length)
+                return t.to(p)
 
             if adam:
                 opt.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32),
@@ -260,7 +276,8 @@ class AsyncCheckpointer:
     npz/manifest writes to a background thread. At most one write is in
     flight: a second save() waits for the first. wait() joins the pending
     write and raises its error; call it before reading checkpoints back or
-    exiting."""
+    exiting. In a process group every rank calls save() and wait() alike:
+    the moments are gathered on every rank, rank 0 alone writes."""
 
     def __init__(self):
         self._thread: Optional[threading.Thread] = None
@@ -268,8 +285,10 @@ class AsyncCheckpointer:
 
     def save(self, path, net, dual=None, metadata=None, prune_before=None):
         self.wait()
+        flat_opt = _opt_flat(dual, net) if dual is not None else None  # every rank gathers
+        if get_rank() != 0:
+            return
         flat_model = _model_flat(net)
-        flat_opt = _opt_flat(dual, net) if dual is not None else None
 
         def work():
             try:
@@ -283,12 +302,16 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self):
+        """In a process group every rank calls it: rank 0 joins its write,
+        then the ranks meet at a barrier."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
         if self._error is not None:
             err, self._error = self._error, None
             raise err
+        if get_world_size() > 1:
+            torch.distributed.barrier()
 
 
 def load_metadata(path: str) -> Dict:

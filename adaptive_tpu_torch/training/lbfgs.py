@@ -38,6 +38,12 @@ the group's subset alone. torch.optim.LBFGS reads on the host each
 evaluation's loss, its convergence tests, and in the two-loop recursion
 each pair's coefficient (passed to add_ as a Python number): the step syncs
 with the host twice a pair an iteration (ROADMAP.md §3).
+
+On a mesh every evaluation's loss and gradients are the data group's sums
+over the global valid count (training/step.py's rules: draws at the global
+batch's shape, BN moments over the group), so torch's LBFGS sees the global
+function on every rank, as GSPMD gives JAX's step; its curvature memory
+stays whole on every rank (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -53,9 +59,10 @@ from adaptive_tpu_torch.models import encoder as E
 from adaptive_tpu_torch.models.resnet import CHILD_NAMES
 from adaptive_tpu_torch.ops import preprocess
 from adaptive_tpu_torch.ops.dropout import make_dropout
+from adaptive_tpu_torch.parallel.mesh import all_reduce_sum_
 from adaptive_tpu_torch.training.optim import DualOptimizer
 from adaptive_tpu_torch.training.step import (
-    LSTM_NAMES, StepOutput, clip_lstm_grads, masked_ce_loss,
+    LSTM_NAMES, StepOutput, all_reduce_grads, clip_lstm_grads, masked_ce_sum,
 )
 
 
@@ -73,7 +80,7 @@ def _grads_only(net, names: Iterable[str]):
             p.requires_grad_(True)
 
 
-def make_lbfgs_train_step(model, dual: DualOptimizer, cf):
+def make_lbfgs_train_step(model, dual: DualOptimizer, cf, mesh=None):
     """Returns train_step(net, batch, gen, encoder_on=False) -> StepOutput,
     the interface of training/step.py::make_train_step; the loss is the
     first evaluation's (what torch's LBFGS.step returns)."""
@@ -82,6 +89,8 @@ def make_lbfgs_train_step(model, dual: DualOptimizer, cf):
     start_layer = cf.opt_fine_tune_cnn_start_layer
     frozen_trunk = len(CHILD_NAMES)
     dec_names, enc_names = dual.names("decoder"), dual.names("encoder")
+    group = mesh.data_group if mesh is not None else None
+    rows = mesh.rows if mesh is not None else None
 
     def train_step(net, batch, gen: torch.Generator, encoder_on: bool = False) -> StepOutput:
         batch = {k: torch.as_tensor(batch[k], device=model.device)
@@ -89,38 +98,57 @@ def make_lbfgs_train_step(model, dual: DualOptimizer, cf):
         caps, lens = batch["captions"], batch["lengths"]
         params = dict(net.named_parameters())
         lstm = [params[k] for k in LSTM_NAMES]
-        images = preprocess.train_preprocess(gen, batch["images"], crop, model.compute_dtype)
+        images = preprocess.train_preprocess(gen, batch["images"], crop, model.compute_dtype,
+                                             rows)
         drawn = gen.get_state()  # the dropout masks start here, every evaluation
+        # the batch's valid count (masked_ce_sum's mask), over the data group
+        steps = torch.arange(caps.shape[1] - 1, device=caps.device)
+        count = (steps[None, :] < (lens[:, None] - 1)).sum().float().reshape(1)
+        all_reduce_sum_([count], group)
+        count = torch.clamp(count[0], min=1)
 
         def zero_grads():
             for p in params.values():
                 p.grad = None
 
+        def mean_loss(scores):
+            """This rank's NLL over the global count (what its backward
+            takes) and the global loss (what LBFGS reads)."""
+            local = masked_ce_sum(scores, caps, lens)[0] / count
+            total = local.detach().clone().reshape(1)
+            all_reduce_sum_([total], group)
+            return local, total[0]
+
+        def backward(local):
+            local.backward()
+            all_reduce_grads(params.values(), group)
+
         def full_loss(grad_from, update_stats):
             gen.set_state(drawn)
             scores, _ = model.forward(net, images, caps, train=True, gen=gen,
-                                      grad_from=grad_from, update_stats=update_stats)
-            return masked_ce_loss(scores, caps, lens)
+                                      grad_from=grad_from, update_stats=update_stats, mesh=mesh)
+            return mean_loss(scores)
 
         norm = [None]
         eval_point: List[torch.Tensor] = []
         if dual.decoder_is_lbfgs:
             with torch.no_grad():  # the trunk once a batch; its BN statistics update here
-                A_flat, a_g = E.encoder_features(net.encoder, images, True, frozen_trunk)
+                A_flat, a_g = E.encoder_features(net.encoder, images, True, frozen_trunk,
+                                                 bn_group=group)
             record = encoder_on and not dual.encoder_is_lbfgs
             dec_params = [params[n] for n in dec_names]
 
             def dec_closure():
                 zero_grads()
                 gen.set_state(drawn)
-                drop = make_dropout(gen, model.dropout_rate)
+                drop = make_dropout(gen, model.dropout_rate, rows)
                 V, v_g, h0, c0 = E.encoder_heads(
                     E.head_params(net.encoder, detach=False), A_flat, a_g, drop)
                 scores, _, _ = D.decoder_forward(
                     D.decoder_params(net.decoder, detach=False), model.spec, V, v_g,
                     caps.long(), h0, c0, drop=drop)
-                loss = masked_ce_loss(scores, caps, lens)
-                loss.backward()
+                local, loss = mean_loss(scores)
+                backward(local)
                 norm[0] = clip_lstm_grads([p.grad for p in lstm], max_norm)
                 if record:
                     eval_point[:] = [p.detach().clone() for p in dec_params]
@@ -134,19 +162,18 @@ def make_lbfgs_train_step(model, dual: DualOptimizer, cf):
             # re-runs its own closure)
             zero_grads()
             with _grads_only(net, dec_names):
-                loss = full_loss(frozen_trunk, True)
-                loss.backward()
+                local, loss = full_loss(frozen_trunk, True)
+                backward(local)
             norm[0] = clip_lstm_grads([p.grad for p in lstm], max_norm)
             dual.step("decoder")
-            loss = loss.detach()
 
         if encoder_on:
             with _grads_only(net, enc_names):
                 if dual.encoder_is_lbfgs:
                     def enc_closure():
                         zero_grads()
-                        loss = full_loss(start_layer, False)
-                        loss.backward()
+                        local, loss = full_loss(start_layer, False)
+                        backward(local)
                         return loss
 
                     dual.step("encoder", enc_closure)
@@ -158,7 +185,7 @@ def make_lbfgs_train_step(model, dual: DualOptimizer, cf):
                         for p, v in zip(dec_params, eval_point):
                             p.copy_(v)
                     zero_grads()
-                    full_loss(start_layer, False).backward()
+                    backward(full_loss(start_layer, False)[0])
                     with torch.no_grad():
                         for p, v in zip(dec_params, final):
                             p.copy_(v)

@@ -23,16 +23,26 @@ held at fp32 values, as optax's injected hyperparameters are: a resumed run
 reads back from opt.npz the rate it ran with. get_lr/set_lr reach an L-BFGS
 group's lr the same way, so the plateau scheduler rescales it
 (train.py:57-60,184-194).
+
+ZeRO-1 (``opt_state_sharding="data"``, ``shard_opt_state``): for each Adam
+or SGD parameter that JAX's rule picks (parallel/mesh.py::
+opt_state_sharding_rules), a data rank owns the slice [r*n/D, (r+1)*n/D) of
+its dim and the group's optimizer steps a leaf holding that slice, so the
+moments live for the slice only; each step hands the leaf its slice of the
+gradient and all-gathers the updated slices back into the parameter over the
+data group. The updates are the replicated ones: the rules are elementwise.
+An L-BFGS group's memory stays whole on every rank (ROADMAP.md §3).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from adaptive_tpu_torch.models.resnet import CHILD_NAMES, finetune_mask
+from adaptive_tpu_torch.parallel.mesh import gather
 
 GROUPS = ("decoder", "encoder")
 _KIND = {"decoder": "rnn", "encoder": "cnn"}
@@ -42,13 +52,61 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+class ZeroShard(NamedTuple):
+    """A parameter's ZeRO-1 slice: `shard` (a leaf the group's optimizer
+    steps) holds param.narrow(dim, start, length)."""
+
+    param: torch.Tensor
+    shard: torch.Tensor
+    dim: int
+    start: int
+    length: int
+
+    def scatter_grad(self) -> None:
+        """The leaf takes the parameter's values and its gradient's slice."""
+        with torch.no_grad():
+            self.shard.copy_(self.param.narrow(self.dim, self.start, self.length))
+        g = self.param.grad
+        self.shard.grad = None if g is None else g.narrow(
+            self.dim, self.start, self.length).contiguous()
+
+    def full(self, t: torch.Tensor, group) -> torch.Tensor:
+        """The data group's slices of a tensor shaped as the shard, whole
+        (an all-gather every rank of the group enters)."""
+        return gather(t, group, self.dim)
+
+
+class Zero1(NamedTuple):
+    """ZeRO-1's state: the data group and each sharded parameter's slice."""
+
+    group: Any
+    shards: Dict[str, ZeroShard]
+
+    def gather(self, names) -> None:
+        """The updated slices of the named parameters into every rank's
+        parameter."""
+        for n in names:
+            z = self.shards.get(n)
+            if z is not None:
+                with torch.no_grad():
+                    z.param.copy_(z.full(z.shard.detach(), self.group))
+
+
 class DualOptimizer(NamedTuple):
-    """The two groups' optimizers and their parameters by state_dict name."""
+    """The two groups' optimizers and their parameters by state_dict name;
+    zero: ZeRO-1's slices (shard_opt_state), or None."""
 
     decoder: torch.optim.Optimizer
     encoder: torch.optim.Optimizer
     decoder_names: List[str]
     encoder_names: List[str]
+    zero: Optional[Zero1] = None
+
+    def state_key(self, name: str, param: torch.Tensor) -> torch.Tensor:
+        """The tensor its group's optimizer keys the parameter's state by:
+        its ZeRO-1 leaf where it is sharded, else itself."""
+        z = self.zero.shards.get(name) if self.zero is not None else None
+        return param if z is None else z.shard
 
     def group(self, name: str) -> torch.optim.Optimizer:
         return getattr(self, name)
@@ -69,8 +127,14 @@ class DualOptimizer(NamedTuple):
         L-BFGS group one step(closure) (up to max_iter evaluations); returns
         what the optimizer's step returns (L-BFGS: the first loss)."""
         opt = self.group(name)
+        sharded = [] if self.zero is None else [
+            n for n in self.names(name) if n in self.zero.shards]
+        for n in sharded:
+            self.zero.shards[n].scatter_grad()
         loss = opt.step() if closure is None else opt.step(closure)
         opt.param_groups[0]["count"] += 1
+        if sharded:
+            self.zero.gather(sharded)
         return loss
 
 
@@ -133,3 +197,48 @@ def set_lr(dual: DualOptimizer, group: str, lr: float) -> DualOptimizer:
     returns dual, as the JAX package's set_lr returns the new state."""
     dual.group(group).param_groups[0]["lr"] = _f32(lr)
     return dual
+
+
+def shard_opt_state(dual: DualOptimizer, net, mesh) -> DualOptimizer:
+    """ZeRO-1 over the mesh's data axis (module docstring): each Adam or SGD
+    group is rebuilt over its parameters with the picked ones replaced by
+    this rank's slice leaves, its hyperparameters, count and state carried
+    over (a moment sliced). L-BFGS groups stay as they are. Returns dual
+    unchanged at data size 1."""
+    from adaptive_tpu_torch.parallel.mesh import opt_state_sharding_rules
+
+    if mesh.data_size == 1:
+        return dual
+    params = dict(net.named_parameters())
+    rules = opt_state_sharding_rules(params, mesh, net.encoder.resnet_conv.arch)
+    shards: Dict[str, ZeroShard] = {}
+    opts = {}
+    for g in GROUPS:
+        opt = dual.group(g)
+        if isinstance(opt, torch.optim.LBFGS):
+            opts[g] = opt
+            continue
+        plist, states = [], []
+        for name in dual.names(g):
+            p, dim = params[name], rules[name]
+            st = opt.state.get(p, {})
+            if dim is None:
+                plist.append(p)
+                states.append((p, st))
+                continue
+            length = p.shape[dim] // mesh.data_size
+            start = mesh.data_rank * length
+            leaf = p.detach().narrow(dim, start, length).clone().requires_grad_(True)
+            shards[name] = ZeroShard(p, leaf, dim, start, length)
+            plist.append(leaf)
+            states.append((leaf, {k: v.narrow(dim, start, length).clone()
+                                  if torch.is_tensor(v) and v.shape == p.shape else v
+                                  for k, v in st.items()}))
+        pg = {k: v for k, v in opt.param_groups[0].items() if k != "params"}
+        new = type(opt)([{**pg, "params": plist}], **opt.defaults)
+        for key, st in states:
+            if st:
+                new.state[key] = st
+        opts[g] = new
+    return dual._replace(decoder=opts["decoder"], encoder=opts["encoder"],
+                         zero=Zero1(mesh.data_group, shards))

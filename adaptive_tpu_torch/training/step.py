@@ -14,6 +14,23 @@ Reference parity:
 
 The weights, BN statistics and optimizer state change in place. The step
 makes no host sync: the loss stays a device tensor.
+
+On a mesh (parallel/mesh.py) each rank holds its rows of the global batch
+(the process-sharded loader) and the step is JAX's global step, as GSPMD
+gives it over a data-sharded batch:
+
+* the crop/flip draws and the dropout masks are made at the global batch's
+  shape from the same seeded generator on every rank, and each rank keeps
+  its rows; so a data-parallel step draws what one process draws;
+* train-mode BN takes its moments over the data group (models/resnet.py::
+  _SyncBatchNorm);
+* the sum-of-NLL gradients are summed over the data group once a step,
+  after the microbatches, in one flat all-reduce (no DistributedDataParallel,
+  which would average per-rank means every microbatch), the valid count is
+  all-reduced, and the division and the LSTM clip follow.
+
+The model ranks of one data row hold the same rows and compute the same
+step; training keeps the vocab tensors whole (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -24,6 +41,7 @@ import torch
 
 from adaptive_tpu_torch.models.resnet import CHILD_NAMES
 from adaptive_tpu_torch.ops import preprocess
+from adaptive_tpu_torch.parallel.mesh import all_reduce_sum_
 from adaptive_tpu_torch.training.optim import DualOptimizer
 
 LSTM_NAMES = ("decoder.LSTM.weight_ih_l0", "decoder.LSTM.weight_hh_l0",
@@ -61,6 +79,11 @@ def clip_lstm_grads(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Ten
     return total
 
 
+def all_reduce_grads(params, group) -> None:
+    """Sum every present gradient over the data group, as one bucket."""
+    all_reduce_sum_([p.grad for p in params if p.grad is not None], group)
+
+
 class StepOutput(NamedTuple):
     """What the step returns; the weights changed in place."""
 
@@ -68,11 +91,12 @@ class StepOutput(NamedTuple):
     lstm_grad_norm: torch.Tensor
 
 
-def make_train_step(model, dual: DualOptimizer, cf):
+def make_train_step(model, dual: DualOptimizer, cf, mesh=None):
     """Returns train_step(net, batch, gen, encoder_on=False) -> StepOutput.
 
     batch: images uint8 NHWC [B,S,S,3], captions int [B,T], lengths int [B]
-    (numpy or tensors; moved to model.device). gen: the torch.Generator of
+    (numpy or tensors; moved to model.device); on a mesh, this rank's rows
+    (module docstring). gen: the torch.Generator of
     the crop/flip draws and the dropout masks. encoder_on: the encoder group
     is stepped too; otherwise the trunk runs without autograd (no conv
     backward; its BN statistics still update, as JAX's forward(train=True)
@@ -83,11 +107,15 @@ def make_train_step(model, dual: DualOptimizer, cf):
     max_norm = cf.train_lstm_maxnormal
     accum = cf.train_grad_accum_steps
     start_layer = cf.opt_fine_tune_cnn_start_layer
+    group = mesh.data_group if mesh is not None else None
+    rows = mesh.rows if mesh is not None else None
 
     def sum_loss(net, batch, gen, encoder_on):
-        images = preprocess.train_preprocess(gen, batch["images"], crop, model.compute_dtype)
+        images = preprocess.train_preprocess(gen, batch["images"], crop, model.compute_dtype,
+                                             rows)
         scores, _ = model.forward(net, images, batch["captions"], train=True, gen=gen,
-                                  grad_from=start_layer if encoder_on else len(CHILD_NAMES))
+                                  grad_from=start_layer if encoder_on else len(CHILD_NAMES),
+                                  mesh=mesh)
         return masked_ce_sum(scores, batch["captions"], batch["lengths"])
 
     def train_step(net, batch, gen: torch.Generator, encoder_on: bool = False) -> StepOutput:
@@ -107,6 +135,12 @@ def make_train_step(model, dual: DualOptimizer, cf):
             sum_nll, n = sum_loss(net, mb, gen, encoder_on)
             sum_nll.backward()
             s_nll, s_n = s_nll + sum_nll.detach(), s_n + n
+        if group is not None:
+            # the global sums: the gradients once a step, the loss and count
+            all_reduce_grads(params.values(), group)
+            sums = torch.stack([s_nll, s_n.float()])
+            all_reduce_sum_([sums], group)
+            s_nll, s_n = sums[0], sums[1]
         n = torch.clamp(s_n, min=1).float()
         for p in params.values():
             if p.grad is not None:

@@ -10,8 +10,17 @@ splits, early stop (patience 6), per-epoch checkpoint named
 'cider-%.4f_model-%d' (train.py:176-178), plus mid-epoch checkpoints and
 auto-resume.
 
-The JAX package's mesh branches are not ported (ROADMAP.md, queue 1, item
-6). When either optimizer group is L-BFGS the step is training/lbfgs.py's
+In a process group of more than one rank (torchrun, main.py) the run is
+data-parallel over the config's mesh (parallel/mesh.py), as the JAX
+package's mesh branch is: every rank computes the same batch plan and
+decodes only its data rank's rows (TrainBatches(process_index=,
+process_count=)), the step sums its gradients and BN moments over the data
+group (training/step.py), ZeRO-1 shards the moments (opt_state_sharding),
+the per-epoch eval decodes over the mesh and scores the whole split on every
+rank, and rank 0 writes the checkpoints and the metrics. A batch that does
+not divide the data axis raises JAX's multi-process error: each card is a
+process here, so JAX's one-process "mesh disabled" case does not arise.
+When either optimizer group is L-BFGS the step is training/lbfgs.py's
 closure step (train_loop.py:174-177). The random draws (crop, flip, dropout) come from one
 torch.Generator on the model's device, seeded from train_random_seed; its
 state rides in each checkpoint's manifest under "torch_generator_state" in
@@ -32,7 +41,10 @@ from adaptive_tpu_torch.data.vocab import Vocabulary
 from adaptive_tpu_torch.models.factory import get_model, resolve_device
 from adaptive_tpu_torch.training import checkpoint as ckpt
 from adaptive_tpu_torch.training.lbfgs import make_lbfgs_train_step
-from adaptive_tpu_torch.training.optim import get_lr, make_dual_optimizer, set_lr
+from adaptive_tpu_torch.parallel.mesh import get_rank, get_world_size, make_mesh
+from adaptive_tpu_torch.training.optim import (
+    get_lr, make_dual_optimizer, set_lr, shard_opt_state,
+)
 from adaptive_tpu_torch.training.schedule import ReduceLROnPlateau, early_stop_Ornot
 from adaptive_tpu_torch.training.step import make_train_step
 from adaptive_tpu_torch.utils.logging import MetricWriter
@@ -72,17 +84,28 @@ def main_train(cf, dataset=None, device="cuda", eval_datasets=None, image_source
         else:
             print("auto-resume: no checkpoint in", cf.train_auto_resume_dir, "- fresh start")
 
+    mesh = train_mesh(cf)
     if dataset is None:
         dataset = CocoCaptionDataset(cf.resized_image_dir, cf.train_anno_path, vocab,
                                      image_source)
-    loader = TrainBatches(dataset, cf.train_batch_size, seed=cf.train_random_seed,
-                          num_workers=cf.dataloader_num_workers)
+    loader = TrainBatches(
+        dataset, cf.train_batch_size, seed=cf.train_random_seed,
+        num_workers=cf.dataloader_num_workers,
+        # the same plan on every rank, each decoding its data rank's rows
+        # (the model ranks of a data row take the same ones)
+        process_index=mesh.data_rank if mesh else 0,
+        process_count=mesh.data_size if mesh else 1,
+        microbatches=cf.train_grad_accum_steps,
+    )
 
-    writer = MetricWriter(os.path.join(cf.exp_dir or ".", "tensorboard"))
+    writer = (MetricWriter(os.path.join(cf.exp_dir or ".", "tensorboard"))
+              if get_rank() == 0 else _NoMetrics())
 
     model, net, start_epoch = get_model(cf, device=device)
     gen = torch.Generator(device=model.device).manual_seed(cf.train_random_seed + 1)
     dual = make_dual_optimizer(net, cf)
+    if mesh is not None and cf.opt_state_sharding == "data":
+        dual = shard_opt_state(dual, net, mesh)  # ZeRO-1 moments
     ckpt_saver = ckpt.AsyncCheckpointer()
 
     decoder_sched = ReduceLROnPlateau(
@@ -110,7 +133,7 @@ def main_train(cf, dataset=None, device="cuda", eval_datasets=None, image_source
     if cf.train_pretrained and cf.train_pretrained_model:
         ckpt_dir = cf.train_pretrained_model
         if os.path.exists(os.path.join(ckpt_dir, "opt.npz")):
-            ckpt.restore_opt_state(ckpt_dir, dual, net)
+            ckpt.restore_opt_state(ckpt_dir, dual, net)  # ZeRO-1: each rank's slices
             print("resumed optimizer state from", ckpt_dir)
         meta = {}
         if os.path.exists(os.path.join(ckpt_dir, "manifest.json")):
@@ -140,9 +163,9 @@ def main_train(cf, dataset=None, device="cuda", eval_datasets=None, image_source
             print("mid-epoch resume: epoch %d from step %d" % (start_epoch, start_step))
 
     if dual.decoder_is_lbfgs or dual.encoder_is_lbfgs:
-        train_step = make_lbfgs_train_step(model, dual, cf)
+        train_step = make_lbfgs_train_step(model, dual, cf, mesh)
     else:
-        train_step = make_train_step(model, dual, cf)
+        train_step = make_train_step(model, dual, cf, mesh)
 
     # one shared eval decoder: its prepared weights are re-made when the
     # weights change (prepare_cached) and released after each epoch's eval
@@ -207,7 +230,8 @@ def main_train(cf, dataset=None, device="cuda", eval_datasets=None, image_source
                     if resuming_mid_epoch else None)
         n_steps = resumed_n_steps if resuming_mid_epoch else 0
         first_batch = start_step if resuming_mid_epoch else 0
-        batches = device_prefetch(loader.iter_from(first_batch), model.device, size=2)
+        batches = device_prefetch(loader.iter_from(first_batch), model.device, size=2,
+                                  mesh=mesh, local=loader.process_sharded)
         every = cf.train_checkpoint_every_steps
         for i, batch in enumerate(batches, start=first_batch):
             out = train_step(net, batch, gen, encoder_opt_flag)
@@ -307,8 +331,38 @@ def main_train(cf, dataset=None, device="cuda", eval_datasets=None, image_source
     ckpt_saver.wait()  # all checkpoints durable before the run reports done
     writer.close()
     print("Model of best epoch #: %d with CIDEr score %.2f" % (best_epoch, best_cider))
-    figure_loss(cf, train_epoch_losses)
+    if get_rank() == 0:
+        figure_loss(cf, train_epoch_losses)
     return net, best_cider, best_epoch
+
+
+def train_mesh(cf):
+    """The training mesh (JAX's train_loop.py:87-102): in a process group of
+    more than one rank, the config's mesh, whose data axis must divide the
+    batch (and each microbatch); None for one process."""
+    if get_world_size() <= 1:
+        return None
+    mesh = make_mesh(cf)
+    data_n = mesh.data_size
+    if cf.train_batch_size % data_n:
+        raise ValueError(
+            "multi-process training requires a mesh: set "
+            "train_batch_size (%d) to a multiple of the data axis %d"
+            % (cf.train_batch_size, data_n)
+        )
+    if (cf.train_batch_size // cf.train_grad_accum_steps) % data_n:
+        raise ValueError(
+            "train_batch_size / train_grad_accum_steps (%d) must be a multiple of "
+            "the data axis %d: each microbatch is split over it"
+            % (cf.train_batch_size // cf.train_grad_accum_steps, data_n))
+    return mesh
+
+
+class _NoMetrics:
+    """The metric writer of a rank other than 0: rank 0 writes them."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
 
 
 def vars_of(sched: ReduceLROnPlateau) -> dict:

@@ -122,14 +122,37 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    10c tools/torch_int8_gate.py at 128 images and 2 epochs: all six modes
    scored, (b) and (c) captioning every image as per-tensor (t) does.
 
-Phases run in the order 1, 2, 2b, 3, 3b, 2c, 5, 4, 4b, 6, 7, 7b, 8a, 8b, 8c,
-9a, 9b, 9c, 10a, 10b, 10c.
+11. runs the multi-device path (parallel/, decoding/spmd.py) at the widths
+   of configs/coco_adaptive_v5e8.py, loaded through load_config, with
+   seeded weights as phase 3 makes them: kernel 4 on each 5,120-column
+   vocab shard against its twin at the greedy (W = 1) and beam-3 shapes,
+   timed beside the bound and the library call; then 2 ranks, child
+   processes of this script on cuda:0 over gloo (a file store under
+   TMPDIR): 11a tensor-parallel decodes at mesh (1, 2), batch 256, greedy
+   and beam 3 (each rank's kernel 4 on its shard 30 times a decode, kernel
+   2 never), equal to one process's decode on the card under phases 4's
+   and 4b's rules; 11b coco_eval in fp32 at mesh (2, 1) over 512 seeded
+   images (the ids gathered, rank 1's .proc1 file), equal to one
+   process's; 11c one fp32 step at mesh (2, 1), batch 8, encoder on,
+   Adam/Adam, against one process's step on the card (a gloo world of 1),
+   again with ZeRO-1 (each rank half of each sharded moment's bytes) and
+   once with a decoder L-BFGS group (loss, n_iter, t); 11d bf16 steps at
+   batch 256 (2 x 128, the config's 2 microbatches): ms a step, the
+   collectives' share of a profiled step and the BN all-reduces counted,
+   which is not a scaling figure (both ranks share one card); 11e
+   adaptive_tpu_torch.main with distributed_init (a world of 1 over nccl)
+   on 256 images for 1 epoch, equal to the run without a process group in
+   its loss history and CIDEr.
 
-Prints one JSON line of per-kernel numbers, one of the eval driver's
-numbers ({"eval_driver": ...}), one of training's ({"train": ...}), one of
-the L-BFGS step's ({"lbfgs": ...}), one of the CLI's ({"cli": ...}), one of
-serving's, the export's and the gate's ({"serving": ...}), then as its last
-line
+Phases run in the order 1, 2, 2b, 3, 3b, 2c, 5, 4, 4b, 6, 7, 7b, 8a, 8b, 8c,
+9a, 9b, 9c, 10a, 10b, 10c, 11.
+
+Prints one JSON line of per-kernel numbers (kernel 4's entry with its shard
+numbers), one of the eval driver's numbers ({"eval_driver": ...}), one of
+training's ({"train": ...}), one of the L-BFGS step's ({"lbfgs": ...}), one
+of the CLI's ({"cli": ...}), one of serving's, the export's and the gate's
+({"serving": ...}), one of phase 11's ({"multi_device": ...}), then as its
+last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Exits 2 without a result where
 there is no CUDA card or the package is not beside this script.
@@ -1107,26 +1130,29 @@ def profile_decode(run, out_dir, smi, tag):
 
 
 # ----------------------------------------------------------------- phase 4
-def cpu_gaps(model, prepared, images_u8, cf):
-    """Top-2 logit gap of every row at every step of the CPU's greedy decode,
-    with the head twin's arithmetic; also returns its ids."""
+def greedy_gaps(model, prepared, images_u8, cf):
+    """Top-2 logit gap of every row at every step of the model's greedy
+    decode on its device (the CPU's in phase 4), with the head twin's
+    arithmetic (c_hat + h rounded to the weight's type, fp32 logits); also
+    returns its ids."""
     import torch
 
     from adaptive_tpu_torch.models import decoders as Dm
     from adaptive_tpu_torch.ops.preprocess import eval_preprocess
 
+    dev = model.device
     with torch.no_grad():
         V, v_g, h0, c0 = model.encode_inference(prepared, eval_preprocess(
-            torch.as_tensor(images_u8), cf.train_crop_size))
+            torch.as_tensor(images_u8, device=dev), cf.train_crop_size, model.compute_dtype))
         dec, (w, b) = prepared["decoder"], prepared["head"]
         pv = model.precompute_slots(dec, V)
         st = model.init_decode_state(h0, c0)
-        tok = torch.full((V.shape[0],), cf.decode_start_token, dtype=torch.int32)
+        tok = torch.full((V.shape[0],), cf.decode_start_token, dtype=torch.int32, device=dev)
         ids, gaps = [], []
         for _ in range(STEPS):
             x = torch.cat([dec["embed"][tok], v_g], dim=-1)
             h_new, c_new, chat, _, _ = Dm._fused_cell(dec, x, st, False, V, pv)
-            logits = (chat + h_new) @ w + b
+            logits = (chat + h_new).to(w.dtype).float() @ w.float() + b.float()
             logits[:, VOCAB:] = -1e30
             top2 = logits.topk(2, dim=1)
             gaps.append(top2.values[:, 0] - top2.values[:, 1])
@@ -1160,7 +1186,7 @@ def cross_device_parity(cf, model_g, net_g, model_c, net_c, images_u8, tag="pari
     out_g = make_greedy_decoder(model_g, cf)(net_g, imgs)
     out_c = make_greedy_decoder(model_c, cf)(net_c, imgs)
     ids_g, ids_c = out_g.ids.cpu(), out_c.ids
-    ref_ids, gaps = cpu_gaps(model_c, model_c.prepare_inference(net_c), imgs, cf)
+    ref_ids, gaps = greedy_gaps(model_c, model_c.prepare_inference(net_c), imgs, cf)
     att_err = 0.0
     for row in range(imgs.shape[0]):
         diff = (ids_g[row] != ids_c[row]).nonzero()
@@ -1183,31 +1209,33 @@ def cross_device_parity(cf, model_g, net_g, model_c, net_c, images_u8, tag="pari
 
 
 # ---------------------------------------------------------------- phase 4b
-def cpu_beam_gaps(model, prepared, images_u8, cf, W):
-    """The CPU's beam decode (fused path, plain twins) step by step, with
-    each row's top W+1 tokens: the flat top W+1 of the beam x token
-    candidates holds every candidate that could take one of the W slots,
-    and the smallest gap between two adjacent ones says how near a swap
-    was. Returns (all_ids [n, W, STEPS], per-step min gap [n, STEPS])."""
+def beam_gaps(model, prepared, images_u8, cf, W):
+    """The model's beam decode (fused path) step by step on its device (the
+    CPU's, with the plain twins, in phase 4b), with each row's top W+1
+    tokens: the flat top W+1 of the beam x token candidates holds every
+    candidate that could take one of the W slots, and the smallest gap
+    between two adjacent ones says how near a swap was. Returns (all_ids
+    [n, W, STEPS], per-step min gap [n, STEPS])."""
     import torch
 
     from adaptive_tpu_torch.models.decoders import DecodeState
     from adaptive_tpu_torch.ops.fused_step import topk_lower_index_first
     from adaptive_tpu_torch.ops.preprocess import eval_preprocess
 
+    dev = model.device
     with torch.no_grad():
         V, v_g, h0, c0 = model.encode_inference(prepared, eval_preprocess(
-            torch.as_tensor(images_u8), cf.train_crop_size))
+            torch.as_tensor(images_u8, device=dev), cf.train_crop_size, model.compute_dtype))
         dec, head = prepared["decoder"], prepared["head"]
         pv = model.precompute_slots(dec, V)
         n, k = V.shape[0], W + 1
         st = model.init_decode_state(h0.repeat_interleave(W, 0), c0.repeat_interleave(W, 0))
         vg = v_g.repeat_interleave(W, 0)
-        dead = torch.tensor([0.0] + [-1e9] * W)
+        dead = torch.tensor([0.0] + [-1e9] * W, device=dev)
         scores = dead[:W].expand(n, W)
-        tok = torch.full((n, W), cf.decode_start_token, dtype=torch.int32)
-        finished = torch.zeros((n, W), dtype=torch.bool)
-        img = torch.arange(n)[:, None]
+        tok = torch.full((n, W), cf.decode_start_token, dtype=torch.int32, device=dev)
+        finished = torch.zeros((n, W), dtype=torch.bool, device=dev)
+        img = torch.arange(n, device=dev)[:, None]
         toks, parents, gaps = [], [], []
         for _ in range(STEPS):
             lp, tk, _, _, st = model.beam_decode_step(dec, tok.reshape(-1), vg, st, V, k,
@@ -1223,7 +1251,7 @@ def cpu_beam_gaps(model, prepared, images_u8, cf, W):
             finished = finished.gather(1, src) | (tok == cf.decode_eos_token)
             toks.append(tok)
             parents.append(src)
-        ptr, ids = torch.arange(W).expand(n, W), []
+        ptr, ids = torch.arange(W, device=dev).expand(n, W), []
         for tok_t, par_t in zip(reversed(toks), reversed(parents)):
             ids.append(tok_t.gather(1, ptr))
             ptr = par_t.gather(1, ptr)
@@ -1238,7 +1266,7 @@ def beam_parity(cf, model_g, net_g, model_c, net_c, images_u8):
     imgs = images_u8[:8]
     out_g = make_beam_decoder(model_g, cf, beam_size=BEAM)(net_g, imgs)
     out_c = make_beam_decoder(model_c, cf, beam_size=BEAM)(net_c, imgs)
-    ref_ids, gaps = cpu_beam_gaps(model_c, model_c.prepare_inference(net_c), imgs, cf, BEAM)
+    ref_ids, gaps = beam_gaps(model_c, model_c.prepare_inference(net_c), imgs, cf, BEAM)
     if not torch.equal(ref_ids, out_c.all_ids):
         raise AssertionError("the step-by-step CPU beam decode disagrees with make_beam_decoder")
     err = 0.0
@@ -1463,12 +1491,12 @@ def explain_by_gaps(tag, model_c, net_c, cf, batches_g, batches_c, index):
     imgs = batches_c[b][0]
     prepared = model_c.prepare_inference(net_c)
     if cf.beam_size > 1:
-        _, gaps = cpu_beam_gaps(model_c, prepared, imgs, cf, cf.beam_size)
+        _, gaps = beam_gaps(model_c, prepared, imgs, cf, cf.beam_size)
         gap = float(gaps[row].min())
     else:
         ids_g, ids_c = batches_g[b][1].ids[row].cpu(), batches_c[b][1].ids[row]
         t = int((ids_g != ids_c).nonzero()[0])
-        ref_ids, gaps = cpu_gaps(model_c, prepared, imgs, cf)
+        ref_ids, gaps = greedy_gaps(model_c, prepared, imgs, cf)
         gap = float(gaps[row, t])
         if int(ref_ids[row, t]) != int(ids_c[t]):
             raise AssertionError(f"[eval parity {tag}] the step-by-step CPU decode disagrees")
@@ -1924,7 +1952,7 @@ def lbfgs_counts():
     from adaptive_tpu_torch.training import lbfgs
 
     counts = {"evals": 0, "decoder_evals": 0}
-    saved = (lbfgs.masked_ce_loss, lbfgs.clip_lstm_grads)
+    saved = (lbfgs.masked_ce_sum, lbfgs.clip_lstm_grads)
 
     def loss(*a, **kw):
         counts["evals"] += 1
@@ -1934,11 +1962,11 @@ def lbfgs_counts():
         counts["decoder_evals"] += 1
         return saved[1](*a, **kw)
 
-    lbfgs.masked_ce_loss, lbfgs.clip_lstm_grads = loss, clip
+    lbfgs.masked_ce_sum, lbfgs.clip_lstm_grads = loss, clip
     try:
         yield counts
     finally:
-        lbfgs.masked_ce_loss, lbfgs.clip_lstm_grads = saved
+        lbfgs.masked_ce_sum, lbfgs.clip_lstm_grads = saved
 
 
 def lbfgs_state(dual, group):
@@ -2715,6 +2743,767 @@ def gate_check(smi):
     return {**{k: v for k, v in written.items() if k != "per_image"}, "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 11
+# the multi-device path (parallel/, decoding/spmd.py) at the widths of
+# configs/coco_adaptive_v5e8.py: MD_WORLD ranks, child processes of this
+# script, share cuda:0 over gloo (NCCL refuses two ranks on one card), a
+# file store under TMPDIR; 11a TP decodes at mesh (1, 2) and batch
+# MD_DECODE_B, 11b coco_eval in fp32 at mesh (2, 1) over MD_EVAL_IMAGES
+# images at batch MD_EVAL_BATCH, 11c one fp32 step at batch MD_TRAIN_B (replicated,
+# ZeRO-1, decoder L-BFGS at 9b's max_iter and history), 11d timed bf16
+# steps at MD_TIMED_B (the v5e-8 config's 2 microbatches), 11e the CLI on
+# a world of 1 over nccl, MD_CLI_IMAGES images at batch MD_CLI_BATCH
+V5E8_CONFIG = os.path.join(HERE, "configs", "coco_adaptive_v5e8.py")
+MD_WORLD, MD_RANK_TIMEOUT = 2, 600
+MD_DECODE_B = 256
+MD_EVAL_IMAGES, MD_EVAL_BATCH = 512, 256
+MD_TRAIN_B = 8
+MD_LBFGS = {"opt_rnn_optimization": "lbfgs", "opt_rnn_lbfgs_max_iter": 4,
+            "opt_rnn_lbfgs_history": 3}
+MD_TIMED_B, MD_TIMED_WARMUP, MD_TIMED_STEPS = 256, 1, 3
+MD_CLI_IMAGES, MD_CLI_BATCH = 256, 64
+# 11c, two ranks against one process on the card: the loss (relative) and
+# the weights after the step (absolute), JAX's bounds (tests/
+# test_sharding.py:87-91), held by phase 8c's rules (md_hold_step)
+MD_LOSS_RTOL, MD_PARAM_ATOL = 1e-5, 1e-5
+
+
+def md_config(**kw):
+    """configs/coco_adaptive_v5e8.py through load_config (ResNet-152 at 224,
+    embed 256, hidden 512, vocab 10,123 padded to 10,240, bf16, mesh (-1, 2),
+    ZeRO-1, batch 512 in 2 microbatches), with kw over it."""
+    from adaptive_tpu_torch.config import load_config
+
+    return load_config(V5E8_CONFIG).replace(train_auto_resume_dir="", **kw)
+
+
+def md_net(model, job):
+    """The model's Encoder2Decoder holding the parent's weights."""
+    import torch
+
+    from adaptive_tpu_torch.models.factory import Encoder2Decoder
+
+    with torch.device("meta"):
+        net = Encoder2Decoder(model.spec, model.arch)
+    net = net.to_empty(device=model.device).eval()
+    net.load_state_dict(torch.load(os.path.join(job, "weights.pt"), map_location=model.device))
+    return net
+
+
+def md_train_config(cf, **kw):
+    """11c's config: fp32, batch MD_TRAIN_B in one microbatch, mesh (2, 1),
+    moments replicated, unless kw says otherwise."""
+    return cf.replace(**{"compute_dtype": "float32", "train_batch_size": MD_TRAIN_B,
+                         "train_grad_accum_steps": 1, "opt_state_sharding": "replicated",
+                         "mesh_shape": (MD_WORLD, 1), **kw})
+
+
+def md_step(cf, job, mesh, kind):
+    """One 11c step from the parent's weights on MD_TRAIN_B seeded images:
+    on this rank's rows over `mesh`, or on the whole batch without one.
+    Returns (net, dual, StepOutput)."""
+    import torch
+
+    from adaptive_tpu_torch.models import build_model
+    from adaptive_tpu_torch.parallel import place_batch
+    from adaptive_tpu_torch.training.lbfgs import make_lbfgs_train_step
+    from adaptive_tpu_torch.training.optim import make_dual_optimizer, shard_opt_state
+    from adaptive_tpu_torch.training.step import make_train_step
+
+    kw = {"replicated": {}, "zero": {"opt_state_sharding": "data"}, "lbfgs": MD_LBFGS}[kind]
+    tcf = md_train_config(cf, **kw)
+    model = build_model(tcf)
+    net = md_net(model, job)
+    dual = make_dual_optimizer(net, tcf)
+    if mesh is not None and kind == "zero":
+        dual = shard_opt_state(dual, net, mesh)
+    make = make_lbfgs_train_step if kind == "lbfgs" else make_train_step
+    step = make(model, dual, tcf, mesh)
+    batch = train_batch(MD_TRAIN_B, SEED + 1200, "cpu")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1201)
+    out = step(net, place_batch(mesh, batch, "cuda"), gen, kind != "lbfgs")
+    torch.cuda.synchronize()
+    return net, dual, out
+
+
+def md_train_refs(cf, job):
+    """11c's one-process steps on the card, saved for the ranks: the
+    replicated step's loss, weights, BN statistics and gradients; the
+    L-BFGS step's loss, n_iter and t. The process is a gloo world of 1 and
+    the step takes it as its data group, so that its train-mode BN runs the
+    ranks' arithmetic (models/resnet.py::_SyncBatchNorm, an all-reduce over
+    one rank) and the ranks differ from it only by the split of the batch:
+    phase 8c holds F.batch_norm's path card against CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from adaptive_tpu_torch.parallel import Mesh
+
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(job, "store_one"),
+                            world_size=1, rank=0)
+    try:
+        one = Mesh((1, 1), ("data", "model"), 0, (0, 0), dist.group.WORLD)
+        net, _, out = md_step(cf, job, one, "replicated")
+        refs = {"loss": float(out.loss), "sd": net.state_dict(),
+                "grads": {n: p.grad for n, p in net.named_parameters() if p.grad is not None}}
+        _, dual, out = md_step(cf, job, one, "lbfgs")
+    finally:
+        dist.destroy_process_group()
+    st = dual.decoder.state[dual.decoder._params[0]]
+    refs["lbfgs"] = {"loss": float(out.loss), "n_iter": st["n_iter"], "t": float(st["t"])}
+    torch.save(refs, os.path.join(job, "train_refs.pt"))
+    return refs["loss"], refs["lbfgs"]
+
+
+def md_hold_step(tag, net, dual, out, refs, lr):
+    """A rank's step against the one-process step, by phase 8c's rules at
+    the MD_* bounds: the loss; every BN statistic relative to max(1, |v|);
+    the decoder group's gradients within TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL
+    max|g| and its weights within MD_PARAM_ATOL where the gradient is past
+    that bound (elsewhere Adam's first update may take either sign: 2 lr);
+    the encoder group's gradients, ill-conditioned through ResNet-152's
+    train-mode BN (phase 8c), within TRAIN_ENC_GRAD_REL of their norm and
+    its weights within 2 lr; the affine heads that read the trunk's
+    features (affine_a, affine_b, in the decoder group) as the encoder
+    group, with their group's lr (the ranks run the trunk at half the
+    batch, where cuDNN takes other algorithms, and ResNet-152 carries that
+    rounding to layer4's features at ~1e-5 of their scale, across ReLU
+    kinks of the heads); every other weight within MD_PARAM_ATOL. Returns
+    the measured gaps."""
+    loss_err = abs(float(out.loss) - refs["loss"]) / abs(refs["loss"])
+    if loss_err > MD_LOSS_RTOL:
+        raise AssertionError(f"11c {tag}: loss {float(out.loss)} vs {refs['loss']}")
+    dec, enc = set(dual.names("decoder")), set(dual.names("encoder"))
+    heads = {n for n in dec if n.startswith(("encoder.affine_a.", "encoder.affine_b."))}
+    grads = {n: p.grad for n, p in net.named_parameters() if p.grad is not None}
+
+    def rel(names):
+        num = sum(float((grads[n] - refs["grads"][n]).double().pow(2).sum()) for n in names)
+        den = sum(float(refs["grads"][n].double().pow(2).sum()) for n in names)
+        return (num / den) ** 0.5
+
+    enc_rel, heads_rel = rel(enc), rel(heads)
+    if enc_rel > TRAIN_ENC_GRAD_REL or heads_rel > TRAIN_ENC_GRAD_REL:
+        raise AssertionError(f"11c {tag}: encoder gradients {enc_rel:.3e}, heads' "
+                             f"{heads_rel:.3e} of their norm")
+    gaps = {"loss_rel": loss_err, "bn_rel": 0.0, "dec_grad_of_bound": 0.0, "dec_grad_worst": "",
+            "dec_param_abs": 0.0, "dec_sign_flips": 0, "heads_grad_rel": heads_rel,
+            "heads_param_abs": 0.0, "enc_grad_rel": enc_rel, "enc_param_abs": 0.0,
+            "other_param_abs": 0.0}
+    for k, v in net.state_dict().items():
+        if not v.is_floating_point():
+            continue
+        ref = refs["sd"][k]
+        d = (v - ref).abs()
+        if k.endswith(("running_mean", "running_var")):
+            gaps["bn_rel"] = max(gaps["bn_rel"], float((d / ref.abs().clamp(min=1.0)).max()))
+        elif k in enc:
+            gaps["enc_param_abs"] = max(gaps["enc_param_abs"], float(d.max()))
+        elif k in heads:
+            gaps["heads_param_abs"] = max(gaps["heads_param_abs"], float(d.max()))
+        elif k in dec:
+            g = refs["grads"][k]
+            g_tol = TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL * float(g.abs().max())
+            of_bound = float((grads[k] - g).abs().max()) / g_tol
+            if of_bound > gaps["dec_grad_of_bound"]:
+                gaps["dec_grad_of_bound"], gaps["dec_grad_worst"] = of_bound, k
+            floor = g.abs() <= g_tol
+            if (~floor).any():
+                gaps["dec_param_abs"] = max(gaps["dec_param_abs"], float(d[~floor].max()))
+            if floor.any():
+                if float(d[floor].max()) > 2 * lr["decoder"] + MD_PARAM_ATOL:
+                    raise AssertionError(f"11c {tag}: {k} moved {float(d[floor].max()):.3e} "
+                                         f"where its gradient is 0 within the bound")
+                gaps["dec_sign_flips"] += int((d[floor] > MD_PARAM_ATOL).sum())
+        else:
+            gaps["other_param_abs"] = max(gaps["other_param_abs"], float(d.max()))
+    if (gaps["bn_rel"] > MD_PARAM_ATOL or gaps["dec_grad_of_bound"] > 1
+            or gaps["dec_param_abs"] > MD_PARAM_ATOL or gaps["other_param_abs"] > MD_PARAM_ATOL
+            or gaps["enc_param_abs"] > 2 * lr["encoder"] + MD_PARAM_ATOL
+            or gaps["heads_param_abs"] > 2 * lr["decoder"] + MD_PARAM_ATOL):
+        raise AssertionError(f"11c {tag}: {gaps}")
+    return gaps
+
+
+def md_tp_decode(model, net, cf):
+    """11a on this rank: greedy and beam-3 decodes at mesh (1, MD_WORLD) of
+    MD_DECODE_B seeded images, the second of each with the launch counts set
+    to 0 just before and read just after; kernel 4 must have run on the
+    shard 30 times a decode, kernel 2 never."""
+    import torch
+
+    from adaptive_tpu_torch.decoding import make_beam_decoder, make_greedy_decoder
+
+    tcf = cf.replace(mesh_shape=(1, MD_WORLD))
+    images = torch.as_tensor(seeded_images(MD_DECODE_B, SEED + 1100), device="cuda")
+    res = {}
+    for tag, make, cell in (("greedy", make_greedy_decoder, "adaptive_decode_cell_fused"),
+                            (f"beam{BEAM}", functools.partial(make_beam_decoder, beam_size=BEAM),
+                             "adaptive_decode_cell_fused_beam")):
+        decode = make(model, tcf)
+        decode(net, images)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = decode(net, images)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts()
+        expect = {cell: STEPS, "beam_head_topk": STEPS}
+        if {k: v for k, v in launches.items() if v} != expect:
+            raise AssertionError(f"11a {tag}: launches {launches}, expected {expect}")
+        prepared = decode.prepare(net)
+        tp, head = prepared["tp"], prepared["head"]
+        if not (tp and tp[1] and head[0].shape[1] == VP // MD_WORLD
+                and prepared["decoder"]["embed"].shape[0] == VP // MD_WORLD
+                and head.kernel_t is not None):
+            raise AssertionError(f"11a {tag}: the prepared weights are not this rank's shard")
+        res[tag] = {"out": {k: v.cpu() for k, v in out._asdict().items()},
+                    "launches": {k: v for k, v in launches.items() if v}, "ms": ms}
+    return res
+
+
+def md_eval_model(cf, job):
+    """11b's model: the parent's weights in fp32 (TF32 off), as phase 7b
+    runs: a rank decodes half a batch, where cuDNN may take other
+    convolution algorithms, and in bf16 that rounding alone parts captions
+    at logit gaps far above PARITY_GAP_EPS."""
+    from adaptive_tpu_torch.models import build_model
+
+    model = build_model(cf.replace(compute_dtype="float32"))
+    return model, md_net(model, job)
+
+
+def md_dp_eval(cf, job, rank):
+    """11b on this rank: coco_eval at mesh (MD_WORLD, 1) over the seeded
+    split, served from memory; every rank reads each batch whole."""
+    import torch
+
+    from adaptive_tpu_torch.evalcap.coco_eval import coco_eval
+
+    model, net = md_eval_model(cf, job)
+    ann, _, split, vocab = eval_split(os.path.join(job, f"split{rank}"), MD_EVAL_IMAGES,
+                                      SEED + 1300)
+    ecf = cf.replace(compute_dtype="float32", mesh_shape=(MD_WORLD, 1), val_anno_path=ann,
+                     eval_batch_size=MD_EVAL_BATCH, exp_dir=os.path.join(job, "eval_md"))
+    per_image = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cider = coco_eval(ecf, model, net, epoch=1, vocab=vocab, per_image_out=per_image,
+                      dataset=split)
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    loop = MD_EVAL_IMAGES // MD_EVAL_BATCH * STEPS
+    if launches != {"adaptive_decode_cell_fused": loop, "greedy_head_argmax": loop}:
+        raise AssertionError(f"11b: launches {launches}")
+    return {"cider": cider, "per_image": per_image, "wall_s": wall, "launches": launches}
+
+
+def md_dp_train(cf, job, mesh_of):
+    """11c on this rank: the replicated step, the ZeRO-1 step and the
+    L-BFGS step over mesh (MD_WORLD, 1), each held against the parent's
+    one-process step (md_hold_step: the card's convolution backward is not
+    deterministic, so two runs of one step differ at the encoder's rounding
+    level; ZeRO-1's are held as the replicated step's, each sharded moment
+    half of its parameter's bytes)."""
+    import torch
+
+    refs = torch.load(os.path.join(job, "train_refs.pt"), map_location="cuda")
+    mesh = mesh_of(md_train_config(cf))
+    lr = {"decoder": cf.opt_rnn_adam_learning_rate, "encoder": cf.opt_cnn_adam_learning_rate}
+    res = {}
+    net, dual, out = md_step(cf, job, mesh, "replicated")
+    res["replicated"] = md_hold_step("replicated", net, dual, out, refs, lr)
+    rep = {k: v.clone() for k, v in net.state_dict().items()}
+    del net, dual
+    net, dual, out = md_step(cf, job, mesh, "zero")
+    zero_gaps = md_hold_step("zero", net, dual, out, refs, lr)
+    sd = net.state_dict()
+    shard_abs = max(float((sd[n] - rep[n]).abs().max()) for n in dual.zero.shards)
+    held = full = 0
+    for name, z in dual.zero.shards.items():
+        opt = dual.decoder if name in dual.decoder_names else dual.encoder
+        st = opt.state[z.shard]
+        mine = sum(st[f].numel() * st[f].element_size() for f in ("exp_avg", "exp_avg_sq"))
+        whole = 2 * z.param.numel() * z.param.element_size()
+        if 2 * mine != whole:
+            raise AssertionError(f"11c zero: {name} holds {mine} of {whole} moment bytes")
+        held, full = held + mine, full + whole
+    res["zero"] = {"sharded_params": len(dual.zero.shards), "moment_bytes": held,
+                   "moment_bytes_whole": full, "loss": float(out.loss),
+                   "sharded_params_vs_replicated_abs": shard_abs, **zero_gaps}
+    del net, dual, rep
+    _, dual, out = md_step(cf, job, mesh, "lbfgs")
+    st = dual.decoder.state[dual.decoder._params[0]]
+    want = refs["lbfgs"]
+    if (abs(float(out.loss) - want["loss"]) > MD_LOSS_RTOL * abs(want["loss"])
+            or st["n_iter"] != want["n_iter"]
+            or abs(float(st["t"]) - want["t"]) > MD_LOSS_RTOL * abs(want["t"])):
+        raise AssertionError(f"11c lbfgs: loss {float(out.loss)}, n_iter {st['n_iter']}, t "
+                             f"{float(st['t'])}; one process: {want}")
+    res["lbfgs"] = {"loss": float(out.loss), "n_iter": st["n_iter"], "t": float(st["t"])}
+    torch.cuda.empty_cache()
+    return res
+
+
+def md_timed(cf, mesh_of):
+    """11d on this rank: bf16 steps at MD_TIMED_B over mesh (MD_WORLD, 1)
+    (this rank's MD_TIMED_B / MD_WORLD rows in the config's microbatches),
+    encoder off: ms a step by the host clock around synchronised steps,
+    then one step under torch.profiler with each collective in a span: its
+    share of the step, and the BN all-reduces counted."""
+    import torch
+    import torch.distributed as dist
+
+    from adaptive_tpu_torch.models import build_model, resnet
+    from adaptive_tpu_torch.parallel import place_batch
+    from adaptive_tpu_torch.training.optim import make_dual_optimizer
+    from adaptive_tpu_torch.training.step import make_train_step
+
+    tcf = cf.replace(train_batch_size=MD_TIMED_B, mesh_shape=(MD_WORLD, 1))
+    mesh = mesh_of(tcf)
+    model = build_model(tcf)
+    net = model.init(SEED)
+    step = make_train_step(model, make_dual_optimizer(net, tcf), tcf, mesh)
+    batch = place_batch(mesh, {k: v.cpu() for k, v in
+                               train_batch(MD_TIMED_B, SEED + 300, "cpu").items()}, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for _ in range(MD_TIMED_WARMUP):
+        step(net, batch, gen, False)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    losses = [step(net, batch, gen, False).loss for _ in range(MD_TIMED_STEPS)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / MD_TIMED_STEPS * 1e3
+    if not torch.isfinite(torch.stack(losses)).all():
+        raise AssertionError(f"11d: losses {[float(v) for v in losses]}")
+    calls = {"all_reduce": 0, "all_gather": 0, "bn": 0}
+    real = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+    real_bn = resnet._sync_bn
+
+    def spanned(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            with torch.profiler.record_function(f"md.collective.{name}"):
+                return real[name](*a, **kw)
+        return call
+
+    def counted_bn(*a, **kw):
+        calls["bn"] += 1
+        return real_bn(*a, **kw)
+
+    import tempfile
+
+    from adaptive_tpu_torch.utils import trace_report
+    from adaptive_tpu_torch.utils.profiling import profile_trace
+
+    for n in real:
+        setattr(dist, n, spanned(n))
+    resnet._sync_bn = counted_bn
+    try:
+        dist.barrier()
+        with tempfile.TemporaryDirectory() as trace_dir:
+            with profile_trace(trace_dir):
+                t1 = time.perf_counter()
+                step(net, batch, gen, False)
+                torch.cuda.synchronize()
+                prof_ms = (time.perf_counter() - t1) * 1e3
+            events = trace_report.load_trace_events(trace_dir)
+    finally:
+        for n, fn in real.items():
+            setattr(dist, n, fn)
+        resnet._sync_bn = real_bn
+    # the collectives' spans on this rank's host thread: the call, its wait,
+    # and gloo's copies of the CUDA tensors through the host
+    coll_ms = sum(e["dur"] for e in events if e.get("ph") == "X"
+                  and str(e.get("name", "")).startswith("md.collective.")) / 1e3
+    busy_ms = trace_report.stage_split(events)["busy_ms"]
+    return {"ms": ms, "images_per_s": MD_TIMED_B / ms * 1e3, "profiled_step_ms": prof_ms,
+            "collective_ms": coll_ms, "collective_share": coll_ms / prof_ms,
+            "device_busy_ms": busy_ms, "all_reduce_calls": calls["all_reduce"],
+            "all_gather_calls": calls["all_gather"], "bn_all_reduces": calls["bn"],
+            "bn_all_reduces_per_microbatch": calls["bn"] / tcf.train_grad_accum_steps,
+            "losses": [float(v) for v in losses]}
+
+
+def md_rank(rank, job):
+    """One rank of phase 11, a child process of this script: joins the
+    gloo group on cuda:0 and runs 11a-11d, writing its results to job."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(job, "store"),
+                            world_size=MD_WORLD, rank=rank)
+    from adaptive_tpu_torch.models import build_model
+    from adaptive_tpu_torch.ops.cuda import build
+    from adaptive_tpu_torch.parallel import make_mesh
+
+    build.load()
+    cf = md_config()
+    model = build_model(cf)
+    net = md_net(model, job)
+    out = {"11a": md_tp_decode(model, net, cf)}
+    del net
+    out["11b"] = md_dp_eval(cf, job, rank)
+    torch.cuda.empty_cache()
+    out["11c"] = md_dp_train(cf, job, make_mesh)
+    out["11d"] = md_timed(cf, make_mesh)
+    with open(os.path.join(job, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def md_spawn(job):
+    """Start the MD_WORLD ranks (md_rank) and wait for them; a rank that
+    fails or outlives MD_RANK_TIMEOUT makes the phase raise, and every rank
+    is stopped either way. Returns each rank's results."""
+    import pickle
+
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--md-rank", str(r),
+                               "--md-job", job]) for r in range(MD_WORLD)]
+    try:
+        deadline = time.monotonic() + MD_RANK_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        raise AssertionError(f"phase 11: ranks exited {rcs}")
+    out = []
+    for r in range(MD_WORLD):
+        with open(os.path.join(job, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def md_shard_checks(model, net):
+    """Kernel 4 on a vocab shard, as 11a's ranks run it: each rank's
+    columns of the prepared head (VP / MD_WORLD, with the -1e30 bias pad),
+    every column live, at the greedy shape (MD_DECODE_B rows, W = 1) and
+    the beam-3 one (x BEAM rows, W = BEAM), against its twin (phase 2b's
+    rule); the greedy shard timed against the twin, the library call and
+    the bound."""
+    import torch
+
+    from adaptive_tpu_torch.ops import fused_step as fs
+
+    w_all, b_all = model.prepare_inference(net)["head"][:2]
+    vloc = w_all.shape[1] // MD_WORLD
+    dt = w_all.dtype
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1400)
+    res = {}
+    for tag, W, R in (("greedy", 1, MD_DECODE_B), (f"beam{BEAM}", BEAM, MD_DECODE_B * BEAM)):
+        chat = torch.randn(R, H, generator=g, device="cuda").to(dt)
+        h = torch.randn(R, H, generator=g, device="cuda").to(dt)
+        err, differ = 0.0, 0
+        for r in range(MD_WORLD):
+            w = w_all[:, r * vloc:(r + 1) * vloc].contiguous()
+            b = b_all[r * vloc:(r + 1) * vloc].contiguous()
+            wt = fs.head_kernel_tiles(w)
+            top = fs.beam_head_topk(w, b, chat, h, vloc, W, head_kernel_t=wt)
+            torch.cuda.synchronize()
+            ref = fs.beam_head_topk_plain(w, b, chat, h, vloc, W)
+            logits = (chat + h).to(dt).float() @ w.float() + b.float()
+            e, n = topk_checks(f"shard {r} head W={W}", top, ref, logits, W)
+            err, differ = max(err, e), differ + n
+            if r == 0:
+                shard = (w, b, wt, top)
+        w, b, wt, top = shard
+        ms = cuda_ms(lambda: fs.beam_head_topk(w, b, chat, h, vloc, W, head_kernel_t=wt))
+        plain_ms = cuda_ms(lambda: fs.beam_head_topk_plain(w, b, chat, h, vloc, W))
+        z = (chat + h).to(dt)
+
+        def library():
+            lg = torch.addmm(b, z, w)
+            return lg.topk(W, dim=1), torch.logsumexp(lg, dim=1)
+
+        lib_ms = cuda_ms(library)
+        bnd = bound(nbytes(w, b, chat, h, *top), 2.0 * R * H * vloc, "bfloat16")
+        log(f"[md kernels bf16 shard W={W}] kernel 4 on a {vloc}-column shard of {VP} "
+            f"({fs.head_instance(dt, H)}), {R} rows: {MD_WORLD} shards against the twin, max_abs_err "
+            f"{err:.3e}, {differ} rows' ids differ (all at adjacent gaps < {HEAD_GAP_EPS}); "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms addmm+topk+logsumexp {lib_ms:.4f} ms "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+        res[tag] = {"max_abs_err": err, "rows_differ": differ, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "rows": R,
+                    "columns": vloc, "W": W}
+    return res
+
+
+def md_hold_decode(ranks, model, net, cf, images):
+    """11a against the one-process decode on the card (kernel 2 greedy,
+    kernel 4 whole for beam): the ranks' outputs equal each other; greedy
+    ids equal or parted at a step where the one-process decode's top-2
+    logit gap is below PARITY_GAP_EPS (phase 4's rule); beams equal, their
+    scores within BEAM_SCORE_ATOL, or parted where the adjacent-candidate
+    gap is below it (phase 4b's). Returns the counts of equal rows."""
+    import torch
+
+    from adaptive_tpu_torch.decoding import make_beam_decoder, make_greedy_decoder
+
+    for tag in ranks[0]["11a"]:
+        for k, v in ranks[0]["11a"][tag]["out"].items():
+            if not torch.equal(v, ranks[1]["11a"][tag]["out"][k]):
+                raise AssertionError(f"11a {tag}: {k} differs between the ranks")
+    imgs = torch.as_tensor(images, device="cuda")
+    prepared = model.prepare_inference(net)
+    ref = make_greedy_decoder(model, cf)(net, imgs)
+    got = ranks[0]["11a"]["greedy"]["out"]
+    same_g = 0
+    for row in range(MD_DECODE_B):
+        diff = (got["ids"][row] != ref.ids[row].cpu()).nonzero()
+        if not len(diff):
+            same_g += 1
+            continue
+        t = int(diff[0])
+        ref_ids, gaps = greedy_gaps(model, prepared, images[row:row + 1], cf)
+        gap = float(gaps[0, t])
+        log(f"[md tp greedy] row {row} differs from step {t}: top-2 gap {gap:.3e}")
+        if gap >= PARITY_GAP_EPS:
+            raise AssertionError(f"11a greedy row {row}: ids differ at step {t}, gap {gap:.3e}")
+    refb = make_beam_decoder(model, cf, beam_size=BEAM)(net, imgs)
+    gotb = ranks[0]["11a"][f"beam{BEAM}"]["out"]
+    same_b, err = 0, 0.0
+    for row in range(MD_DECODE_B):
+        if not torch.equal(gotb["all_ids"][row], refb.all_ids[row].cpu()):
+            _, gaps = beam_gaps(model, prepared, images[row:row + 1], cf, BEAM)
+            gap = float(gaps[0].min())
+            log(f"[md tp beam] image {row}: beams differ; min adjacent candidate gap {gap:.3e}")
+            if gap >= PARITY_GAP_EPS:
+                raise AssertionError(f"11a beam image {row}: beams differ, gaps >= {gap:.3e}")
+            continue
+        same_b += 1
+        err = max(err, check_close(f"11a beam scores image {row}", gotb["all_scores"][row],
+                                   refb.all_scores[row].cpu(), BEAM_SCORE_ATOL, 0.0))
+    return same_g, same_b, err
+
+
+def md_hold_eval(ranks, cf, job):
+    """11b against the one-process coco_eval on the card: the results files
+    of rank 0 and rank 1 (.proc1) and each rank's CIDEr and per-image scores
+    equal (==) the one-process call's, or each differing caption is parted
+    where the one-process decode was within PARITY_GAP_EPS of another
+    choice (phase 7b's rule)."""
+    from adaptive_tpu_torch.evalcap.coco_eval import coco_eval
+
+    model, net = md_eval_model(cf, job)
+    ann, images, split, vocab = eval_split(os.path.join(job, "split_ref"), MD_EVAL_IMAGES,
+                                           SEED + 1300)
+    ecf = cf.replace(compute_dtype="float32", val_anno_path=ann, eval_batch_size=MD_EVAL_BATCH,
+                     exp_dir=os.path.join(job, "eval_one"))
+    per_image = {}
+    t0 = time.perf_counter()
+    cider = coco_eval(ecf, model, net, epoch=1, vocab=vocab, per_image_out=per_image,
+                      dataset=split)
+    one_s = time.perf_counter() - t0
+    ref = read_results(os.path.join(job, "eval_one", "val_results", "validation-1.json"),
+                       MD_EVAL_IMAGES)
+    d = os.path.join(job, "eval_md", "val_results")
+    files = [read_results(os.path.join(d, n), MD_EVAL_IMAGES)
+             for n in ("validation-1.json", "validation-1.proc1.json")]
+    if files[0] != files[1]:
+        raise AssertionError("11b: rank 1's results differ from rank 0's")
+    differ = [i for i in range(MD_EVAL_IMAGES) if files[0][i] != ref[i]]
+    prepared = model.prepare_inference(net)
+    for i in differ:
+        b = i // MD_EVAL_BATCH * MD_EVAL_BATCH
+        ref_ids, gaps = greedy_gaps(model, prepared, images[b:b + MD_EVAL_BATCH], cf)
+        gap = float(gaps[i - b].min())
+        log(f"[md dp eval] image {i + 1}: captions differ; smallest top-2 gap of its decode "
+            f"{gap:.3e}")
+        if gap >= PARITY_GAP_EPS:
+            raise AssertionError(f"11b: image {i + 1}'s caption differs with gaps >= {gap:.3e}")
+    for r in ranks:
+        if not differ and (r["11b"]["cider"] != cider or r["11b"]["per_image"] != per_image):
+            raise AssertionError(f"11b: CIDEr {r['11b']['cider']!r} vs one process {cider!r}")
+    return {"identical": MD_EVAL_IMAGES - len(differ), "cider": ranks[0]["11b"]["cider"],
+            "cider_one_process": cider, "one_process_s": one_s}
+
+
+def md_cli(smi):
+    """11e: adaptive_tpu_torch.main -c <config.py> in-process, train (1
+    epoch at MD_CLI_BATCH, the per-epoch eval on) over MD_CLI_IMAGES seeded
+    images served from memory at the v5e-8 widths, without a process group
+    and with distributed_init, which starts a world of 1 over nccl and ends
+    it: the runs' loss histories and CIDEr equal (==)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from adaptive_tpu_torch import main as cli
+    from adaptive_tpu_torch.training import checkpoint as ckpt
+
+    started = []
+    real_init = dist.init_process_group
+
+    def recorded_init(backend, *a, **kw):
+        started.append((backend, kw.get("world_size")))
+        return real_init(backend, *a, **kw)
+
+    with tempfile.TemporaryDirectory() as root:
+        ann, images, _, vocab = eval_split(os.path.join(root, "data"), MD_CLI_IMAGES, SEED + 1500)
+        vocab.save(os.path.join(root, "vocab.json"))
+
+        def image_source(path):
+            return images[int(os.path.basename(path).split("_")[-1].split(".")[0]) - 1]
+
+        runs = {}
+        for tag, on in (("plain", False), ("nccl", True)):
+            cfg = os.path.join(root, f"{tag}.py")
+            with open(cfg, "w") as f:
+                f.write(f"""experiment_path = {os.path.join(root, tag)!r}
+vocab_path = {os.path.join(root, "vocab.json")!r}
+resized_image_dir = {os.path.join(root, "resized")!r}
+train_anno_path = val_anno_path = train_eval_anno_path = {ann!r}
+trainOrnot = True
+train_evalOrnot = True
+compute_dtype = "bfloat16"
+vocab_pad_multiple = 128
+train_num_epochs = 1
+train_batch_size = {MD_CLI_BATCH}
+eval_batch_size = {MD_CLI_BATCH * 2}
+train_log_step = 1
+distributed_init = {on}
+""")
+            dist.init_process_group = recorded_init
+            try:
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                cli.main(["-c", cfg], image_source=image_source)
+                wall = time.perf_counter() - t0
+                launches = {k: v for k, v in launch_counts().items() if v}
+            finally:
+                dist.init_process_group = real_init
+            d = os.path.join(root, tag)
+            (exp,) = os.listdir(d)
+            (name,) = [n for n in os.listdir(os.path.join(d, exp, "trained_models"))
+                       if n.endswith("_model-1")]
+            meta = ckpt.load_metadata(os.path.join(d, exp, "trained_models", name))
+            runs[tag] = {"wall_s": wall, "launches": launches,
+                         **{k: meta[k] for k in ("train_epoch_losses", "cider_scores",
+                                                 "cider_scores_train_eval")}}
+    loop = 2 * (MD_CLI_IMAGES // (2 * MD_CLI_BATCH)) * STEPS
+    for tag, run in runs.items():
+        if run["launches"] != {"adaptive_decode_cell_fused": loop, "greedy_head_argmax": loop}:
+            raise AssertionError(f"11e {tag}: launches {run['launches']}")
+    if started != [("nccl", 1)] or dist.is_initialized():
+        raise AssertionError(f"11e: process groups started {started}, "
+                             f"one still up: {dist.is_initialized()}")
+    for k in ("train_epoch_losses", "cider_scores", "cider_scores_train_eval"):
+        if runs["nccl"][k] != runs["plain"][k]:
+            raise AssertionError(f"11e: {k} {runs['nccl'][k]} with the process group, "
+                                 f"{runs['plain'][k]} without")
+    log(f"[md cli nccl world 1] {smi}: main -c <config.py> with distributed_init (nccl, world "
+        f"1, started and ended) equals the run without a group: train losses "
+        f"{runs['plain']['train_epoch_losses']}, CIDEr val {runs['plain']['cider_scores']} "
+        f"train_eval {runs['plain']['cider_scores_train_eval']}; {runs['nccl']['wall_s']:.3f} s "
+        f"vs {runs['plain']['wall_s']:.3f} s; launches {runs['nccl']['launches']}")
+    torch.cuda.empty_cache()
+    return {k: {kk: v for kk, v in run.items()} for k, run in runs.items()}
+
+
+def multi_device(smi):
+    """Phase 11 (module docstring): the parent's seeded v5e-8 model, the
+    shard's kernel checks, the one-process references, the MD_WORLD ranks,
+    then 11e. Returns (the {"multi_device": ...} payload, kernel 4's shard
+    numbers)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    job = tempfile.mkdtemp(prefix="md_")
+    try:
+        cf = md_config()
+        model, net = random_model(cf, "cuda", seeded_images(32, SEED))
+        torch.save(net.state_dict(), os.path.join(job, "weights.pt"))
+        shard = md_shard_checks(model, net)
+        loss, lbfgs = md_train_refs(cf, job)
+        t1 = time.perf_counter()
+        ranks = md_spawn(job)
+        t2 = time.perf_counter()
+        images = seeded_images(MD_DECODE_B, SEED + 1100)
+        same_g, same_b, score_err = md_hold_decode(ranks, model, net, cf, images)
+        ev = md_hold_eval(ranks, cf, job)
+        del net
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(job, ignore_errors=True)
+    t3 = time.perf_counter()
+    cli = md_cli(smi)
+    t4 = time.perf_counter()
+    r0 = ranks[0]
+    a = {tag: {"ms": v["ms"], "launches": v["launches"]} for tag, v in r0["11a"].items()}
+    log(f"[md tp decode bf16] {smi}: mesh (1, {MD_WORLD}) on one card over gloo, batch "
+        f"{MD_DECODE_B}, each rank's embedding and head a {VP // MD_WORLD}-column shard: greedy "
+        f"{a['greedy']['ms']:.3f} ms, launches {a['greedy']['launches']}; beam {BEAM} "
+        f"{a[f'beam{BEAM}']['ms']:.3f} ms, launches {a[f'beam{BEAM}']['launches']}; against "
+        f"one process (kernel 2, kernel 4 whole): {same_g}/{MD_DECODE_B} greedy captions and "
+        f"{same_b}/{MD_DECODE_B} beams identical, beam scores max abs err {score_err:.3e} "
+        f"(atol {BEAM_SCORE_ATOL}); the ranks' outputs equal")
+    b = r0["11b"]
+    log(f"[md dp eval fp32, TF32 off] {smi}: coco_eval at mesh ({MD_WORLD}, 1), "
+        f"{MD_EVAL_IMAGES} images at "
+        f"batch {MD_EVAL_BATCH}: {b['wall_s']:.3f} s a rank (one process {ev['one_process_s']:.3f}"
+        f" s), {ev['identical']}/{MD_EVAL_IMAGES} captions as one process's, CIDEr "
+        f"{ev['cider']!r} vs {ev['cider_one_process']!r}; launches a rank {b['launches']}; "
+        f"rank 1 wrote validation-1.proc1.json")
+    c = r0["11c"]
+    g = c["replicated"]
+    log(f"[md dp train fp32, TF32 off] {smi}: one step at mesh ({MD_WORLD}, 1), batch "
+        f"{MD_TRAIN_B}, encoder on, Adam/Adam, against one process on the card: loss rel err "
+        f"{g['loss_rel']:.3e}, BN statistics {g['bn_rel']:.3e}; decoder group: gradients "
+        f"{g['dec_grad_of_bound']:.3e} of their bound, weights {g['dec_param_abs']:.3e} where "
+        f"the gradient is past it ({g['dec_sign_flips']} elements of gradients 0 within it "
+        f"moved past {MD_PARAM_ATOL}); affine_a/b: gradients {g['heads_grad_rel']:.3e} of "
+        f"their norm, weights {g['heads_param_abs']:.3e}; encoder group: gradients "
+        f"{g['enc_grad_rel']:.3e} of "
+        f"their norm, weights {g['enc_param_abs']:.3e}; other weights "
+        f"{g['other_param_abs']:.3e}; ZeRO-1: held by the same rules, its sharded "
+        f"parameters {c['zero']['sharded_params_vs_replicated_abs']:.3e} from the replicated "
+        f"step's, {c['zero']['sharded_params']} parameters' moments sharded, "
+        f"{c['zero']['moment_bytes'] / 2**20:.2f} of {c['zero']['moment_bytes_whole'] / 2**20:.2f}"
+        f" MiB a rank; decoder L-BFGS: loss {c['lbfgs']['loss']:.6f} n_iter "
+        f"{c['lbfgs']['n_iter']} t {c['lbfgs']['t']:.6f} (one process: loss {lbfgs['loss']:.6f} "
+        f"n_iter {lbfgs['n_iter']} t {lbfgs['t']:.6f}); Adam step loss {loss:.6f}")
+    d = [r["11d"] for r in ranks]
+    log(f"[md dp train bf16 timed] {smi}: {MD_WORLD} ranks share ONE card, so this is not a "
+        f"scaling figure: batch {MD_TIMED_B} ({MD_WORLD} x {MD_TIMED_B // MD_WORLD}, "
+        f"{md_config().train_grad_accum_steps} microbatches), encoder off, mean of "
+        f"{MD_TIMED_STEPS} steps after {MD_TIMED_WARMUP}: "
+        + "; ".join(f"rank {i} {x['ms']:.3f} ms a step ({x['images_per_s']:.1f} images/s), "
+                    f"profiled step {x['profiled_step_ms']:.3f} ms of which collectives "
+                    f"{x['collective_ms']:.3f} ms ({x['collective_share']:.4f}), device busy "
+                    f"{x['device_busy_ms']:.3f} ms, all-reduces {x['all_reduce_calls']} (BN "
+                    f"{x['bn_all_reduces']}, {x['bn_all_reduces_per_microbatch']:.0f} a "
+                    f"microbatch), all-gathers {x['all_gather_calls']}" for i, x in enumerate(d)))
+    phase_s = {"11abcd": t3 - t0, "ranks": t2 - t1, "11e": t4 - t3}
+    log(f"[md phases] " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
+    line = {"card": smi, "world": MD_WORLD, "backend": "gloo", "devices": "one card, cuda:0",
+            "tp_decode": {**a, "greedy_identical": same_g, "beam_identical": same_b,
+                          "beam_score_max_abs_err": score_err},
+            "dp_eval": {**ev, "wall_s": b["wall_s"], "launches": b["launches"]},
+            "dp_train_fp32": {**c["replicated"], "zero": c["zero"], "lbfgs": c["lbfgs"],
+                              "lbfgs_one_process": lbfgs},
+            "dp_train_bf16_timed_shared_card": d, "cli_nccl_world1": cli, "phase_s": phase_s}
+    return line, shard
+
+
 def main() -> int:
     import argparse
 
@@ -2722,6 +3511,9 @@ def main() -> int:
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile one end-to-end decode of each path with "
                          "torch.profiler; the kernel tables go to DIR/profile_e2e_<path>.txt")
+    # phase 11 starts its ranks as this script with these (md_rank)
+    ap.add_argument("--md-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--md-job", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "adaptive_tpu_torch", "ops", "cuda", "csrc")):
         print("chip_smoke.py: adaptive_tpu_torch is not beside this script", file=sys.stderr)
@@ -2732,6 +3524,8 @@ def main() -> int:
         print("chip_smoke.py: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if args.md_rank is not None:
+        return md_rank(args.md_rank, args.md_job)
     import numpy as np
 
     from adaptive_tpu_torch.ops.cuda import build
@@ -2844,6 +3638,10 @@ def main() -> int:
                   "phase_s": {"10a": t9 - t8, "10b": t10 - t9, "10c": time.perf_counter() - t10}}
     log(f"[serving phases] " + ", ".join(f"{k} {v:.1f} s" for k, v in serve_line["phase_s"].items()))
 
+    # phase 11: the multi-device path at the v5e-8 config's widths, two
+    # ranks on this card over gloo (11a-11d), then a world of 1 over nccl
+    md_line, md_shard = multi_device(smi)
+
     csrc = "adaptive_tpu_torch/ops/cuda/csrc/"
     sources = {
         "adaptive_decode_cell_fused": ("adaptive_tpu/ops/pallas/fused_step.py:221",
@@ -2855,6 +3653,15 @@ def main() -> int:
         "beam_head_topk": ("adaptive_tpu/ops/pallas/fused_step.py:448", csrc + "head_topk.cu"),
     }
     kernels = []
+    # kernel 4 on a vocab shard (phase 11a's route: W = 1 for greedy)
+    shard_launches = {tag: v["launches"]["beam_head_topk"]
+                      for tag, v in md_line["tp_decode"].items() if isinstance(v, dict)}
+    shard = {"shard_ms": md_shard["greedy"]["ms"], "shard_bound_ms": md_shard["greedy"]["bound_ms"],
+             "shard_bound_by": md_shard["greedy"]["bound_by"],
+             "shard_max_abs_err": max(v["max_abs_err"] for v in md_shard.values()),
+             "shard_plain_ms": md_shard["greedy"]["plain_ms"],
+             "shard_library_ms": md_shard["greedy"]["library_ms"],
+             "shard_launches": shard_launches, "shard_shapes": md_shard}
     for name, (replaces, source) in sources.items():
         bf, fp = checks["bfloat16"][name], checks["float32"][name]
         kernels.append({
@@ -2869,6 +3676,7 @@ def main() -> int:
                if k in bf},
             "fp32": {k: fp[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
+            **(shard if name == "beam_head_topk" else {}),
         })
     int8_sources = {
         "bottleneck_identity_int8": ("adaptive_tpu/ops/pallas/fused_block.py:137",
@@ -2890,6 +3698,7 @@ def main() -> int:
     log(json.dumps({"lbfgs": lbfgs_line}))
     log(json.dumps({"cli": cli_line}))
     log(json.dumps({"serving": serve_line}))
+    log(json.dumps({"multi_device": md_line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,17 +37,16 @@ def _fields(cf):
 def test_config_files_load_as_jax(path, capsys):
     """Every field of every configs/*.py equals JAX's load_config's, with
     the same warnings printed; a config that sets a knob the port does not
-    honour yet (the v5e-8 mesh and ZeRO-1) raises NotImplementedError
-    naming its ROADMAP.md queue instead of running as if it were honoured."""
+    honour yet (the other decoder variants' sizes) raises
+    NotImplementedError naming its ROADMAP.md queue instead of running as
+    if it were honoured. The v5e-8 config's mesh and ZeRO-1 load."""
     want = jload(path)
     want_out = capsys.readouterr().out
     refused = {k: v for k, v in _fields(want).items()
                if k in TCF.NOT_PORTED and v != TCF._DEFAULTS[k]}
     if refused:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, queue 1, item 6"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, queue 1, item 7"):
             load_config(path)
-        assert set(refused) <= {"mesh_shape", "mesh_axes", "opt_state_sharding",
-                                "distributed_init"}
         return
     got = load_config(path)
     assert capsys.readouterr().out == want_out
@@ -122,9 +121,10 @@ NOT_PORTED_VALUES = {
     "base_word_embed_size": 128, "base_lstm_hidden_size": 256,
     "rnn_attention_bidirectional": False, "rnn_attention_embed_size": 128,
     "rnn_attention_numlayers": 2, "rnn_attention_hiddensize": 256,
-    "mesh_axes": ("batch", "model"), "mesh_shape": (4, 2), "opt_state_sharding": "data",
-    "distributed_init": True,
 }
+# the multi-device knobs (ROADMAP.md, queue 1, item 6), honoured since it landed
+MESH_VALUES = {"mesh_axes": ("batch", "model"), "mesh_shape": (4, 2),
+               "opt_state_sharding": "data", "distributed_init": True}
 
 
 @pytest.mark.parametrize("knob", list(NOT_PORTED_VALUES))
@@ -137,13 +137,132 @@ def test_not_ported_knobs_refused(knob):
     assert set(NOT_PORTED_VALUES) == set(TCF.NOT_PORTED)
     value = NOT_PORTED_VALUES[knob]
     jload(None, **{knob: value})
-    item = 6 if knob in ("mesh_axes", "mesh_shape", "opt_state_sharding",
-                         "distributed_init") else 7
-    with pytest.raises(NotImplementedError, match=rf"{knob}=.*queue 1, item {item}"):
+    with pytest.raises(NotImplementedError, match=rf"{knob}=.*queue 1, item 7"):
         load_config(None, **{knob: value})
     assert getattr(load_config(None, **{knob: TCF._DEFAULTS[knob]}), knob) == TCF._DEFAULTS[knob]
     ok = load_config(None, param_dtype="bfloat16", train_tb_gradOrnot=False, decode_scan_prefix=5)
     assert ok.decode_scan_prefix == 5
+
+
+def test_v5e8_config_loads():
+    """configs/coco_adaptive_v5e8.py loads through load_config with its
+    scale-out knobs as JAX reads them: mesh (-1, 2), ZeRO-1, batch 512 in 2
+    microbatches, the vocabulary padded to a multiple of 128."""
+    path = os.path.join(REPO, "configs", "coco_adaptive_v5e8.py")
+    cf = load_config(path)
+    assert _fields(cf) == _fields(jload(path))
+    assert (cf.mesh_shape, cf.mesh_axes, cf.opt_state_sharding) == ((-1, 2), ("data", "model"),
+                                                                    "data")
+    assert (cf.train_batch_size, cf.train_grad_accum_steps, cf.vocab_pad_multiple) == (512, 2, 128)
+    assert cf.distributed_init is False
+
+
+def _honoured_mesh(cf, tmp_path):
+    """make_mesh reads mesh_shape and mesh_axes: (4, 2) over 8 ranks."""
+    from adaptive_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(cf, world_size=8)
+    assert (mesh.shape, mesh.axes) == ((4, 2), tuple(cf.mesh_axes))
+
+
+def _honoured_zero(cf, tmp_path):
+    """A 2-rank step at mesh (2, 1) with the knob: each rank's Adam moments
+    of the sharded parameters hold half of JAX's leading dim."""
+    from adaptive_tpu_torch.models.factory import build_model
+    from adaptive_tpu_torch.models.jax_params import to_jax
+    from tests.test_torch_multiprocess import run_ranks
+
+    tiny = cf.replace(encoder_backbone="resnet18", train_crop_size=64, vocab_length=32,
+                      adaptive_word_embed_size=8, adaptive_lstm_hidden_size=16,
+                      train_batch_size=4, mesh_shape=(2, 1))
+    model = build_model(tiny, device="cpu")
+    rng = np.random.default_rng(3)
+    batch = {"images": rng.integers(0, 256, (4, 72, 72, 3), dtype=np.uint8),
+             "captions": rng.integers(1, 32, (4, 5)).astype(np.int32),
+             "lengths": np.array([5, 4, 3, 5], np.int32)}
+    draws = (rng.integers(0, 9, 4), rng.integers(0, 9, 4), rng.random(4) < 0.5)
+    out = run_ranks(str(tmp_path / "job"), 2, {
+        "cf": tiny.to_dict(), "params": to_jax(model.init(0).state_dict(), model.arch),
+        "batch": batch, "draws": draws, "tasks": [("zero", {})]})
+    for o in out:
+        assert o["zero"]["moments"]
+        for name, (shard, full, dim) in o["zero"]["moments"].items():
+            assert shard[dim] * 2 == full[dim], name
+    assert out[0]["zero"]["loss"] == out[1]["zero"]["loss"]
+
+
+def _train_cfg(tmp_path, name, **kw):
+    """A config file of one tiny training epoch with its eval on a synthetic
+    split of 8 images."""
+    from adaptive_tpu.data.coco_api import COCO as JCOCO
+    from adaptive_tpu.data.vocab import build_vocab
+    from adaptive_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    root = tmp_path / name
+    ann, resized = make_synthetic_dataset(str(root / "data"), num_images=8, image_size=72,
+                                          seed=2)
+    vocab = str(root / "vocab.json")
+    build_vocab((a["caption"] for a in JCOCO(ann).anns.values()), threshold=1).save(vocab)
+    values = {"experiment_path": str(root / "Experiments"), "vocab_path": vocab,
+              "resized_image_dir": resized, "train_anno_path": ann, "val_anno_path": ann,
+              "train_eval_anno_path": ann, "trainOrnot": True, "train_evalOrnot": True,
+              "encoder_backbone": "resnet18", "train_crop_size": 64,
+              "adaptive_word_embed_size": 8, "adaptive_lstm_hidden_size": 16,
+              "train_num_epochs": 1, "train_batch_size": 4, "eval_batch_size": 4,
+              "decode_max_len": 5, "dataloader_num_workers": 1, **kw}
+    path = root / "cfg.py"
+    path.write_text("".join(f"{k} = {v!r}\n" for k, v in values.items()))
+    return str(path)
+
+
+def _honoured_distributed_init(cf, tmp_path):
+    """main with distributed_init on a world of 1: it starts a gloo process
+    group for the run and ends it after, and the run equals the one without
+    a group in its loss history and CIDEr."""
+    import torch.distributed as dist
+
+    from adaptive_tpu_torch.main import main
+    from adaptive_tpu_torch.training import checkpoint as TCK
+
+    started = []
+    real = dist.init_process_group
+
+    def record(backend, **kw):
+        started.append((backend, kw.get("world_size")))
+        return real(backend, **kw)
+
+    runs = {}
+    for name, on in (("plain", False), ("dist", True)):
+        path = _train_cfg(tmp_path, name, distributed_init=on)
+        dist.init_process_group = record
+        try:
+            main(["-c", path], device="cpu")
+        finally:
+            dist.init_process_group = real
+        (ck,) = glob.glob(str(tmp_path / name / "Experiments" / "*" / "trained_models" /
+                              "cider-*_model-1"))
+        runs[name] = TCK.load_metadata(ck)
+    assert started == [("gloo", 1)] and not dist.is_initialized()
+    for key in ("train_epoch_losses", "cider_scores", "cider_scores_train_eval"):
+        assert runs["dist"][key] == runs["plain"][key], key
+
+
+HONOURED = {"mesh_shape": _honoured_mesh, "mesh_axes": _honoured_mesh,
+            "opt_state_sharding": _honoured_zero, "distributed_init": _honoured_distributed_init}
+
+
+@pytest.mark.parametrize("knob", list(MESH_VALUES))
+def test_mesh_knobs_load_and_are_honoured(knob, tmp_path):
+    """Each multi-device knob at a value off its default loads as JAX loads
+    it and is honoured: mesh_shape and mesh_axes by make_mesh,
+    opt_state_sharding="data" by a 2-rank step (ZeRO-1), distributed_init by
+    main, which starts a process group."""
+    value = MESH_VALUES[knob]
+    cf = load_config(None, **{knob: value})
+    assert getattr(cf, knob) == value == getattr(jload(None, **{knob: value}), knob)
+    if knob == "mesh_axes":
+        cf = cf.replace(mesh_shape=(4, 2))
+    HONOURED[knob](cf, tmp_path)
 
 
 FLAGS = [

@@ -176,7 +176,8 @@ def test_port_imports_no_jax():
     train step and writes its checkpoint, takes an L-BFGS step (both groups)
     and writes its checkpoint, runs the CLI's main on a config file with
     no stage on, serves a caption, exports and runs a decoder, converts a
-    checkpoint, and imports the port's tools and examples, without loading
+    checkpoint, lays out a mesh, starts and ends a one-rank process group
+    (parallel), and imports the port's tools and examples, without loading
     jax or any module of the JAX package."""
     code = textwrap.dedent("""
         import sys
@@ -252,6 +253,12 @@ def test_port_imports_no_jax():
             assert tuple(dec(imgs)["ids"].shape) == (2, 3)
             torch_import.save_reference_checkpoint_npz(net.state_dict(), "adaptive_attention",
                                                        "resnet18", root + "/ckpt")
+        from adaptive_tpu_torch import parallel
+        from adaptive_tpu_torch.decoding import spmd
+        assert parallel.make_mesh(world_size=8, shape=(-1, 2)).shape == (4, 2)
+        assert parallel.init_distributed(load_config(cf, distributed_init=True), "cpu")
+        assert parallel.get_world_size() == 1 and spmd.decode_mesh(model, cf) is None
+        torch.distributed.destroy_process_group()
         sys.path[:0] = ["tools", "examples"]
         import torch_decode_timing, torch_int8_gate, torch_serving_bench
         import torch_caption_image, torch_convert_weights, torch_serve

@@ -479,8 +479,8 @@ def test_dropout_masks_repeat_within_a_batch(tiny_cf, monkeypatch, case):
 
     real = tdrop.make_dropout
 
-    def recording(gen, rate):
-        inner = real(gen, rate)
+    def recording(gen, rate, rows=None):
+        inner = real(gen, rate, rows)
         if inner is None:
             return None
         evals.append([])

@@ -260,8 +260,8 @@ def test_mid_epoch_resume_bit_identical(split, tmp_path, monkeypatch):
     calls = {"n": 0}
     orig = TT.make_train_step
 
-    def limited(model, dual, cf):
-        step = orig(model, dual, cf)
+    def limited(model, dual, cf, mesh=None):
+        step = orig(model, dual, cf, mesh)
 
         def run(*a, **k):
             if calls["n"] >= 3:
