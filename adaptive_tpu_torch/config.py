@@ -9,15 +9,14 @@ reference's "config file is the experiment record" workflow (cfg_wzn.py,
 configuration.py:25-40).
 
 Checks run when a Config is made (``_validate``, the JAX package's, which it
-runs in ``load_config`` only). Knobs of paths the port has not taken yet
-(NOT_PORTED: the other decoder variants' sizes) exist so that a config file
-loads, but a value other than the default raises NotImplementedError naming
-the ROADMAP.md queue: a run must not go on as if it were honoured. The mesh
-knobs (``mesh_shape``, ``mesh_axes``), ZeRO-1 (``opt_state_sharding``) and
-``distributed_init`` are read by the ``parallel`` package. ``param_dtype`` and
-``train_tb_gradOrnot`` are read nowhere in the JAX package and nowhere here;
-``decode_scan_prefix`` changes no id and the port's decode loops are Python
-loops either way (ROADMAP.md §3).
+runs in ``load_config`` only). Every knob loads as in the JAX package; the
+decoder sizes pick the ``atten_model_name``'s pair (``word_embed_size``,
+``lstm_hidden_size``). The mesh knobs (``mesh_shape``, ``mesh_axes``), ZeRO-1
+(``opt_state_sharding``) and ``distributed_init`` are read by the
+``parallel`` package. ``param_dtype`` and ``train_tb_gradOrnot`` are read
+nowhere in the JAX package and nowhere here; ``decode_scan_prefix`` changes
+no id and the port's decode loops are Python loops either way (ROADMAP.md
+§3).
 """
 
 from __future__ import annotations
@@ -30,16 +29,6 @@ from typing import Any, Dict, Tuple
 
 VARIANTS = ("baseline_attention", "adaptive_attention", "rnn_attention")
 OPTIMIZERS = ("adam", "sgd", "lbfgs")
-_QUEUE7 = "the baseline_attention and rnn_attention decoders (ROADMAP.md, queue 1, item 7)"
-# knob -> the not-ported path that would read it
-NOT_PORTED = {
-    "base_word_embed_size": _QUEUE7,
-    "base_lstm_hidden_size": _QUEUE7,
-    "rnn_attention_bidirectional": _QUEUE7,
-    "rnn_attention_embed_size": _QUEUE7,
-    "rnn_attention_numlayers": _QUEUE7,
-    "rnn_attention_hiddensize": _QUEUE7,
-}
 
 
 @dataclass
@@ -141,14 +130,15 @@ class Config:
     # Pad the embedding/head vocab dim to a multiple; padded logits are masked
     # so argmax equals the unpadded model's. 1 = no padding.
     vocab_pad_multiple: int = 1
-    base_word_embed_size: int = 256  # NOT_PORTED
-    base_lstm_hidden_size: int = 512  # NOT_PORTED
+    # word_embed_size and lstm_hidden_size pick the atten_model_name's pair
+    base_word_embed_size: int = 256
+    base_lstm_hidden_size: int = 512
     adaptive_word_embed_size: int = 256
     adaptive_lstm_hidden_size: int = 512
-    rnn_attention_bidirectional: bool = True  # NOT_PORTED
-    rnn_attention_embed_size: int = 256  # NOT_PORTED
-    rnn_attention_numlayers: int = 1  # NOT_PORTED
-    rnn_attention_hiddensize: int = 512  # NOT_PORTED
+    rnn_attention_bidirectional: bool = True
+    rnn_attention_embed_size: int = 256
+    rnn_attention_numlayers: int = 1  # only 1 is implemented (_validate)
+    rnn_attention_hiddensize: int = 512
 
     encoder_backbone: str = "resnet152"  # resnet18|34|50|101|152
     # a trunk converted from torchvision weights (the JAX package's
@@ -232,19 +222,22 @@ class Config:
 
     @property
     def word_embed_size(self) -> int:
-        if self.atten_model_name != "adaptive_attention":
-            raise NotImplementedError(f"{self.atten_model_name} is not ported yet: {_QUEUE7}")
-        return self.adaptive_word_embed_size
+        return {
+            "baseline_attention": self.base_word_embed_size,
+            "adaptive_attention": self.adaptive_word_embed_size,
+            "rnn_attention": self.rnn_attention_embed_size,
+        }[self.atten_model_name]
 
     @property
     def lstm_hidden_size(self) -> int:
-        if self.atten_model_name != "adaptive_attention":
-            raise NotImplementedError(f"{self.atten_model_name} is not ported yet: {_QUEUE7}")
-        return self.adaptive_lstm_hidden_size
+        return {
+            "baseline_attention": self.base_lstm_hidden_size,
+            "adaptive_attention": self.adaptive_lstm_hidden_size,
+            "rnn_attention": self.rnn_attention_hiddensize,
+        }[self.atten_model_name]
 
 
 _CONFIG_FIELDS = {f.name for f in dataclasses.fields(Config)}
-_DEFAULTS = {f.name: f.default for f in dataclasses.fields(Config)}
 
 
 def load_config(source: Any = None, **overrides) -> Config:
@@ -310,8 +303,7 @@ def _warn_near_misses(ns: Dict[str, Any], source: str) -> None:
 
 def _validate(cf: Config) -> None:
     """Fail fast on invalid knobs, before any data loading starts: the JAX
-    package's checks in its order, then the knobs the port does not honour
-    yet (NOT_PORTED)."""
+    package's checks in its order, with its messages."""
     if cf.atten_model_name not in VARIANTS:
         raise ValueError(
             f"atten_model_name={cf.atten_model_name!r} — must be one of {VARIANTS}"
@@ -357,9 +349,10 @@ def _validate(cf: Config) -> None:
         raise NotImplementedError(
             "train_grad_accum_steps > 1 is not supported with lbfgs optimizer groups"
         )
-    for knob, path in NOT_PORTED.items():
-        v = getattr(cf, knob)
-        if (tuple(v) if isinstance(v, list) else v) != _DEFAULTS[knob]:
-            raise NotImplementedError(
-                f"{knob}={v!r}: the port does not honour it yet, only its default "
-                f"{_DEFAULTS[knob]!r}; it belongs to {path}")
+    if cf.atten_model_name == "rnn_attention" and cf.rnn_attention_numlayers != 1:
+        # only the 1-layer attention LSTM of rnn_attention.py:25 is
+        # implemented; the other variants never read the knob
+        raise NotImplementedError(
+            f"rnn_attention_numlayers={cf.rnn_attention_numlayers} — only 1 "
+            "layer is implemented"
+        )

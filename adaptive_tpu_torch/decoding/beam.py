@@ -66,10 +66,12 @@ def make_beam_decoder(model, cf, beam_size: int = None, length_alpha: float = 0.
     (cf.beam_size when None). images_u8 and net as make_greedy_decoder's;
     traced by torch.export, early exit runs as make_greedy_decoder's does.
 
-    On the fused path with cf.decode_beam_major (the default), V/pv stay
-    untiled and the cell kernel reads each image's slots once for its W beam
-    rows, at every width. decode_beam_major=False repeats V/pv per beam row
-    (the tiled layout); the outputs are the same."""
+    On the fused path of the adaptive variant with cf.decode_beam_major
+    (the default), V/pv stay untiled and the cell kernel reads each image's
+    slots once for its W beam rows, at every width. decode_beam_major=False,
+    and the other variants, whose cells run op by op, repeat V/pv per beam
+    row (the tiled layout, as the JAX package's beam.py:46-57); the outputs
+    are the same."""
     W = beam_size if beam_size is not None else cf.beam_size
     if W < 1:
         raise ValueError(f"beam_size must be >= 1, got {W}")
@@ -78,7 +80,8 @@ def make_beam_decoder(model, cf, beam_size: int = None, length_alpha: float = 0.
     size = cf.train_crop_size
     sentinel_prev = cf.sampler_sentinel_uses_prev_hidden
     early_exit = cf.decode_early_exit
-    beam_major = model.fused and cf.decode_beam_major
+    beam_major = (model.fused and model.variant == "adaptive_attention"
+                  and cf.decode_beam_major)
     mesh = spmd.decode_mesh(model, cf)
     prepare = prepare_cached(model, mesh)
 

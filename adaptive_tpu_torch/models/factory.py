@@ -1,5 +1,5 @@
-"""Model factory: config -> CaptionModel (counterpart of
-adaptive_tpu/models/factory.py, adaptive_attention only).
+"""Model factory: config -> CaptionModel (encoder + decoder variant;
+counterpart of adaptive_tpu/models/factory.py).
 
 ``CaptionModel`` is a static description plus the functions the train step
 and the greedy and beam paths call. Its weights live in an
@@ -152,12 +152,12 @@ class CaptionModel(NamedTuple):
         """{'encoder': folded encoder tree (cast to the compute dtype, or
         int8-quantised once with int8_scales), 'decoder': JAX-layout decoder
         params in the compute dtype, 'head': padded vocab head of the greedy
-        and beam head kernels, None unless fused, 'cell': the cell's weights
-        reordered for its tensor-core instance (fs.CellTiles), None unless
-        fused and that instance runs}. On a mesh (decoding/spmd.py) this
-        rank's slice of it: the embedding's rows and the head's columns (and
-        the shard's tiles) of its model rank, and 'tp', the decode steps'
-        (model group, head_tp)."""
+        and beam head kernels, None unless fused, 'cell': the adaptive cell's
+        weights reordered for its tensor-core instance (fs.CellTiles), None
+        unless fused, adaptive and that instance runs}. On a mesh
+        (decoding/spmd.py) this rank's slice of it: the embedding's rows and
+        the head's columns (and the shard's tiles) of its model rank, and
+        'tp', the decode steps' (model group, head_tp)."""
         _, _, s2d = self._resolved_fusion()
         with torch.no_grad():
             enc = prepare_encoder_inference(
@@ -165,7 +165,8 @@ class CaptionModel(NamedTuple):
                 stem_s2d=s2d, bias_corr=self.int8_bias_corr)
             dec = cast_floating(D.decoder_params(net.decoder), self.compute_dtype)
             head = self.prepare_greedy_head(dec)
-            cell = D.prepare_cell_tiles(dec) if self.fused else None
+            cell = (D.prepare_cell_tiles(dec)
+                    if self.fused and self.variant == "adaptive_attention" else None)
             prepared = {"encoder": enc, "decoder": dec, "head": head, "cell": cell}
             if mesh is not None:
                 from adaptive_tpu_torch.decoding.spmd import prepared_specs
@@ -223,8 +224,13 @@ class CaptionModel(NamedTuple):
 def build_model(cf, device="cuda") -> CaptionModel:
     if cf.atten_model_name not in VARIANTS:
         raise ValueError(f"unknown atten_model_name {cf.atten_model_name!r}")
-    if cf.atten_model_name != "adaptive_attention":
-        raise NotImplementedError(D.NOT_PORTED.format(cf.atten_model_name))
+    if cf.atten_model_name == "rnn_attention" and cf.rnn_attention_numlayers != 1:
+        # only the 1-layer attention LSTM of rnn_attention.py:25 is
+        # implemented; the other variants never read the knob
+        raise NotImplementedError(
+            f"rnn_attention_numlayers={cf.rnn_attention_numlayers} — only 1 "
+            "layer is implemented"
+        )
     dev = resolve_device(device)
     num_slots = (cf.train_crop_size // 32) ** 2  # 49 at 224 (7x7 map)
     m = max(1, cf.vocab_pad_multiple)
@@ -236,6 +242,8 @@ def build_model(cf, device="cuda") -> CaptionModel:
         vocab_size=cf.vocab_length,
         num_slots=num_slots,
         atten_dim=num_slots,
+        rnn_bidirectional=cf.rnn_attention_bidirectional,
+        rnn_num_layers=cf.rnn_attention_numlayers,
         padded_vocab=padded_vocab if padded_vocab != cf.vocab_length else 0,
     )
     return CaptionModel(

@@ -9,20 +9,27 @@ linear kernel [in, out] -> weight [out, in]; conv HWIO -> OIHW; LSTM
 weight/bias and mean/var -> running_mean/running_var. Numpy and torch only.
 ``param_keys`` names each parameter's leaf in the JAX tree and its layout,
 for trees that follow the parameters (the optimiser's moments).
+
+Every decoder variant maps: the rnn variant's aggregator ``adaptive.atten.
+lstm`` is JAX's ``lstm_fwd`` and its ``*_l0_reverse`` tensors JAX's
+``lstm_bwd`` (adaptive_tpu/models/torch_import.py:138-150). ``from_jax``
+reads the variant from the tree, ``to_jax`` from the state_dict's keys
+unless it is named.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from adaptive_tpu_torch.models.decoders import ATTEN_AFFINES, SENTINEL_AFFINES
 from adaptive_tpu_torch.models.resnet import RESNET_SPECS
 
 _LAYER0 = 4  # resnet_conv index of layer1: [conv1, bn1, relu, maxpool, layer1..4]
-_ATTEN = ("affine_v", "affine_g", "affine_s", "affine_h")
-_SENTINEL = ("affine_x", "affine_h")
+_LSTM = (("w_ih", "weight_ih_l0", "linear"), ("w_hh", "weight_hh_l0", "linear"),
+         ("b_ih", "bias_ih_l0", "vector"), ("b_hh", "bias_hh_l0", "vector"))
 _HEADS = ("affine_a", "affine_b", "affine_h0", "affine_c0")
 
 
@@ -80,10 +87,44 @@ def _key(path) -> str:
     return "|".join(f"#{p}" if isinstance(p, int) else str(p) for p in path)
 
 
+def _decoder_entries(variant: str, bidirectional: bool = True):
+    """(state_dict name, JAX path under params, layout) of every decoder
+    parameter of the variant."""
+    yield "decoder.embed.weight", ("decoder", "embed"), "vector"
+    for jk, tk, layout in _LSTM:
+        yield f"decoder.LSTM.{tk}", ("decoder", "lstm", jk), layout
+    blk = ("decoder", "adaptive")
+    for name in ATTEN_AFFINES[variant]:
+        yield f"decoder.adaptive.atten.{name}.weight", blk + ("atten", name, "kernel"), "linear"
+    if variant == "adaptive_attention":
+        for name in SENTINEL_AFFINES:
+            yield (f"decoder.adaptive.sentinel.{name}.weight",
+                   blk + ("sentinel", name, "kernel"), "linear")
+    if variant == "rnn_attention":
+        for direction, suffix in (("lstm_fwd", ""), ("lstm_bwd", "_reverse"))[:1 + bidirectional]:
+            for jk, tk, layout in _LSTM:
+                yield (f"decoder.adaptive.atten.lstm.{tk}{suffix}",
+                       blk + ("atten", direction, jk), layout)
+    yield "decoder.adaptive.mlp.weight", blk + ("mlp", "kernel"), "linear"
+    yield "decoder.adaptive.mlp.bias", blk + ("mlp", "bias"), "vector"
+
+
+def _variant_of_state_dict(sd) -> Tuple[str, bool]:
+    """(variant, bidirectional) of a decoder's state_dict keys: a sentinel
+    is the adaptive variant, an aggregator LSTM rnn (bidirectional where it
+    has *_reverse tensors), neither the baseline."""
+    if "decoder.adaptive.sentinel.affine_x.weight" in sd:
+        return "adaptive_attention", True
+    if "decoder.adaptive.atten.lstm.weight_ih_l0" in sd:
+        return "rnn_attention", "decoder.adaptive.atten.lstm.weight_ih_l0_reverse" in sd
+    return "baseline_attention", True
+
+
 def param_keys(arch: str) -> Dict[str, Tuple[str, str]]:
     """{state_dict name of every parameter of an Encoder2Decoder (blocks
-    without a downsample included; callers look names up): (its JAX key
-    under "params", in the checkpoint's ``|`` codec, its layout)}. Layouts:
+    without a downsample and every decoder variant's parameters included;
+    callers look names up): (its JAX key under "params", in the
+    checkpoint's ``|`` codec, its layout)}. Layouts:
     "conv" (OIHW <-> HWIO), "linear" ([out, in] <-> [in, out], LSTM
     weights too) and "vector" (as is); to_layout and from_layout apply
     them."""
@@ -99,19 +140,9 @@ def param_keys(arch: str) -> Dict[str, Tuple[str, str]]:
     for name in _HEADS:
         out[f"encoder.{name}.weight"] = (f"encoder|{name}|kernel", "linear")
         out[f"encoder.{name}.bias"] = (f"encoder|{name}|bias", "vector")
-    out["decoder.embed.weight"] = ("decoder|embed", "vector")
-    for jk, tk in (("w_ih", "weight_ih_l0"), ("w_hh", "weight_hh_l0")):
-        out[f"decoder.LSTM.{tk}"] = (f"decoder|lstm|{jk}", "linear")
-    for jk, tk in (("b_ih", "bias_ih_l0"), ("b_hh", "bias_hh_l0")):
-        out[f"decoder.LSTM.{tk}"] = (f"decoder|lstm|{jk}", "vector")
-    for name in _ATTEN:
-        out[f"decoder.adaptive.atten.{name}.weight"] = (
-            f"decoder|adaptive|atten|{name}|kernel", "linear")
-    for name in _SENTINEL:
-        out[f"decoder.adaptive.sentinel.{name}.weight"] = (
-            f"decoder|adaptive|sentinel|{name}|kernel", "linear")
-    out["decoder.adaptive.mlp.weight"] = ("decoder|adaptive|mlp|kernel", "linear")
-    out["decoder.adaptive.mlp.bias"] = ("decoder|adaptive|mlp|bias", "vector")
+    for variant in ATTEN_AFFINES:
+        for name, path, layout in _decoder_entries(variant):
+            out[name] = (_key(path), layout)
     return out
 
 
@@ -142,8 +173,8 @@ def from_layout(a, layout: str) -> torch.Tensor:
 
 
 def from_jax(params: Dict, state: Dict, arch: str) -> Dict[str, torch.Tensor]:
-    """JAX (params, state) of an adaptive_attention model -> state_dict with
-    the reference Encoder2Decoder's keys (CPU tensors)."""
+    """JAX (params, state) of a model of any variant -> state_dict with the
+    reference Encoder2Decoder's keys (CPU tensors)."""
     sd: Dict[str, torch.Tensor] = {}
     enc, rs = params["encoder"], state["resnet"]
     for prefix, ppath, spath in _resnet_entries(arch):
@@ -164,20 +195,11 @@ def from_jax(params: Dict, state: Dict, arch: str) -> Dict[str, torch.Tensor]:
         sd[f"encoder.{name}.weight"] = _t(np.asarray(enc[name]["kernel"]).T)
         sd[f"encoder.{name}.bias"] = _t(enc[name]["bias"])
 
-    dec = params["decoder"]
-    sd["decoder.embed.weight"] = _t(dec["embed"])
-    for jk, tk in (("w_ih", "weight_ih_l0"), ("w_hh", "weight_hh_l0")):
-        sd[f"decoder.LSTM.{tk}"] = _t(np.asarray(dec["lstm"][jk]).T)
-    sd["decoder.LSTM.bias_ih_l0"] = _t(dec["lstm"]["b_ih"])
-    sd["decoder.LSTM.bias_hh_l0"] = _t(dec["lstm"]["b_hh"])
-    blk = dec["adaptive"]
-    for name in _ATTEN:
-        sd[f"decoder.adaptive.atten.{name}.weight"] = _t(np.asarray(blk["atten"][name]["kernel"]).T)
-    for name in _SENTINEL:
-        sd[f"decoder.adaptive.sentinel.{name}.weight"] = _t(
-            np.asarray(blk["sentinel"][name]["kernel"]).T)
-    sd["decoder.adaptive.mlp.weight"] = _t(np.asarray(blk["mlp"]["kernel"]).T)
-    sd["decoder.adaptive.mlp.bias"] = _t(blk["mlp"]["bias"])
+    atten = params["decoder"]["adaptive"]["atten"]
+    variant = ("adaptive_attention" if "sentinel" in params["decoder"]["adaptive"] else
+               "rnn_attention" if "lstm_fwd" in atten else "baseline_attention")
+    for name, path, layout in _decoder_entries(variant, "lstm_bwd" in atten):
+        sd[name] = from_layout(_get(params, path), layout)
     return sd
 
 
@@ -201,26 +223,18 @@ def resnet_to_jax(sd: Dict[str, torch.Tensor], arch: str,
     return rn_p, rn_s
 
 
-def to_jax(sd: Dict[str, torch.Tensor], arch: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """Inverse of from_jax: state_dict -> JAX (params, state), numpy leaves."""
+def to_jax(sd: Dict[str, torch.Tensor], arch: str,
+           variant: Optional[str] = None) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Inverse of from_jax: state_dict -> JAX (params, state), numpy leaves.
+    The decoder's tree is its variant's (_variant_of_state_dict unless
+    variant is named); a missing weight raises KeyError naming it."""
     rn_p, rn_s = resnet_to_jax(sd, arch)
     enc: Dict[str, Any] = {"resnet": rn_p}
     for name in _HEADS:
         enc[name] = {"kernel": _n(sd[f"encoder.{name}.weight"]).T,
                      "bias": _n(sd[f"encoder.{name}.bias"])}
-    dec = {
-        "embed": _n(sd["decoder.embed.weight"]),
-        "lstm": {"w_ih": _n(sd["decoder.LSTM.weight_ih_l0"]).T,
-                 "w_hh": _n(sd["decoder.LSTM.weight_hh_l0"]).T,
-                 "b_ih": _n(sd["decoder.LSTM.bias_ih_l0"]),
-                 "b_hh": _n(sd["decoder.LSTM.bias_hh_l0"])},
-        "adaptive": {
-            "atten": {n: {"kernel": _n(sd[f"decoder.adaptive.atten.{n}.weight"]).T}
-                      for n in _ATTEN},
-            "sentinel": {n: {"kernel": _n(sd[f"decoder.adaptive.sentinel.{n}.weight"]).T}
-                         for n in _SENTINEL},
-            "mlp": {"kernel": _n(sd["decoder.adaptive.mlp.weight"]).T,
-                    "bias": _n(sd["decoder.adaptive.mlp.bias"])},
-        },
-    }
-    return {"encoder": enc, "decoder": dec}, {"resnet": rn_s}
+    params: Dict[str, Any] = {"encoder": enc}
+    found, bidirectional = _variant_of_state_dict(sd)
+    for name, path, layout in _decoder_entries(variant or found, bidirectional):
+        _set(params, path, np_to_layout(_n(sd[name]), layout))
+    return params, {"resnet": rn_s}

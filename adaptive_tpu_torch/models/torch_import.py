@@ -10,9 +10,8 @@ the converters are renames and checks, not layout changes:
    port's ``ResNet`` (the reference's ``nn.Sequential`` of the trunk:
    ``0`` = conv1, ``1`` = bn1, ``4``..``7`` = layer1..4).
 2. ``convert_reference_checkpoint``: a reference Encoder2Decoder
-   state_dict -> the port's Encoder2Decoder state_dict (the same names,
-   checked and as float32 tensors). adaptive_attention only: the other two
-   variants come with their decoders (ROADMAP.md §1, item 7).
+   state_dict of any of the three variants -> the port's Encoder2Decoder
+   state_dict (the same names, checked and as float32 tensors).
 3. ``save_resnet_npz`` and ``save_reference_checkpoint_npz`` write the JAX
    package's files (a trunk ``.npz`` for ``encoder_pretrained_npz``; a
    checkpoint dir), which both packages' ``load_pretrained_resnet`` and
@@ -72,18 +71,17 @@ def convert_torchvision_resnet(sd: Dict[str, Any], arch: str) -> Dict[str, torch
 
 def convert_reference_checkpoint(sd: Dict[str, Any], variant: str,
                                  arch: str = "resnet152") -> Dict[str, torch.Tensor]:
-    """Reference Encoder2Decoder.state_dict() -> the port's Encoder2Decoder
-    state_dict (adaptive_attention.py:89-108's names, which the port keeps),
-    through the JAX layouts and back (models/jax_params.py), which checks
-    that every head and decoder weight is there (KeyError naming it) and
-    drops what the model does not read. The trunk's keys are checked when
-    the state_dict is loaded."""
-    from adaptive_tpu_torch.models.decoders import NOT_PORTED
+    """Reference Encoder2Decoder.state_dict() of the variant -> the port's
+    Encoder2Decoder state_dict (the names of adaptive_attention.py:89-108,
+    baseline_attention.py:100-128 and rnn_attention.py:13-29, which the port
+    keeps), through the JAX layouts and back (models/jax_params.py), which
+    checks that every head and decoder weight of the variant is there
+    (KeyError naming it) and drops what the model does not read. An rnn
+    aggregator without *_reverse tensors is unidirectional, as in the JAX
+    package. The trunk's keys are checked when the state_dict is loaded."""
     from adaptive_tpu_torch.models.jax_params import from_jax, to_jax
 
-    if variant != "adaptive_attention":
-        raise NotImplementedError(NOT_PORTED.format(variant))
-    return from_jax(*to_jax({k: _tensor(v) for k, v in sd.items()}, arch), arch)
+    return from_jax(*to_jax({k: _tensor(v) for k, v in sd.items()}, arch, variant), arch)
 
 
 def pad_vocab_params(sd: Dict[str, torch.Tensor], padded_vocab: int) -> Dict[str, torch.Tensor]:

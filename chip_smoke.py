@@ -144,15 +144,31 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    on 256 images for 1 epoch, equal to the run without a process group in
    its loss history and CIDEr.
 
+12. runs the other two decoder variants, baseline_attention (spatial
+   attention) and rnn_attention (sigmoid gates and a bidirectional LSTM
+   over the slots, hr 256), at the published widths with seeded weights and
+   BN calibrated as in phase 3; their cells run op by op, their vocab
+   heads through kernels 2 and 4: 12a greedy and beam 3 in bf16 at batch
+   1024 on phase 3's images (captions/s, encoder and decode-loop ms;
+   kernel 2 or 4 launched STEPS times a decode, kernels 1 and 3 never;
+   ids, scores and maps well formed, beta zero), and a decode step's host
+   time against the card's busy time (torch.profiler); 12b 8 fp32 captions
+   and beams card vs CPU under phases 4's and 4b's rules; 12c one fp32
+   train step card vs CPU, encoder off and on, under phase 8c's bounds, and
+   phase 8a's bf16 step at batch 256 with the encoder off; 12d
+   save_checkpoint, restore_model into a fresh net, and coco_eval greedy
+   on a 400-image split served from memory (kernel 2's launches), and the
+   baseline's greedy decoder exported at batch 8 (ids equal).
+
 Phases run in the order 1, 2, 2b, 3, 3b, 2c, 5, 4, 4b, 6, 7, 7b, 8a, 8b, 8c,
-9a, 9b, 9c, 10a, 10b, 10c, 11.
+9a, 9b, 9c, 10a, 10b, 10c, 11, 12.
 
 Prints one JSON line of per-kernel numbers (kernel 4's entry with its shard
 numbers), one of the eval driver's numbers ({"eval_driver": ...}), one of
 training's ({"train": ...}), one of the L-BFGS step's ({"lbfgs": ...}), one
 of the CLI's ({"cli": ...}), one of serving's, the export's and the gate's
-({"serving": ...}), one of phase 11's ({"multi_device": ...}), then as its
-last line
+({"serving": ...}), one of phase 11's ({"multi_device": ...}), one of phase
+12's ({"variants": ...}), then as its last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Exits 2 without a result where
 there is no CUDA card or the package is not beside this script.
@@ -272,6 +288,12 @@ SERVE_B, SERVE_WAIT_MS, SERVE_IMAGES = 32, 20.0, 64
 SERVE_QPS, SERVE_LEVEL_S = (32, 256, 1024), 4.0
 EXPORT_B, EXPORT_BETA_ATOL = 8, 1e-6
 GATE_IMAGES, GATE_EPOCHS, GATE_FINETUNE_EPOCH = 128, 2, 2
+# phase 12: the other two decoder variants at the Config defaults of their
+# knobs (base_*, rnn_attention_*: the published embed 256, hidden 512; rnn
+# bidirectional, 1 layer); 12a's step timing over STEP_RUNS steps; 12d's
+# eval split at one eval batch
+VARIANTS = ("baseline_attention", "rnn_attention")
+STEP_RUNS, VARIANT_EVAL_IMAGES = 3, 400
 
 
 def log(msg):
@@ -1099,9 +1121,10 @@ def profile_decode(run, out_dir, smi, tag):
     """torch.profiler over one end-to-end run (utils/profiling.py::
     profile_trace, its Chrome trace in a temporary dir), read through
     utils/trace_report.py: device time by kernel name (all of it to
-    out_dir/profile_e2e_<tag>.txt, the largest printed) and the device's
-    busy share of the window (union of kernel intervals over the wall
-    time). Returns the kernel table [(name, ms, launches)]."""
+    out_dir/profile_e2e_<tag>.txt where out_dir is given, the largest
+    printed) and the device's busy share of the window (union of kernel
+    intervals over the wall time). Returns (the kernel table [(name, ms,
+    launches)], busy us, wall us)."""
     import tempfile
 
     import torch
@@ -1119,22 +1142,23 @@ def profile_decode(run, out_dir, smi, tag):
     rows = trace_report.device_op_summary(events)
     busy = trace_report.stage_split(events)["busy_ms"] * 1e3
     total = sum(ms for _, ms, _ in rows) * 1e3
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"profile_e2e_{tag}.txt"), "w") as f:
-        f.write(f"{smi}; wall {wall_us:.1f} us, busy {busy:.1f} us\n")
-        f.writelines(f"{ms * 1e3:12.1f} us {n:6d}x  {name}\n" for name, ms, n in rows)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, f"profile_e2e_{tag}.txt"), "w") as f:
+            f.write(f"{smi}; wall {wall_us:.1f} us, busy {busy:.1f} us\n")
+            f.writelines(f"{ms * 1e3:12.1f} us {n:6d}x  {name}\n" for name, ms, n in rows)
     log(f"[profile {tag} bf16] {smi}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
         f"({busy / wall_us:.4f} of the window), kernel time {total / 1e3:.3f} ms; top: "
         + "; ".join(f"{name[:70]} {ms:.3f} ms x{n}" for name, ms, n in rows[:10]))
-    return rows
+    return rows, busy, wall_us
 
 
 # ----------------------------------------------------------------- phase 4
 def greedy_gaps(model, prepared, images_u8, cf):
     """Top-2 logit gap of every row at every step of the model's greedy
     decode on its device (the CPU's in phase 4), with the head twin's
-    arithmetic (c_hat + h rounded to the weight's type, fp32 logits); also
-    returns its ids."""
+    arithmetic (the cell's a, c_hat for the adaptive variant, + h rounded to
+    the weight's type, fp32 logits); also returns its ids."""
     import torch
 
     from adaptive_tpu_torch.models import decoders as Dm
@@ -1151,7 +1175,8 @@ def greedy_gaps(model, prepared, images_u8, cf):
         ids, gaps = [], []
         for _ in range(STEPS):
             x = torch.cat([dec["embed"][tok], v_g], dim=-1)
-            h_new, c_new, chat, _, _ = Dm._fused_cell(dec, x, st, False, V, pv)
+            h_new, c_new, chat, _, _ = Dm._cell(dec, model.spec, x, st, False, V, pv,
+                                                model.fused)
             logits = (chat + h_new).to(w.dtype).float() @ w.float() + b.float()
             logits[:, VOCAB:] = -1e30
             top2 = logits.topk(2, dim=1)
@@ -1162,8 +1187,9 @@ def greedy_gaps(model, prepared, images_u8, cf):
     return torch.stack(ids, 1), torch.stack(gaps, 1)
 
 
-def fp32_models(images_u8):
-    """The fp32 model on the card and the same weights on the CPU."""
+def fp32_models(images_u8, **cf_kw):
+    """The fp32 model on the card and the same weights on the CPU (cf_kw:
+    other Config knobs, the decoder variant's)."""
     import torch
 
     from adaptive_tpu_torch import Config
@@ -1171,7 +1197,7 @@ def fp32_models(images_u8):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cf = Config(compute_dtype="float32")
+    cf = Config(compute_dtype="float32", **cf_kw)
     model_g, net_g = random_model(cf, "cuda", images_u8[:32])
     model_c = build_model(cf, device="cpu")
     net_c = model_c.init(SEED)
@@ -1206,6 +1232,8 @@ def cross_device_parity(cf, model_g, net_g, model_c, net_c, images_u8, tag="pari
     log(f"[{tag}, TF32 off] card vs CPU: {n_same}/{imgs.shape[0]} captions identical "
         f"({distinct} distinct); attention/beta max abs err {att_err:.3e} (atol {PARITY_ATOL}); "
         f"min top-2 gap over all steps {float(gaps.min()):.3e}; first: {ids_g[0, :12].tolist()}")
+    return {"identical": n_same, "images": imgs.shape[0], "max_abs_err": att_err,
+            "min_gap": float(gaps.min())}
 
 
 # ---------------------------------------------------------------- phase 4b
@@ -1258,7 +1286,7 @@ def beam_gaps(model, prepared, images_u8, cf, W):
     return torch.stack(ids[::-1], 2), torch.stack(gaps, 1)
 
 
-def beam_parity(cf, model_g, net_g, model_c, net_c, images_u8):
+def beam_parity(cf, model_g, net_g, model_c, net_c, images_u8, tag="beam parity fp32"):
     import torch
 
     from adaptive_tpu_torch.decoding import make_beam_decoder
@@ -1274,7 +1302,7 @@ def beam_parity(cf, model_g, net_g, model_c, net_c, images_u8):
     for row in range(imgs.shape[0]):
         gap = float(gaps[row].min())
         if not torch.equal(out_g.all_ids[row].cpu(), out_c.all_ids[row]):
-            log(f"[beam parity fp32] image {row}: beams differ; CPU min adjacent flat-candidate "
+            log(f"[{tag}] image {row}: beams differ; CPU min adjacent flat-candidate "
                 f"gap over the steps {gap:.3e}")
             if gap >= PARITY_GAP_EPS:
                 raise AssertionError(f"image {row}: beams differ with candidate gaps >= {gap:.3e}")
@@ -1284,7 +1312,7 @@ def beam_parity(cf, model_g, net_g, model_c, net_c, images_u8):
                                    out_g.all_scores[row].cpu(), out_c.all_scores[row],
                                    BEAM_SCORE_ATOL, 0.0))
         if not torch.equal(out_g.ids[row].cpu(), out_c.ids[row]):
-            log(f"[beam parity fp32] image {row}: another best beam (scores "
+            log(f"[{tag}] image {row}: another best beam (scores "
                 f"{out_c.all_scores[row].tolist()})")
             continue
         for name, a, b in (("attention", out_g.attention, out_c.attention),
@@ -1292,10 +1320,12 @@ def beam_parity(cf, model_g, net_g, model_c, net_c, images_u8):
             err = max(err, check_close(f"beam parity {name} image {row}", a[row].cpu(), b[row],
                                        PARITY_ATOL, 0.0))
     distinct = len({tuple(r) for r in out_c.ids.tolist()})
-    log(f"[beam parity fp32, TF32 off] beam {BEAM}, card vs CPU: {n_same}/{imgs.shape[0]} images' "
+    log(f"[{tag}, TF32 off] beam {BEAM}, card vs CPU: {n_same}/{imgs.shape[0]} images' "
         f"beams identical ({distinct} distinct best captions); scores/attention/beta max abs "
         f"err {err:.3e} (atol {BEAM_SCORE_ATOL}/{PARITY_ATOL}); min adjacent candidate gap "
         f"{float(gaps.min()):.3e}; first: {out_g.ids[0, :12].tolist()}")
+    return {"identical": n_same, "images": imgs.shape[0], "max_abs_err": err,
+            "min_gap": float(gaps.min())}
 
 
 # ----------------------------------------------------------------- phase 7
@@ -1648,9 +1678,11 @@ def step_marks():
             setattr(owner, attr, fn)
 
 
-def train_throughput(smi, profile_dir=None):
+def train_throughput(smi, profile_dir=None, modes=(("encoder_off", False), ("encoder_on", True)),
+                     **cf_kw):
     """Phase 8a: make_train_step at full width in bf16, batch 256, encoder
-    off and on (fine-tuning layers 2-4): TRAIN_WARMUP steps, then
+    off and on (fine-tuning layers 2-4; modes: (tag, on) pairs; cf_kw: other
+    Config knobs, phase 12c's variants): TRAIN_WARMUP steps, then
     TRAIN_STEPS timed (host clock around synchronised steps), the peak of
     allocated memory over them, one instrumented step split into forward,
     backward and optimizer by CUDA events, and one step under
@@ -1664,7 +1696,8 @@ def train_throughput(smi, profile_dir=None):
     from adaptive_tpu_torch.training.optim import make_dual_optimizer
     from adaptive_tpu_torch.training.step import make_train_step
 
-    cf = Config(compute_dtype="bfloat16", vocab_pad_multiple=128, train_batch_size=TRAIN_B)
+    cf = Config(compute_dtype="bfloat16", vocab_pad_multiple=128, train_batch_size=TRAIN_B,
+                **cf_kw)
     model = build_model(cf)
     net = model.init(SEED)
     dual = make_dual_optimizer(net, cf)
@@ -1672,7 +1705,8 @@ def train_throughput(smi, profile_dir=None):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     batch = train_batch(TRAIN_B, SEED + 300, "cuda")
     out = {}
-    for tag, on in (("encoder_off", False), ("encoder_on", True)):
+    label = "train step" if not cf_kw else f"train step {cf.atten_model_name}"
+    for tag, on in modes:
         for _ in range(TRAIN_WARMUP):
             step(net, batch, gen, on)
         torch.cuda.synchronize()
@@ -1696,7 +1730,7 @@ def train_throughput(smi, profile_dir=None):
             step(net, batch, gen, on)
         flops = fc.get_total_flops()
         share = flops / (ms * 1e-3) / PEAK_FLOPS["bfloat16"]
-        log(f"[train step {tag} bf16] {smi}: batch {TRAIN_B}, captions {TRAIN_T}, mean of "
+        log(f"[{label} {tag} bf16] {smi}: batch {TRAIN_B}, captions {TRAIN_T}, mean of "
             f"{TRAIN_STEPS} steps after {TRAIN_WARMUP}: {ms:.3f} ms a step, "
             f"{TRAIN_B / ms * 1e3:.1f} images/s; one instrumented step: forward "
             f"{split['forward']:.3f} ms, backward {split['backward']:.3f} ms, optimizer "
@@ -1705,7 +1739,8 @@ def train_throughput(smi, profile_dir=None):
             f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {share:.4f} of the bf16 peak; losses "
             f"{[round(v, 4) for v in losses.tolist()]}")
         if profile_dir:
-            profile_decode(lambda: step(net, batch, gen, on), profile_dir, smi, f"train_{tag}")
+            profile_decode(lambda: step(net, batch, gen, on), profile_dir, smi,
+                           f"train_{tag}" if not cf_kw else f"train_{cf.atten_model_name}_{tag}")
         out[tag] = {"ms": ms, "images_per_s": TRAIN_B / ms * 1e3, **{f"{k}_ms": v for k, v in
                     split.items()}, "peak_bytes": peak, "tflop": flops / 1e12,
                     "bf16_peak_share": share, "losses": losses.tolist()}
@@ -1830,7 +1865,7 @@ def train_loop(smi):
             "checkpoint_bytes": sizes, "valid_auto_equal": True}
 
 
-def train_parity(cf, net_g, net_c, smi):
+def train_parity(cf, net_g, net_c, smi, label="train parity fp32"):
     """Phase 8c: one train step in fp32 (TF32 off) from the same full-width
     weights (phase 4's) and batch of TRAIN_PARITY_B on the card and on the
     CPU, with the encoder off and then on (each from the original weights),
@@ -1933,7 +1968,7 @@ def train_parity(cf, net_g, net_c, smi):
                     f"{line['enc_grad_rel_cpu_vs_cpu']:.2e}), weights max |d| {d_enc:.2e}")
         elif d_enc != 0.0:
             raise AssertionError(f"train parity {tag}: the frozen encoder moved by {d_enc:.3e}")
-        log(f"[train parity fp32 {tag}, TF32 off] {smi}: batch {TRAIN_PARITY_B}, card vs CPU: "
+        log(f"[{label} {tag}, TF32 off] {smi}: batch {TRAIN_PARITY_B}, card vs CPU: "
             f"loss {lg:.7f} vs {lc:.7f} (rel {d_loss:.2e}), LSTM grad norm rel {d_norm:.2e}, BN "
             f"running statistics max |d| {d_bn_abs:.2e} (relative to max(1, |v|) {d_bn:.2e}); "
             f"decoder group: gradients max |d| {d_grad:.2e} of their bound, weights max |d| "
@@ -2676,7 +2711,7 @@ def export_check(model, net, cf, smi, out_dir):
         if beta_err > EXPORT_BETA_ATOL:
             raise AssertionError(f"exported beta {beta_err:.3e} from the in-process decoder's")
         reset_launch_counts()
-        rows = profile_decode(lambda: decode(images), out_dir or tmp, smi, "export_greedy")
+        rows = profile_decode(lambda: decode(images), out_dir, smi, "export_greedy")[0]
         launches = launch_counts()
     per_kernel = {k: sum(n for name, _, n in rows if k in name)
                   for k in ("cell_gates_kernel", "cell_attend_kernel", "head_argmax_mma_kernel",
@@ -3504,6 +3539,248 @@ def multi_device(smi):
     return line, shard
 
 
+# ---------------------------------------------------------------- phase 12
+def variant_decode(model, net, cf, images_u8, smi, beam, profile_dir=None):
+    """Phase 12a: a variant's greedy or beam-3 decode end to end in bf16 at
+    batch B, timed as phase 3 times it: kernel 2 (greedy) or kernel 4 (beam)
+    launched STEPS times a decode and no other kernel (the variants' cells
+    run op by op); ids in the vocab; the maps [B, STEPS, K] finite in [0, 1],
+    the baseline's softmax summing to 1 (rnn's are sigmoid gates); beta all
+    zero; beams sorted, ids and score the best beam's."""
+    import torch
+
+    from adaptive_tpu_torch.decoding import make_beam_decoder, make_greedy_decoder
+
+    variant = cf.atten_model_name
+    tag = f"beam{BEAM}" if beam else "greedy"
+    decode = (make_beam_decoder(model, cf, beam_size=BEAM) if beam
+              else make_greedy_decoder(model, cf))
+    images = torch.as_tensor(images_u8, device="cuda")
+    expect = {k: 0 for k in launch_counts()}
+    expect["beam_head_topk" if beam else "greedy_head_argmax"] = STEPS
+    out, launches, total_ms, enc_ms = timed_decodes(decode, net, model, cf, images, expect)
+    ids = out.ids.cpu().numpy()
+    if ids.shape != (B, STEPS) or ids.min() < 0 or ids.max() >= VOCAB:
+        raise AssertionError(f"{variant} {tag}: ids of shape {ids.shape} in [{ids.min()}, "
+                             f"{ids.max()}]")
+    att = out.attention.float()
+    if tuple(att.shape) != (B, STEPS, K) or not torch.isfinite(att).all() or \
+            not ((att >= 0) & (att <= 1)).all():
+        raise AssertionError(f"{variant} {tag}: attention maps malformed")
+    # the plain cell's softmax rounds each weight to the compute dtype once:
+    # the sum is within 2^-9 of 1 in bf16
+    sum_tol = 1e-3 if model.compute_dtype == torch.float32 else 2.0 ** -8
+    if variant == "baseline_attention" and not torch.allclose(
+            att.sum(-1), torch.ones(B, STEPS, device=att.device), atol=sum_tol):
+        raise AssertionError(f"{variant} {tag}: attention maps do not sum to 1")
+    if out.beta.any():
+        raise AssertionError(f"{variant} {tag}: beta is not zero")
+    if beam:
+        scores, img = out.all_scores, torch.arange(B, device="cuda")
+        best = scores.argmax(1)
+        if tuple(out.all_ids.shape) != (B, BEAM, STEPS) or not torch.isfinite(scores).all() or \
+                not (scores[:, :-1] >= scores[:, 1:]).all() or \
+                not torch.equal(out.ids, out.all_ids[img, best]):
+            raise AssertionError(f"{variant} {tag}: beams malformed")
+    distinct = len({tuple(r) for r in ids.tolist()})
+    total, enc = sum(total_ms) / len(total_ms), sum(enc_ms) / len(enc_ms)
+    log(f"[variant {variant} {tag} bf16] {smi}: batch {B}, {STEPS} steps, mean of {E2E_REPEATS} "
+        f"runs: total {total:.3f} ms {total_ms}, encoder {enc:.3f} ms {enc_ms}, decode loop "
+        f"{total - enc:.3f} ms, {B / total * 1e3:.1f} captions/s; launches {launches} (kernels "
+        f"1 and 3 none); {distinct} distinct captions, first: {ids[0, :12].tolist()}")
+    if profile_dir:
+        profile_decode(lambda: decode(net, images), profile_dir, smi, f"{variant}_{tag}")
+    return launches, {"total_ms": total, "encoder_ms": enc, "decode_loop_ms": total - enc,
+                      "captions_per_s": B / total * 1e3, "distinct": distinct}
+
+
+def variant_step(model, net, cf, images_u8, smi, beam, profile_dir=None):
+    """Phase 12a: the host and device time of one decode step of a variant
+    at batch B (beam: B x BEAM rows, V and pv tiled once, as
+    make_beam_decoder has them): STEP_RUNS steps after a warm-up one on the
+    host clock up to torch.cuda.synchronize() (a step's wall: its host
+    time, where the host binds), then the same steps under torch.profiler:
+    the card's busy time and the kernels launched a step (profile_decode's
+    table; to profile_dir where given). A rnn step launches 2 x K LSTM cell
+    steps of the aggregator."""
+    import torch
+
+    from adaptive_tpu_torch.ops.preprocess import eval_preprocess
+
+    variant = cf.atten_model_name
+    tag = f"beam{BEAM}" if beam else "greedy"
+    W = BEAM if beam else 1
+    prepared = model.prepare_inference(net)
+    with torch.no_grad():
+        V, v_g, h0, c0 = model.encode_inference(prepared, eval_preprocess(
+            torch.as_tensor(images_u8, device="cuda"), cf.train_crop_size, model.compute_dtype))
+        dec, head = prepared["decoder"], prepared["head"]
+        rows = [t.repeat_interleave(W, 0) for t in (V, model.precompute_slots(dec, V), v_g)]
+        st = model.init_decode_state(h0.repeat_interleave(W, 0), c0.repeat_interleave(W, 0))
+        tok = torch.full((B * W,), cf.decode_start_token, dtype=torch.int32, device="cuda")
+
+        def step():
+            V_t, pv_t, vg_t = rows
+            if beam:
+                return model.beam_decode_step(dec, tok, vg_t, st, V_t, BEAM, pv=pv_t, head=head)
+            return model.greedy_decode_step(dec, tok, vg_t, st, V_t, pv=pv_t, head=head)
+
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEP_RUNS):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / STEP_RUNS * 1e3
+        table, busy_us, _ = profile_decode(lambda: [step() for _ in range(STEP_RUNS)],
+                                           profile_dir, smi, f"{variant}_step_{tag}")
+    busy = busy_us / 1e3 / STEP_RUNS
+    n = sum(k for _, _, k in table) / STEP_RUNS
+    log(f"[variant step {variant} {tag} bf16] {smi}: {B * W} rows, mean of {STEP_RUNS} steps: "
+        f"host (wall, synchronised) {wall:.3f} ms a step, device busy {busy:.3f} ms a step "
+        f"({busy / wall:.4f} of it), {n:.0f} kernels a step")
+    return {"host_ms": wall, "device_ms": busy, "kernels": n}
+
+
+def variant_checkpoint_eval(model, net, cf, smi):
+    """Phase 12d: save_checkpoint of the bf16 net, restore_model into a net
+    drawn from another seed (every tensor equal to the saved net's after),
+    then coco_eval greedy at batch EVAL_BATCH on a VARIANT_EVAL_IMAGES-image
+    synthetic split served from memory (phase 7's eval_split): one result
+    an image, a finite CIDEr, kernel 2 launched STEPS times a batch and no
+    other kernel."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from adaptive_tpu_torch.evalcap.coco_eval import coco_eval
+    from adaptive_tpu_torch.training.checkpoint import restore_model, save_checkpoint
+
+    variant = cf.atten_model_name
+    n = VARIANT_EVAL_IMAGES
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        path = os.path.join(root, "cider-0.0000_model-1")
+        save_checkpoint(path, net)
+        fresh = model.init(SEED + 1)
+        restore_model(path, fresh, model.arch)
+        t1 = time.perf_counter()
+        got, want = fresh.state_dict(), net.state_dict()
+        if set(got) != set(want) or any(not torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"{variant}: restore_model did not give the saved weights")
+        ann, _, split, vocab = eval_split(root, n, SEED + 1200)
+        ecf = cf.replace(val_anno_path=ann, eval_batch_size=EVAL_BATCH, exp_dir=root)
+        per_image = {}
+        reset_launch_counts()
+        t2 = time.perf_counter()
+        cider = coco_eval(ecf, model, fresh, epoch=1, vocab=vocab, per_image_out=per_image,
+                          dataset=split)
+        wall = time.perf_counter() - t2
+        launches = launch_counts()
+        results = read_results(os.path.join(root, "val_results", "validation-1.json"), n)
+    expect = {k: 0 for k in launches}
+    expect["greedy_head_argmax"] = -(-n // EVAL_BATCH) * STEPS
+    if launches != expect or len(per_image) != n or not np.isfinite(cider):
+        raise AssertionError(f"{variant} eval: launches {launches}, {len(per_image)} per-image "
+                             f"scores, CIDEr {cider}")
+    log(f"[variant checkpoint eval {variant} bf16] {smi}: checkpoint saved and restored into a "
+        f"fresh net in {t1 - t0:.2f} s, every tensor equal; coco_eval greedy on {n} images "
+        f"{wall:.3f} s, {len(results)} results "
+        f"({len({r['caption'] for r in results})} distinct captions), CIDEr {cider:.6g}, "
+        f"kernel 2 launched {launches['greedy_head_argmax']} times")
+    return {"checkpoint_s": t1 - t0, "eval_s": wall, "results": len(results), "cider": cider,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def variant_export(model, net, cf, smi):
+    """Phase 12d (baseline only: a rnn step's 2 x K aggregator steps would
+    unroll 2,940 LSTM cells into the graph): the greedy decoder exported at
+    batch EXPORT_B, saved, loaded and run: ids equal the in-process
+    decoder's, attention within EXPORT_BETA_ATOL; kernel 2 launched STEPS
+    times in the exported call."""
+    import tempfile
+
+    from adaptive_tpu_torch.decoding import make_greedy_decoder
+    from adaptive_tpu_torch.export import export_decoder, load_decoder
+
+    images = seeded_images(EXPORT_B, SEED + 1002)
+    c = cf.replace(eval_batch_size=EXPORT_B)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        decode = load_decoder(export_decoder(model, c, net, os.path.join(tmp, "decoder.pt2")))
+        t1 = time.perf_counter()
+        reset_launch_counts()
+        got = decode(images)
+        launches = launch_counts()
+    want = make_greedy_decoder(model, c)(net, images)
+    att_err = float((got["attention"].float() - want.attention.float()).abs().max())
+    expect = {k: 0 for k in launches}
+    expect["greedy_head_argmax"] = STEPS
+    if not (got["ids"] == want.ids).all() or att_err > EXPORT_BETA_ATOL or launches != expect:
+        raise AssertionError(f"{cf.atten_model_name} export: ids equal "
+                             f"{bool((got['ids'] == want.ids).all())}, attention {att_err:.3e}, "
+                             f"launches {launches}")
+    log(f"[variant export {cf.atten_model_name} greedy bf16] {smi}: batch {EXPORT_B}: export and "
+        f"load {t1 - t0:.2f} s; ids equal the in-process decoder's, attention {att_err:.3e} "
+        f"apart; kernel 2 launched {launches['greedy_head_argmax']} times in the call")
+    return {"export_load_s": t1 - t0, "attention_max_abs_err": att_err}
+
+
+def variants(smi, profile_dir=None):
+    """Phase 12: the baseline_attention and rnn_attention decoders at the
+    published widths (ResNet-152 at 224, embed 256, hidden 512, vocab 10,123
+    padded to 10,240; rnn bidirectional, hr 256, 1 layer), seeded weights
+    with BN calibrated as in phase 3: 12a bf16 greedy and beam 3 at batch B
+    on phase 3's images, and the decode step's host and device ms; 12b fp32
+    greedy and beam 3 on 8 images, card vs CPU (the plain twins), under
+    phases 4's and 4b's rules; 12c one fp32 train step at batch
+    TRAIN_PARITY_B card vs CPU, encoder off and on, under phase 8c's
+    bounds, and phase 8a's bf16 step at batch TRAIN_B, encoder off; 12d the
+    checkpoint round trip and coco_eval (and the baseline's export).
+    Returns {variant: its numbers} and {variant: {path: launches}}."""
+    import torch
+
+    from adaptive_tpu_torch import Config
+
+    images_u8 = seeded_images(B, SEED)
+    out, launches = {}, {}
+    for variant in VARIANTS:
+        t0 = time.perf_counter()
+        line = {}
+        cf = Config(compute_dtype="bfloat16", atten_model_name=variant)
+        model, net = random_model(cf, "cuda", images_u8[:32])
+        launches[variant] = {}
+        for beam in (False, True):
+            tag = f"beam{BEAM}" if beam else "greedy"
+            launches[variant][tag], line[tag] = variant_decode(model, net, cf, images_u8, smi, beam,
+                                                               profile_dir)
+            line[f"step_{tag}"] = variant_step(model, net, cf, images_u8, smi, beam, profile_dir)
+        t1 = time.perf_counter()
+        line["checkpoint_eval"] = variant_checkpoint_eval(model, net, cf, smi)
+        if variant == "baseline_attention":
+            line["export"] = variant_export(model, net, cf, smi)
+        del model, net
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        fp32 = fp32_models(images_u8, atten_model_name=variant)
+        line["parity_fp32"] = {
+            "greedy": cross_device_parity(*fp32, images_u8, tag=f"variant parity {variant} fp32"),
+            f"beam{BEAM}": beam_parity(*fp32, images_u8, tag=f"variant beam parity {variant} fp32")}
+        t3 = time.perf_counter()
+        line["train_parity_fp32"] = train_parity(fp32[0], fp32[2], fp32[4], smi,
+                                                 label=f"variant train parity {variant} fp32")
+        del fp32
+        torch.cuda.empty_cache()
+        line["train_step"] = train_throughput(smi, profile_dir, (("encoder_off", False),),
+                                              atten_model_name=variant)["encoder_off"]
+        line["phase_s"] = {"12a_12d": t2 - t0, "12b": t3 - t2, "12c": time.perf_counter() - t3}
+        log(f"[variant phases {variant}] " + ", ".join(f"{k} {v:.1f} s"
+                                                       for k, v in line["phase_s"].items()))
+        out[variant] = line
+    return out, launches
+
+
 def main() -> int:
     import argparse
 
@@ -3642,6 +3919,15 @@ def main() -> int:
     # ranks on this card over gloo (11a-11d), then a world of 1 over nccl
     md_line, md_shard = multi_device(smi)
 
+    # phase 12: the baseline_attention and rnn_attention decoders: 12a bf16
+    # decodes at batch 1,024 and the step's host and device ms, 12b fp32
+    # card vs CPU, 12c training, 12d checkpoint, eval (and the baseline's
+    # export)
+    t11 = time.perf_counter()
+    variant_line, variant_launches = variants(smi, args.profile)
+    variant_line["phase_s"] = time.perf_counter() - t11
+    log(f"[variant phases] 12 {variant_line['phase_s']:.1f} s")
+
     csrc = "adaptive_tpu_torch/ops/cuda/csrc/"
     sources = {
         "adaptive_decode_cell_fused": ("adaptive_tpu/ops/pallas/fused_step.py:221",
@@ -3677,6 +3963,11 @@ def main() -> int:
             "fp32": {k: fp[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
             **(shard if name == "beam_head_topk" else {}),
+            # phase 12a: a decode of each other variant, its counts set to 0
+            # just before and read just after
+            **({"variant_launches": {v: {p: n.get(name, 0) for p, n in paths.items()}
+                                     for v, paths in variant_launches.items()}}
+               if name in ("greedy_head_argmax", "beam_head_topk") else {}),
         })
     int8_sources = {
         "bottleneck_identity_int8": ("adaptive_tpu/ops/pallas/fused_block.py:137",
@@ -3699,6 +3990,7 @@ def main() -> int:
     log(json.dumps({"cli": cli_line}))
     log(json.dumps({"serving": serve_line}))
     log(json.dumps({"multi_device": md_line}))
+    log(json.dumps({"variants": {"card": smi, **variant_line}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

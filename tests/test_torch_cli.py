@@ -1,6 +1,6 @@
 """The PyTorch port's CLI pipeline against the JAX package's, on the CPU:
 ``load_config`` on every config file, its near-miss warning, ``_validate``'s
-refusals and the knobs the port does not honour yet; ``Experiment`` (the
+refusals and the other decoder variants' knobs; ``Experiment`` (the
 experiment dir's name, the stdout tee, the config.json snapshot); the data
 stages (the Karpathy split, the vocabulary, the resize) equal (``==``) to
 JAX's; a pretrained trunk .npz written by JAX's ``save_resnet_npz``; and
@@ -20,7 +20,6 @@ from adaptive_tpu.config import Config as JConfig
 from adaptive_tpu.config import Experiment as JExperiment
 from adaptive_tpu.config import load_config as jload
 from adaptive_tpu.config.experiment import get_model_description as j_description
-from adaptive_tpu_torch import config as TCF
 from adaptive_tpu_torch.config import Config, load_config
 from adaptive_tpu_torch.experiment import Experiment, get_model_description
 from tests.test_karpathy_split import SUBSETS, _cf, _fake_coco_origin
@@ -36,18 +35,9 @@ def _fields(cf):
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
 def test_config_files_load_as_jax(path, capsys):
     """Every field of every configs/*.py equals JAX's load_config's, with
-    the same warnings printed; a config that sets a knob the port does not
-    honour yet (the other decoder variants' sizes) raises
-    NotImplementedError naming its ROADMAP.md queue instead of running as
-    if it were honoured. The v5e-8 config's mesh and ZeRO-1 load."""
+    the same warnings printed. The v5e-8 config's mesh and ZeRO-1 load."""
     want = jload(path)
     want_out = capsys.readouterr().out
-    refused = {k: v for k, v in _fields(want).items()
-               if k in TCF.NOT_PORTED and v != TCF._DEFAULTS[k]}
-    if refused:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, queue 1, item 7"):
-            load_config(path)
-        return
     got = load_config(path)
     assert capsys.readouterr().out == want_out
     assert _fields(got) == _fields(want)
@@ -117,29 +107,53 @@ def test_validate_refusals_equal(bad):
     assert str(direct.value) == str(want.value)
 
 
-NOT_PORTED_VALUES = {
-    "base_word_embed_size": 128, "base_lstm_hidden_size": 256,
-    "rnn_attention_bidirectional": False, "rnn_attention_embed_size": 128,
-    "rnn_attention_numlayers": 2, "rnn_attention_hiddensize": 256,
+VARIANT_VALUES = {
+    "base_word_embed_size": ("baseline_attention", 128),
+    "base_lstm_hidden_size": ("baseline_attention", 256),
+    "rnn_attention_bidirectional": ("rnn_attention", False),
+    "rnn_attention_embed_size": ("rnn_attention", 128),
+    "rnn_attention_numlayers": ("rnn_attention", 2),
+    "rnn_attention_hiddensize": ("rnn_attention", 256),
 }
 # the multi-device knobs (ROADMAP.md, queue 1, item 6), honoured since it landed
 MESH_VALUES = {"mesh_axes": ("batch", "model"), "mesh_shape": (4, 2),
                "opt_state_sharding": "data", "distributed_init": True}
 
 
-@pytest.mark.parametrize("knob", list(NOT_PORTED_VALUES))
-def test_not_ported_knobs_refused(knob):
-    """A knob of a path the port has not taken yet loads at its default and
-    raises NotImplementedError naming its queue at any other value (JAX
-    accepts it); param_dtype, train_tb_gradOrnot and decode_scan_prefix
-    load at any value, as JAX reads the first two nowhere and the third
-    changes no id."""
-    assert set(NOT_PORTED_VALUES) == set(TCF.NOT_PORTED)
-    value = NOT_PORTED_VALUES[knob]
-    jload(None, **{knob: value})
-    with pytest.raises(NotImplementedError, match=rf"{knob}=.*queue 1, item 7"):
-        load_config(None, **{knob: value})
-    assert getattr(load_config(None, **{knob: TCF._DEFAULTS[knob]}), knob) == TCF._DEFAULTS[knob]
+@pytest.mark.parametrize("knob", list(VARIANT_VALUES))
+def test_variant_knobs_honoured(knob):
+    """The other decoder variants' knobs load at another value equal to
+    JAX's Config, and reach the built model's spec as JAX's build_model
+    carries them (the variant's embed and hidden sizes, rnn's direction);
+    rnn_attention_numlayers=2 raises JAX's exact NotImplementedError, from
+    load_config and from build_model. param_dtype, train_tb_gradOrnot and
+    decode_scan_prefix load at any value, as JAX reads the first two
+    nowhere and the third changes no id."""
+    from adaptive_tpu.models.factory import build_model as jax_build
+    from adaptive_tpu_torch.models.factory import build_model
+
+    variant, value = VARIANT_VALUES[knob]
+    kw = {"atten_model_name": variant, knob: value}
+    if knob == "rnn_attention_numlayers":
+        with pytest.raises(NotImplementedError) as want:
+            jload(None, **kw)
+        with pytest.raises(NotImplementedError) as got:
+            load_config(None, **kw)
+        assert str(got.value) == str(want.value)
+        with pytest.raises(NotImplementedError) as jb:
+            jax_build(JConfig(**kw))
+        cf = load_config(None, atten_model_name=variant)
+        cf.rnn_attention_numlayers = value  # an assignment skips _validate
+        with pytest.raises(NotImplementedError) as tb:
+            build_model(cf, device="cpu")
+        assert str(jb.value) == str(tb.value) == str(want.value)
+        assert getattr(load_config(None, **{knob: value}), knob) == value  # not read there
+        return
+    cf = load_config(None, **kw)
+    assert _fields(cf) == _fields(jload(None, **kw))
+    spec = build_model(cf, device="cpu").spec
+    assert tuple(spec) == tuple(jax_build(JConfig(**kw)).spec)
+    assert value in (spec.embed_size, spec.hidden_size, spec.rnn_bidirectional)
     ok = load_config(None, param_dtype="bfloat16", train_tb_gradOrnot=False, decode_scan_prefix=5)
     assert ok.decode_scan_prefix == 5
 

@@ -284,6 +284,14 @@ def test_build_model_defaults_to_cuda(tiny_cf, monkeypatch):
 
 
 @pytest.mark.parametrize("variant", ["baseline_attention", "rnn_attention"])
-def test_other_variants_not_ported(tiny_cf, variant):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(port_cf(tiny_cf, atten_model_name=variant), device="cpu")
+def test_other_variants_build_on_cpu(tiny_cf, variant):
+    """build_model of the other two variants on the CPU: the spec of JAX's
+    build_model (its sizes, rnn's aggregator), a net that initialises and
+    prepares with no cell tiles (the fused cell is the adaptive variant's)."""
+    from adaptive_tpu.models.factory import build_model as jax_build
+
+    jcf = tiny_cf.replace(atten_model_name=variant)
+    model = build_model(port_cf(jcf), device="cpu")
+    assert tuple(model.spec) == tuple(jax_build(jcf).spec)
+    prepared = model.prepare_inference(model.init(0))
+    assert prepared["cell"] is None and prepared["head"] is not None

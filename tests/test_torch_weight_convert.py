@@ -122,10 +122,36 @@ def test_convert_reference_checkpoint_matches_jax(reference_sd, tiny_cf):
         T.convert_reference_checkpoint(partial, "adaptive_attention", "resnet18")
 
 
-@pytest.mark.parametrize("variant", ["baseline_attention", "rnn_attention"])
-def test_other_variants_not_ported(variant):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        T.convert_reference_checkpoint({}, variant, "resnet18")
+@pytest.mark.parametrize("variant,bi", [("baseline_attention", True), ("rnn_attention", True),
+                                        ("rnn_attention", False)],
+                         ids=["baseline", "rnn_bi", "rnn_uni"])
+def test_convert_reference_checkpoint_variants_match_jax(tiny_cf, variant, bi):
+    """A reference state_dict of the other two variants (rnn's aggregator
+    with *_reverse tensors where bidirectional, none where not) converts to
+    JAX's tree leaf for leaf and loads strictly into the port's model of the
+    variant with the reference's values; a missing aggregator weight raises
+    KeyError naming it."""
+    cf = port_cf(tiny_cf, atten_model_name=variant, rnn_attention_bidirectional=bi)
+    _, tv = _torchvision_sd("resnet18", seed=3)
+    net = build_model(cf, device="cpu").init(5)
+    ref = {k: v for k, v in net.state_dict().items() if not k.startswith("encoder.resnet_conv.")}
+    for k, v in T.convert_torchvision_resnet(tv, "resnet18").items():
+        ref["encoder.resnet_conv." + k] = v
+    assert any(k.endswith("_reverse") for k in ref) == (variant == "rnn_attention" and bi)
+    sd = T.convert_reference_checkpoint(ref, variant, "resnet18")
+    jp, js = J.convert_reference_checkpoint(ref, variant, "resnet18")
+    _assert_same_flat(flatten_tree(dict(zip(("params", "state"), to_jax(sd, "resnet18")))),
+                      flatten_tree({"params": jp, "state": js}))
+    net.load_state_dict(sd)  # strict: every key of the port's model, no other
+    for k, v in net.state_dict().items():
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(v, ref[k]), k
+    partial = dict(ref)
+    missing = ("decoder.adaptive.atten.lstm.weight_hh_l0" if variant == "rnn_attention"
+               else "decoder.adaptive.atten.affine_g.weight")
+    del partial[missing]
+    with pytest.raises(KeyError, match=missing.replace(".", r"\.")):
+        T.convert_reference_checkpoint(partial, variant, "resnet18")
 
 
 def test_reference_checkpoint_restores_in_both(tmp_path, tiny_cf):

@@ -9,16 +9,13 @@ import jax
 import numpy as np
 import torch
 
-from adaptive_tpu_torch.config import NOT_PORTED
 from adaptive_tpu_torch.config import Config as PortConfig
 
 
 def port_cf(jcf, **kw) -> PortConfig:
-    """The port's Config with the JAX config's values of its fields, except
-    the knobs of paths the port refuses (config.NOT_PORTED: the other
-    decoder variants' sizes, which the adaptive_attention model never reads,
-    and the mesh knobs), which keep their defaults."""
-    names = {f.name for f in dataclasses.fields(PortConfig)} - set(NOT_PORTED)
+    """The port's Config with the JAX config's values of every field, then
+    the overrides kw."""
+    names = {f.name for f in dataclasses.fields(PortConfig)}
     vals = {n: getattr(jcf, n) for n in names if hasattr(jcf, n)}
     vals.update(kw)
     return PortConfig(**vals)
