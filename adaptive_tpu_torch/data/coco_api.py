@@ -4,26 +4,22 @@ Reference parity: the vendored pycocotools COCO class
 (coco/PythonAPI/pycocotools/coco.py:70-433) as used by this pipeline — index
 building (createIndex, coco.py:90-119), getImgIds/getAnnIds/loadImgs/loadAnns,
 and loadRes for building a results-COCO from a caption results file
-(coco.py:297-356). The port keeps the caption part: the mask, drawing and
-download methods raise NotImplementedError (the detection/segmentation API
-is not queued for the port, ROADMAP.md §1).
+(coco.py:297-356); the mask methods (annToRLE, annToMask, loadRes's
+segmentation branch) run on the native RLE library (native/mask.py).
 
-The PyTorch port's own copy of adaptive_tpu/data/coco_api.py: the same code,
-so the port scores captions without importing the JAX package.
+The PyTorch port's own copy of adaptive_tpu/data/coco_api.py: the same code
+on the port's own mask library, so the port neither imports the JAX package
+nor builds or loads its libraries.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import os
 import time
 from collections import defaultdict
 from typing import Any, Dict, Iterable, List, Optional, Union
-
-_NOT_QUEUED = (
-    "the COCO detection/segmentation API (masks, RLE, drawing, download) is not "
-    "ported: it is not queued for the PyTorch port (ROADMAP.md §1, 'Not queued')"
-)
 
 
 class COCO:
@@ -118,16 +114,134 @@ class COCO:
             print(f"{k}: {v}")
 
     def showAnns(self, anns: List[dict]):
-        raise NotImplementedError(_NOT_QUEUED)
+        """Render annotations onto the current matplotlib axes (coco.py:233-295).
+
+        Captions print; polygons/RLE masks draw translucent patches; keypoint
+        annotations draw the category skeleton. matplotlib is imported lazily
+        so headless pipelines never pay for it.
+        """
+        if not anns:
+            return 0
+        if "caption" in anns[0]:
+            for a in anns:
+                print(a["caption"])
+            return
+        if not ("segmentation" in anns[0] or "keypoints" in anns[0]):
+            raise Exception("datasetType not supported")
+        import numpy as np
+        import matplotlib.pyplot as plt
+        from matplotlib.collections import PatchCollection
+        from matplotlib.patches import Polygon
+
+        ax = plt.gca()
+        ax.set_autoscale_on(False)
+        patches, tints = [], []
+        for a in anns:
+            tint = (np.random.random(3) * 0.6 + 0.4).tolist()
+            seg = a.get("segmentation")
+            if isinstance(seg, list):
+                for poly in seg:
+                    pts = np.asarray(poly, float).reshape(-1, 2)
+                    patches.append(Polygon(pts))
+                    tints.append(tint)
+            elif isinstance(seg, dict):
+                from adaptive_tpu_torch.native import mask as maskUtils
+
+                m = maskUtils.decode(self.annToRLE(a))
+                mask_tint = (
+                    np.array([2.0, 166.0, 101.0]) / 255
+                    if a.get("iscrowd") == 1
+                    else np.random.random(3)
+                )
+                overlay = np.empty(m.shape + (4,))
+                overlay[..., :3] = mask_tint
+                overlay[..., 3] = m * 0.5
+                ax.imshow(overlay)
+            if isinstance(a.get("keypoints"), list):
+                skeleton = np.asarray(
+                    self.loadCats(a["category_id"])[0]["skeleton"]
+                ) - 1
+                kp = np.asarray(a["keypoints"])
+                x, y, v = kp[0::3], kp[1::3], kp[2::3]
+                for bone in skeleton:
+                    if np.all(v[bone] > 0):
+                        plt.plot(x[bone], y[bone], linewidth=3, color=tint)
+                for vis, edge in ((0, "k"), (1, tint)):
+                    sel = v > vis
+                    plt.plot(
+                        x[sel], y[sel], "o", markersize=8,
+                        markerfacecolor=tint, markeredgecolor=edge,
+                        markeredgewidth=2,
+                    )
+        ax.add_collection(
+            PatchCollection(patches, facecolor=tints, linewidths=0, alpha=0.4)
+        )
+        ax.add_collection(
+            PatchCollection(patches, facecolor="none", edgecolors=tints, linewidths=2)
+        )
 
     def download(self, tarDir: Optional[str] = None, imgIds: Iterable[int] = ()):
-        raise NotImplementedError(_NOT_QUEUED)
+        """Fetch image files by their recorded URLs (coco.py:358-380)."""
+        if tarDir is None:
+            print("Please specify target directory")
+            return -1
+        from urllib.request import urlretrieve
 
+        imgs = self.loadImgs(imgIds) if _as_list(imgIds) else list(self.imgs.values())
+        os.makedirs(tarDir, exist_ok=True)
+        for i, img in enumerate(imgs):
+            tic = time.time()
+            fname = os.path.join(tarDir, img["file_name"])
+            if not os.path.exists(fname):
+                urlretrieve(img["coco_url"], fname)
+            print(f"downloaded {i}/{len(imgs)} images (t={time.time() - tic:0.1f}s)")
+
+    def loadNumpyAnnotations(self, data) -> List[dict]:
+        """[N,7] ndarray rows (imageID,x1,y1,w,h,score,class) -> result dicts
+        (coco.py:382-403)."""
+        import numpy as np
+
+        data = np.asarray(data)
+        assert data.ndim == 2 and data.shape[1] == 7, "expected an [N,7] array"
+        return [
+            {
+                "image_id": int(row[0]),
+                "bbox": [row[1], row[2], row[3], row[4]],
+                "score": row[5],
+                "category_id": int(row[6]),
+            }
+            for row in data
+        ]
+
+    # ----------------------------------------------------------------- masks
     def annToRLE(self, ann: dict):
-        raise NotImplementedError(_NOT_QUEUED)
+        """Annotation segmentation (polygon | uncompressed RLE | RLE) -> RLE
+        (pycocotools coco.py annToRLE semantics) via the native mask lib."""
+        from adaptive_tpu_torch.native import mask as maskUtils
+
+        img = self.imgs[ann["image_id"]]
+        h, w = img["height"], img["width"]
+        segm = ann["segmentation"]
+        if isinstance(segm, list):
+            rles = maskUtils.frPyObjects(segm, h, w)
+            return maskUtils.merge(rles if isinstance(rles, list) else [rles])
+        if isinstance(segm.get("counts"), list):
+            # uncompressed RLE: counts list -> compact string via roundtrip
+            import numpy as _np
+
+            arr = _np.zeros(h * w, _np.uint8)
+            pos, v = 0, 0
+            for c in segm["counts"]:
+                arr[pos : pos + c] = v
+                pos += c
+                v = 1 - v
+            return maskUtils.encode(arr.reshape(w, h).T)
+        return segm
 
     def annToMask(self, ann: dict):
-        raise NotImplementedError(_NOT_QUEUED)
+        from adaptive_tpu_torch.native import mask as maskUtils
+
+        return maskUtils.decode(self.annToRLE(ann))
 
     # --------------------------------------------------------------- results
     def loadRes(self, resFile: Union[str, List[dict]]) -> "COCO":
@@ -164,7 +278,15 @@ class COCO:
                 ann["id"] = aid + 1
                 ann["iscrowd"] = 0
         elif anns and "segmentation" in anns[0]:
-            raise NotImplementedError(_NOT_QUEUED)
+            from adaptive_tpu_torch.native import mask as maskUtils
+
+            res.dataset["categories"] = copy.deepcopy(self.dataset.get("categories", []))
+            for aid, ann in enumerate(anns):
+                ann["area"] = float(maskUtils.area(ann["segmentation"]))
+                if "bbox" not in ann:
+                    ann["bbox"] = maskUtils.toBbox(ann["segmentation"]).tolist()
+                ann["id"] = aid + 1
+                ann["iscrowd"] = 0
         elif anns and "keypoints" in anns[0]:
             res.dataset["categories"] = copy.deepcopy(self.dataset.get("categories", []))
             for aid, ann in enumerate(anns):

@@ -9,9 +9,9 @@ vocab.pkl for checkpoint-fidelity runs.
 
 The PyTorch port's own copy of adaptive_tpu/data/vocab.py: the same code, so
 the port scores captions without importing the JAX package. Its pipeline
-stage ``main_build_vocab`` reads the captions through the COCO API only (the
-JAX package's native JSON scanner is not ported; both read the same captions
-in the same order).
+stage ``main_build_vocab`` reads the captions through the native columnar
+scanner first (data/fast_json.py), then the COCO API, as JAX's does
+(adaptive_tpu/data/vocab.py:125-144).
 """
 
 from __future__ import annotations
@@ -129,14 +129,21 @@ def build_vocab(annotations: Iterable[str], threshold: int) -> Vocabulary:
 
 
 def main_build_vocab(cf) -> Vocabulary:
-    """Pipeline stage: build the vocab from the train split and save it
-    (build_vocab.py:58-65). The captions come through the COCO API in the
-    annotations' order, the order the JAX package's native scanner reads
-    them in too (adaptive_tpu/data/vocab.py:125-144)."""
-    from adaptive_tpu_torch.data.coco_api import COCO
+    """Pipeline stage: build vocab from the train split (build_vocab.py:58-65).
 
-    coco = COCO(cf.train_anno_path)
-    vocab = build_vocab((coco.anns[a]["caption"] for a in coco.anns), cf.vocab_threshold)
+    Uses the native columnar scanner (data/fast_json.py) when available —
+    caption strings only, no per-annotation dicts; identical order (the
+    annotations array) so the first-seen Counter order matches the stdlib
+    path exactly. Falls back to the COCO API otherwise."""
+    from adaptive_tpu_torch.data.fast_json import load_captions
+
+    captions = load_captions(cf.train_anno_path)
+    if captions is None:
+        from adaptive_tpu_torch.data.coco_api import COCO
+
+        coco = COCO(cf.train_anno_path)
+        captions = (coco.anns[a]["caption"] for a in coco.anns)
+    vocab = build_vocab(captions, cf.vocab_threshold)
     vocab.save(cf.vocab_path)
     print("Total vocabulary size: %d" % len(vocab))
     print("Saved the vocabulary wrapper to '%s'" % cf.vocab_path)

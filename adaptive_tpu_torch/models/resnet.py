@@ -33,6 +33,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from adaptive_tpu_torch.ops import quant_conv
+
 # torchvision resnet depth -> (block type, stage sizes)
 RESNET_SPECS = {
     "resnet18": ("basic", (2, 2, 2, 2)),
@@ -56,7 +58,14 @@ def _conv(cin, cout, k, stride=1):
     return nn.Conv2d(cin, cout, k, stride, (k - 1) // 2, bias=False)
 
 
-def _conv_apply(conv: nn.Conv2d, x):
+def _conv_apply(conv: nn.Conv2d, x, group=None):
+    """conv's forward in x's dtype. Where autograd records and the
+    conv-backward experiment is on (ops/quant_conv.py, JAX's
+    adaptive_tpu/models/resnet.py:118-126), through quant_conv.conv_nchw
+    with the data group that shares its int8 scales; in mode 'none', and
+    without autograd (calibrate_bn_'s forward hooks), the module call."""
+    if quant_conv.get_conv_bwd_quant() != "none" and torch.is_grad_enabled():
+        return quant_conv.conv_nchw(x, conv.weight, conv.stride[0], group)
     if conv.weight.dtype == x.dtype:
         return conv(x)  # the module call runs its forward hooks (calibrate_bn_)
     return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding)
@@ -145,11 +154,11 @@ class Bottleneck(nn.Module):
 
     def forward(self, x, train: bool = False, update_stats: bool = True, bn_group=None):
         u, g = update_stats, bn_group
-        y = F.relu(_bn(_conv_apply(self.conv1, x), self.bn1, train, u, g))
-        y = F.relu(_bn(_conv_apply(self.conv2, y), self.bn2, train, u, g))
-        y = _bn(_conv_apply(self.conv3, y), self.bn3, train, u, g)
+        y = F.relu(_bn(_conv_apply(self.conv1, x, g), self.bn1, train, u, g))
+        y = F.relu(_bn(_conv_apply(self.conv2, y, g), self.bn2, train, u, g))
+        y = _bn(_conv_apply(self.conv3, y, g), self.bn3, train, u, g)
         sc = x if self.downsample is None else _bn(
-            _conv_apply(self.downsample[0], x), self.downsample[1], train, u, g)
+            _conv_apply(self.downsample[0], x, g), self.downsample[1], train, u, g)
         return F.relu(y + sc)
 
 
@@ -165,10 +174,10 @@ class BasicBlock(nn.Module):
 
     def forward(self, x, train: bool = False, update_stats: bool = True, bn_group=None):
         u, g = update_stats, bn_group
-        y = F.relu(_bn(_conv_apply(self.conv1, x), self.bn1, train, u, g))
-        y = _bn(_conv_apply(self.conv2, y), self.bn2, train, u, g)
+        y = F.relu(_bn(_conv_apply(self.conv1, x, g), self.bn1, train, u, g))
+        y = _bn(_conv_apply(self.conv2, y, g), self.bn2, train, u, g)
         sc = x if self.downsample is None else _bn(
-            _conv_apply(self.downsample[0], x), self.downsample[1], train, u, g)
+            _conv_apply(self.downsample[0], x, g), self.downsample[1], train, u, g)
         return F.relu(y + sc)
 
 
@@ -214,7 +223,7 @@ class ResNet(nn.Sequential):
         y = x.permute(0, 3, 1, 2)
         grad = torch.is_grad_enabled()
         with torch.set_grad_enabled(grad and grad_from <= 0):
-            y = _conv_apply(self[0], y)
+            y = _conv_apply(self[0], y, bn_group)
         with torch.set_grad_enabled(grad and grad_from <= 1):
             y = _bn(y, self[1], train, update_stats, bn_group)
         with torch.set_grad_enabled(grad and grad_from <= 2):  # relu, maxpool: no params

@@ -234,17 +234,27 @@ def gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return torch.cat(parts, dim)
 
 
-def all_reduce_sum_(tensors: Sequence[torch.Tensor], group) -> None:
-    """Sum same-dtype tensors over the group in place, as one flat bucket
-    (one all-reduce); nothing without a group."""
+def _all_reduce_(tensors: Sequence[torch.Tensor], group, op) -> None:
     if group is None or not tensors:
         return
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
     flat = _flatten_dense_tensors(list(tensors))
-    dist.all_reduce(flat, group=group)
+    dist.all_reduce(flat, op=op, group=group)
     for t, r in zip(tensors, _unflatten_dense_tensors(flat, list(tensors))):
         t.copy_(r)
+
+
+def all_reduce_sum_(tensors: Sequence[torch.Tensor], group) -> None:
+    """Sum same-dtype tensors over the group in place, as one flat bucket
+    (one all-reduce); nothing without a group."""
+    _all_reduce_(tensors, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max_(tensors: Sequence[torch.Tensor], group) -> None:
+    """Element-wise MAX over the group in place, as one flat bucket (one
+    all-reduce; ops/quant_conv.py's int8 scales); nothing without a group."""
+    _all_reduce_(tensors, group, dist.ReduceOp.MAX)
 
 
 def init_distributed(cf=None, device="cuda") -> bool:

@@ -160,15 +160,34 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    on a 400-image split served from memory (kernel 2's launches), and the
    baseline's greedy decoder exported at batch 8 (ids equal).
 
+13. runs the conv-backward experiment (ops/quant_conv.py) and the COCO
+   detection API, none of the six kernels (their counts set to 0 before
+   and read after): 13a each stride-1 conv shape of ResNet-152's layers
+   2-4 in bf16, the int8 backward against its CPU twin at 8 images
+   (operands, scales and int32 counts equal, dx and dw within 1 ulp),
+   "manual" against cuDNN's backward at batch 256 within QC_MANUAL_REL,
+   the three backwards timed at batch 256 and the largest |count| as a
+   share of 2^31; 13b phase 8a's step in modes "manual" and "int8" beside
+   8a's "none" (images/s, forward/backward/optimizer ms, peak memory, busy
+   share from a profile of one step; per layer group the gradients' cosine
+   and relative error against "none"'s, printed), and one fp32 "manual"
+   step against "none" at batch 4 under phase 8c's bounds; 13c the native
+   mask and JSON libraries built with g++ on the card's host and loaded,
+   fast_json's columns against the stdlib parse, COCOeval bbox (500
+   images) and segm (the first 100) on a seeded set of COCO val's shape
+   (80 categories, ~7 ground truths an image, up to 100 detections): load,
+   evaluate and accumulate seconds and the stats.
+
 Phases run in the order 1, 2, 2b, 3, 3b, 2c, 5, 4, 4b, 6, 7, 7b, 8a, 8b, 8c,
-9a, 9b, 9c, 10a, 10b, 10c, 11, 12.
+9a, 9b, 9c, 10a, 10b, 10c, 11, 12, 13a, 13b, 13c.
 
 Prints one JSON line of per-kernel numbers (kernel 4's entry with its shard
 numbers), one of the eval driver's numbers ({"eval_driver": ...}), one of
 training's ({"train": ...}), one of the L-BFGS step's ({"lbfgs": ...}), one
 of the CLI's ({"cli": ...}), one of serving's, the export's and the gate's
 ({"serving": ...}), one of phase 11's ({"multi_device": ...}), one of phase
-12's ({"variants": ...}), then as its last line
+12's ({"variants": ...}), one of phase 13a's and 13b's ({"conv_bwd_quant":
+...}) and one of 13c's ({"detection": ...}), then as its last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Exits 2 without a result where
 there is no CUDA card or the package is not beside this script.
@@ -294,6 +313,30 @@ GATE_IMAGES, GATE_EPOCHS, GATE_FINETUNE_EPOCH = 128, 2, 2
 # eval split at one eval batch
 VARIANTS = ("baseline_attention", "rnn_attention")
 STEP_RUNS, VARIANT_EVAL_IMAGES = 3, 400
+# phase 13: the conv-backward experiment (ops/quant_conv.py). 13a: each
+# stride-1 conv shape of ResNet-152's layers 2-4 as (k, Ci, Co, H = W, convs
+# of that shape in a step's trunk: layer2's 8 blocks, layer3's 36, layer4's
+# 3), the int8 backward held against its CPU twin at QC_TWIN_B images,
+# "manual" against cuDNN's backward; both timed at TRAIN_B, QC_ITERS each
+QC_SHAPES = ((1, 256, 128, 56, 1), (1, 128, 512, 28, 8), (1, 512, 128, 28, 7),
+             (3, 128, 128, 28, 7), (1, 512, 256, 28, 1), (1, 256, 1024, 14, 36),
+             (1, 1024, 256, 14, 35), (3, 256, 256, 14, 35), (1, 1024, 512, 14, 1),
+             (1, 512, 2048, 7, 3), (1, 2048, 512, 7, 2), (3, 512, 512, 7, 2))
+QC_TWIN_B, QC_ITERS, QC_STEPS = 8, 5, 4
+MODES_QC = ("none", "manual", "int8")
+# "manual" (fp32 contractions on the fp32 kernel, dx rounded to bf16)
+# against autograd's bf16 backward (cuDNN on the kernel cast to bf16, dx
+# and dw rounded to bf16): two bf16 roundings of the operands and one of
+# the output, each 2^-9 of a value; held to 2^-6 of each tensor's largest
+QC_MANUAL_REL = 2.0 ** -6
+# 13c: COCOeval on a seeded set of COCO val's shape (80 categories, ~7
+# ground truths an image, up to 100 detections), cut from 5,000 images
+DET_IMAGES, DET_CATS, DET_GT, DET_MAX_DETS = 500, 80, 7, 100
+# segm on the set's first DET_SEGM_IMAGES images: the mask library
+# rasterises a polygon on a 5x upsampled image (masklib.cpp::rleFrPoly,
+# ~12 ms at 640x480), and every ground truth's polygon is rasterised in
+# COCOeval's prepare
+DET_SEGM_IMAGES = 100
 
 
 def log(msg):
@@ -1679,11 +1722,11 @@ def step_marks():
 
 
 def train_throughput(smi, profile_dir=None, modes=(("encoder_off", False), ("encoder_on", True)),
-                     **cf_kw):
+                     label=None, warmup=TRAIN_WARMUP, steps=TRAIN_STEPS, **cf_kw):
     """Phase 8a: make_train_step at full width in bf16, batch 256, encoder
     off and on (fine-tuning layers 2-4; modes: (tag, on) pairs; cf_kw: other
-    Config knobs, phase 12c's variants): TRAIN_WARMUP steps, then
-    TRAIN_STEPS timed (host clock around synchronised steps), the peak of
+    Config knobs, phase 12c's variants; label: the printed lines' tag):
+    warmup steps, then steps timed (host clock around synchronised steps), the peak of
     allocated memory over them, one instrumented step split into forward,
     backward and optimizer by CUDA events, and one step under
     torch.utils.flop_counter.FlopCounterMode (the operations of every
@@ -1705,16 +1748,16 @@ def train_throughput(smi, profile_dir=None, modes=(("encoder_off", False), ("enc
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     batch = train_batch(TRAIN_B, SEED + 300, "cuda")
     out = {}
-    label = "train step" if not cf_kw else f"train step {cf.atten_model_name}"
+    label = label or ("train step" if not cf_kw else f"train step {cf.atten_model_name}")
     for tag, on in modes:
-        for _ in range(TRAIN_WARMUP):
+        for _ in range(warmup):
             step(net, batch, gen, on)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        losses = [step(net, batch, gen, on).loss for _ in range(TRAIN_STEPS)]
+        losses = [step(net, batch, gen, on).loss for _ in range(steps)]
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+        ms = (time.perf_counter() - t0) / steps * 1e3
         peak = torch.cuda.max_memory_allocated()
         losses = torch.stack(losses).float().cpu()
         if not torch.isfinite(losses).all():
@@ -1731,7 +1774,7 @@ def train_throughput(smi, profile_dir=None, modes=(("encoder_off", False), ("enc
         flops = fc.get_total_flops()
         share = flops / (ms * 1e-3) / PEAK_FLOPS["bfloat16"]
         log(f"[{label} {tag} bf16] {smi}: batch {TRAIN_B}, captions {TRAIN_T}, mean of "
-            f"{TRAIN_STEPS} steps after {TRAIN_WARMUP}: {ms:.3f} ms a step, "
+            f"{steps} steps after {warmup}: {ms:.3f} ms a step, "
             f"{TRAIN_B / ms * 1e3:.1f} images/s; one instrumented step: forward "
             f"{split['forward']:.3f} ms, backward {split['backward']:.3f} ms, optimizer "
             f"{split['optimizer']:.3f} ms; peak allocated {peak / 2**30:.2f} GiB; "
@@ -3781,6 +3824,482 @@ def variants(smi, profile_dir=None):
     return out, launches
 
 
+# ---------------------------------------------------------------- phase 13
+def ulps(got, want) -> int:
+    """The largest distance in units in the last place between two float
+    tensors of one dtype (bit patterns as integers; 0 where equal)."""
+    import torch
+
+    idt = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[want.dtype]
+    a, b = got.contiguous().view(idt).long(), want.contiguous().view(idt).long()
+    # map the sign-magnitude patterns onto one ordered line
+    a = torch.where(a < 0, -(a & (2 ** (8 * want.element_size() - 1) - 1)), a)
+    b = torch.where(b < 0, -(b & (2 ** (8 * want.element_size() - 1) - 1)), b)
+    return int((a - b).abs().max())
+
+
+def qc_parts(x, w, g):
+    """The int8 backward's pieces on x's device: the quantised operands and
+    scales, the counts, dx and dw (ops/quant_conv.py::_int8_bwd's steps)."""
+    from adaptive_tpu_torch.ops import quant_conv as qc
+
+    gq, sg = qc._q8(g)
+    wq, sw = qc._q8(w)
+    xq, sx = qc._q8(x)
+    dxc, dwc = qc.dx_counts(gq, wq), qc.dw_counts(xq, gq, w.shape[2])
+    dx, dw = qc._int8_bwd(x, w, g, None, True)
+    return {"gq": gq, "wq": wq, "xq": xq, "sg": sg, "sw": sw, "sx": sx, "dx_counts": dxc,
+            "dw_counts": dwc, "dx": dx.to(x.dtype), "dw": dw.to(w.dtype)}
+
+
+def qc_backward(mode, x, w, g):
+    """autograd.grad of the conv at x, w in mode, cotangent g: returns a
+    closure that runs the backward again (the graph retained)."""
+    import torch
+
+    from adaptive_tpu_torch.ops import quant_conv as qc
+
+    qc.set_conv_bwd_quant(mode)
+    try:
+        xr, wr = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+        y = qc.conv_nchw(xr, wr, 1)
+    finally:
+        qc.set_conv_bwd_quant("none")
+    return lambda: torch.autograd.grad(y, (xr, wr), g, retain_graph=True)
+
+
+def qc_shape_checks(smi):
+    """Phase 13a: each stride-1 conv shape of ResNet-152's layers 2-4 in
+    bf16 (fp32 kernel, as the bf16 train step's trunk; x post-ReLU, g
+    Gaussian). The int8 backward on the card against its CPU twin at
+    QC_TWIN_B images: operands, scales and counts equal, dx and dw within
+    1 ulp. At TRAIN_B: "manual" against autograd's cuDNN backward within
+    QC_MANUAL_REL of each tensor's largest value, the three backwards timed
+    (CUDA events, mean of QC_ITERS), and the largest |count| of dx and dw as
+    a share of 2^31."""
+    import torch
+
+    from adaptive_tpu_torch.ops import quant_conv as qc
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1300)
+    cl = torch.channels_last
+
+    def inputs(b, k, ci, co, h):
+        x = torch.relu(torch.randn(b, ci, h, h, device="cuda", generator=gen))
+        g = torch.randn(b, co, h, h, device="cuda", generator=gen)
+        return x.bfloat16().contiguous(memory_format=cl), g.bfloat16().contiguous(memory_format=cl)
+
+    rows, totals = [], {"int8": 0.0, "manual": 0.0, "none": 0.0}
+    for k, ci, co, h, n in QC_SHAPES:
+        w = torch.randn(co, ci, k, k, device="cuda", generator=gen) * (2.0 / (k * k * co)) ** 0.5
+        w = w.contiguous(memory_format=cl)
+        x, g = inputs(QC_TWIN_B, k, ci, co, h)
+        card = qc_parts(x, w, g)
+        cpu = qc_parts(x.cpu(), w.cpu(), g.cpu())
+        for key in ("gq", "wq", "xq", "dx_counts", "dw_counts"):
+            if not torch.equal(card[key].cpu(), cpu[key]):
+                raise AssertionError(f"13a {(k, ci, co, h)}: {key} differs from the CPU twin's")
+        for key in ("sg", "sw", "sx"):
+            if card[key].item() != cpu[key].item():
+                raise AssertionError(f"13a {(k, ci, co, h)}: scale {key} {card[key].item()} vs "
+                                     f"{cpu[key].item()}")
+        twin_ulps = {key: ulps(card[key].cpu(), cpu[key]) for key in ("dx", "dw")}
+        if max(twin_ulps.values()) > 1:
+            raise AssertionError(f"13a {(k, ci, co, h)}: dx, dw {twin_ulps} ulps from the twin")
+        del card, cpu
+        x, g = inputs(TRAIN_B, k, ci, co, h)
+        runs = {m: qc_backward(m, x, w, g) for m in ("none", "manual", "int8")}
+        ref, man = runs["none"](), runs["manual"]()
+        rel = [float((a.float() - b.float()).abs().max() / b.float().abs().max())
+               for a, b in zip(man, ref)]
+        if max(rel) > QC_MANUAL_REL:
+            raise AssertionError(f"13a {(k, ci, co, h)}: manual vs cuDNN dx, dw {rel}")
+        del ref, man
+        ms = {m: cuda_ms(fn, QC_ITERS, 1) for m, fn in runs.items()}
+        xq, _ = qc._q8(x)
+        gq, _ = qc._q8(g)
+        wq, _ = qc._q8(w)
+        peak = max(int(qc.dw_counts(xq, gq, k).abs().max()),
+                   int(qc.dx_counts(gq, wq).abs().max()))
+        del runs, xq, gq, wq, x, g
+        torch.cuda.empty_cache()
+        row = {"k": k, "ci": ci, "co": co, "h": h, "convs": n, "twin_ulps": twin_ulps,
+               "manual_rel": rel, **{f"{m}_ms": v for m, v in ms.items()},
+               "count_share": peak / 2 ** 31}
+        for m in totals:
+            totals[m] += n * ms[m]
+        log(f"[qc shape k{k} {ci}->{co} @{h} bf16] {smi}: batch {TRAIN_B}, {n} convs a step; "
+            f"backward int8 {ms['int8']:.3f} ms, manual {ms['manual']:.3f} ms, cuDNN "
+            f"{ms['none']:.3f} ms; int8 vs twin (batch {QC_TWIN_B}): operands, scales, counts "
+            f"equal, dx/dw {twin_ulps['dx']}/{twin_ulps['dw']} ulp; manual vs cuDNN dx/dw "
+            f"{rel[0]:.2e}/{rel[1]:.2e} of max; largest |count| {peak / 2 ** 31:.5f} of 2^31")
+        rows.append(row)
+    share = max(r["count_share"] for r in rows)
+    log(f"[qc shapes bf16] {smi}: {sum(s[-1] for s in QC_SHAPES)} stride-1 convs a step; their "
+        f"backwards summed over a step: int8 {totals['int8']:.1f} ms, manual "
+        f"{totals['manual']:.1f} ms, cuDNN {totals['none']:.1f} ms; largest |count| "
+        f"{share:.5f} of 2^31")
+    return {"shapes": rows, "step_sum_ms": totals, "max_count_share": share}
+
+
+def qc_layout(smi):
+    """Phase 13a: dw's int8 product on one chunk of DW_CHUNK rows at layer2's
+    first 3x3 shape (Co 128, 9 x 128 columns) on the transposed rows as a
+    strided view and copied contiguous (ops/quant_conv.py::dw_counts takes
+    the copy); both results equal the CPU's product."""
+    import torch
+
+    from adaptive_tpu_torch.ops.int8 import int_mm
+    from adaptive_tpu_torch.ops.quant_conv import DW_CHUNK
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1350)
+    rows = torch.randint(-127, 128, (DW_CHUNK, 128), dtype=torch.int8, device="cuda",
+                         generator=gen)
+    cols = torch.randint(-127, 128, (DW_CHUNK, 1152), dtype=torch.int8, device="cuda",
+                         generator=gen)
+    # fp64 sums of these products are exact: |sum| < 2^31 < 2^53
+    want = rows.t().cpu().double() @ cols.cpu().double()
+    out = {}
+    for tag, fn in (("strided", lambda: int_mm(rows.t(), cols)),
+                    ("contiguous", lambda: int_mm(rows.t().contiguous(), cols))):
+        if not torch.equal(fn().cpu().double(), want):
+            raise AssertionError(f"13a layout {tag}: the int8 product differs from the CPU's")
+        out[f"{tag}_ms"] = cuda_ms(fn, QC_ITERS, 1)
+    log(f"[qc layout int8] {smi}: dw's product over {DW_CHUNK} rows, [128 x K] x [K x 1152]: "
+        f"on the strided transposed view {out['strided_ms']:.3f} ms, copied contiguous "
+        f"(the copy included) {out['contiguous_ms']:.3f} ms")
+    return out
+
+
+def grad_groups(net):
+    """{layer2|layer3|layer4: [(name, grad)]} of the trunk's fine-tuned part."""
+    out = {}
+    for name, p in net.encoder.resnet_conv.named_parameters():
+        li = int(name.split(".")[0])
+        if li >= 5 and p.grad is not None:
+            out.setdefault(f"layer{li - 3}", []).append((name, p.grad.detach().float().clone()))
+    return out
+
+
+def qc_train(smi, none_step=None):
+    """Phase 13b: phase 8a's step (bf16, batch TRAIN_B, encoder on) in modes
+    "manual" and "int8" through train_throughput (1 warm-up step, QC_STEPS
+    timed), beside "none" (8a's from the same run, or run here); each mode's
+    device busy ms a step from a profile of STEP_RUNS steps, over the timed
+    step's ms, and per layer group the int8 and manual gradients' cosine and
+    relative error against "none"'s on the same weights, batch and draws
+    (printed, not bounded)."""
+    import torch
+
+    from adaptive_tpu_torch import Config
+    from adaptive_tpu_torch.models import build_model
+    from adaptive_tpu_torch.ops import quant_conv as qc
+    from adaptive_tpu_torch.training.optim import make_dual_optimizer
+    from adaptive_tpu_torch.training.step import make_train_step
+
+    steps = {"none": dict(none_step)} if none_step is not None else {}
+    for mode in MODES_QC[1:] if none_step is not None else MODES_QC:
+        qc.set_conv_bwd_quant(mode)
+        try:
+            steps[mode] = train_throughput(smi, modes=(("encoder_on", True),), warmup=1,
+                                           steps=QC_STEPS,
+                                           label=f"train step conv_bwd_quant={mode}")["encoder_on"]
+        finally:
+            qc.set_conv_bwd_quant("none")
+    cf = Config(compute_dtype="bfloat16", vocab_pad_multiple=128, train_batch_size=TRAIN_B)
+    model = build_model(cf)
+    net = model.init(SEED)
+    start = {k: v.clone() for k, v in net.state_dict().items()}
+    batch = train_batch(TRAIN_B, SEED + 300, "cuda")
+    grads, busy = {}, {}
+    for mode in MODES_QC:
+        qc.set_conv_bwd_quant(mode)
+        try:
+            net.load_state_dict(start)
+            step = make_train_step(model, make_dual_optimizer(net, cf), cf)
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            loss = float(step(net, batch, gen, True).loss)
+            if not torch.isfinite(torch.tensor(loss)):
+                raise AssertionError(f"13b {mode}: loss {loss}")
+            grads[mode] = grad_groups(net)
+            _, b_us, _ = profile_decode(lambda: [step(net, batch, gen, True)
+                                                 for _ in range(STEP_RUNS)], None, smi,
+                                        f"train_encoder_on_qc_{mode}")
+            busy[mode] = b_us / 1e3 / STEP_RUNS  # device busy ms a step
+        finally:
+            qc.set_conv_bwd_quant("none")
+    quality = {}
+    for mode in ("manual", "int8"):
+        quality[mode] = {}
+        for group, pairs in grads["none"].items():
+            ref = torch.cat([g.flatten() for _, g in pairs])
+            got = torch.cat([g.flatten() for _, g in grads[mode][group]])
+            quality[mode][group] = {
+                "cos": float(got @ ref / (got.norm() * ref.norm())),
+                "rel": float((got - ref).norm() / ref.norm())}
+    del net, model, grads
+    torch.cuda.empty_cache()
+    for mode in MODES_QC:
+        s = steps[mode]
+        s["busy_ms"] = busy[mode]
+        s["busy_share"] = busy[mode] / s["ms"]  # of the timed, unprofiled step
+        q = "; ".join(f"{gname} cos {v['cos']:.5f} rel {v['rel']:.4f}"
+                      for gname, v in quality.get(mode, {}).items())
+        log(f"[qc train {mode} bf16] {smi}: batch {TRAIN_B}, encoder on: {s['ms']:.3f} ms a step, "
+            f"{s['images_per_s']:.1f} images/s ({s['images_per_s'] / steps['none']['images_per_s']:.3f}"
+            f" of none), forward/backward/optimizer {s['forward_ms']:.3f}/{s['backward_ms']:.3f}/"
+            f"{s['optimizer_ms']:.3f} ms, peak allocated {s['peak_bytes'] / 2 ** 30:.2f} GiB, device "
+            f"busy {busy[mode]:.3f} ms a step ({s['busy_share']:.4f} of the step)"
+            + (f"; gradients against none: {q}" if q else ""))
+    return {"steps": steps, "grad_quality": quality}
+
+
+def qc_manual_parity(cf, net_g, smi):
+    """Phase 13b's check: one fp32 step (TF32 off) at batch TRAIN_PARITY_B,
+    encoder on, in mode "manual" against mode "none" on the card from the
+    same weights (phase 4's), batch and draws, by phase 8c's bounds: loss,
+    LSTM norm, BN statistics, the decoder group's gradients, and the encoder
+    group's within TRAIN_ENC_GRAD_REL of their norm."""
+    import torch
+
+    from adaptive_tpu_torch.models import build_model
+    from adaptive_tpu_torch.ops import quant_conv as qc
+    from adaptive_tpu_torch.training.optim import make_dual_optimizer
+    from adaptive_tpu_torch.training.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    start = {k: v.clone() for k, v in net_g.state_dict().items()}
+    batch = train_batch(TRAIN_PARITY_B, SEED + 700, "cuda")
+    model = build_model(cf, device="cuda")
+    runs = {}
+    for mode in ("none", "manual"):
+        qc.set_conv_bwd_quant(mode)
+        try:
+            net_g.load_state_dict(start)
+            dual = make_dual_optimizer(net_g, cf)
+            res = make_train_step(model, dual, cf)(
+                net_g, batch, torch.Generator(device="cuda").manual_seed(SEED), True)
+        finally:
+            qc.set_conv_bwd_quant("none")
+        runs[mode] = (float(res.loss), float(res.lstm_grad_norm),
+                      {n: p.grad.detach().clone() for n, p in net_g.named_parameters()
+                       if p.grad is not None},
+                      {k: v.detach().clone() for k, v in net_g.state_dict().items()}, dual)
+    net_g.load_state_dict(start)
+    (lr, nr, gr, sr, dual), (lm, nm, gm, sm, _) = runs["none"], runs["manual"]
+    d_loss, d_norm = abs(lm - lr) / abs(lr), abs(nm - nr) / abs(nr)
+    bn = [k for k in sr if k.endswith(("running_mean", "running_var"))]
+    d_bn = max(float(((sm[k] - sr[k]).abs() / sr[k].abs().clamp(min=1)).max()) for k in bn)
+    dec, enc = dual.names("decoder"), dual.names("encoder")
+    d_grad = max(float((gm[k] - gr[k]).abs().max())
+                 / (TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL * float(gr[k].abs().max())) for k in dec)
+    num = sum(float((gm[k] - gr[k]).double().pow(2).sum()) for k in enc)
+    den = sum(float(gr[k].double().pow(2).sum()) for k in enc)
+    d_enc = (num / den) ** 0.5
+    line = {"loss_rel": d_loss, "norm_rel": d_norm, "bn_rel": d_bn, "dec_grad_of_bound": d_grad,
+            "enc_grad_rel": d_enc}
+    if (d_loss > TRAIN_RTOL or d_norm > TRAIN_RTOL or d_bn > TRAIN_BN_TOL or d_grad > 1
+            or d_enc > TRAIN_ENC_GRAD_REL):
+        raise AssertionError(f"13b manual vs none fp32: {line}")
+    log(f"[qc manual parity fp32, TF32 off] {smi}: batch {TRAIN_PARITY_B}, encoder on, manual vs "
+        f"none: loss rel {d_loss:.2e}, LSTM norm rel {d_norm:.2e}, BN statistics {d_bn:.2e}, "
+        f"decoder gradients {d_grad:.2e} of their bound, encoder gradients {d_enc:.2e} of their "
+        f"norm (bound {TRAIN_ENC_GRAD_REL})")
+    return line
+
+
+def det_polygon(rng, x, y, w, h):
+    """An octagon inside the box, its corners jittered: a COCO-like
+    polygon segmentation, and its area (the shoelace formula)."""
+    import numpy as np
+
+    t = np.arange(8) * np.pi / 4 + rng.uniform(0, np.pi / 4)
+    r = rng.uniform(0.7, 1.0, 8)
+    px = x + w / 2 + np.cos(t) * r * w / 2
+    py = y + h / 2 + np.sin(t) * r * h / 2
+    area = 0.5 * abs(float(np.dot(px, np.roll(py, -1)) - np.dot(py, np.roll(px, -1))))
+    return [float(v) for xy in zip(px, py) for v in xy], area
+
+
+def det_dataset(root, seed):
+    """Phase 13c's seeded set of COCO val's shape: DET_IMAGES images of
+    640x480 or 480x640, DET_CATS categories, Poisson(DET_GT) ground truths
+    an image (octagon polygons; 1% crowds, a box's compressed RLE), and up
+    to DET_MAX_DETS detections an image (jittered copies of the ground
+    truths, a fifth in another category, and background boxes; scores
+    uniform); the first DET_SEGM_IMAGES images' detections also as box RLEs
+    for segm. Returns (gt path, bbox results, segm results)."""
+    import numpy as np
+
+    from adaptive_tpu_torch.native import mask
+
+    rng = np.random.default_rng(seed)
+    images, anns, dts_bbox, dts_segm = [], [], [], []
+    cats = [{"id": c + 1, "name": f"cat{c + 1}", "supercategory": "x"} for c in range(DET_CATS)]
+
+    def box_rle(box, ht, wd):
+        rle = mask.frPyObjects([box], ht, wd)[0]
+        return {"size": rle["size"], "counts": rle["counts"].decode()}
+
+    for i in range(DET_IMAGES):
+        wd, ht = (640, 480) if rng.random() < 0.7 else (480, 640)
+        images.append({"id": i + 1, "width": wd, "height": ht, "file_name": f"{i + 1:012d}.jpg"})
+        mine = []
+        for _ in range(max(1, rng.poisson(DET_GT))):
+            w, h = rng.uniform(8, wd / 2), rng.uniform(8, ht / 2)
+            x, y = rng.uniform(0, wd - w), rng.uniform(0, ht - h)
+            crowd = rng.random() < 0.01
+            poly, area = det_polygon(rng, x, y, w, h)
+            seg = box_rle([x, y, w, h], ht, wd) if crowd else [poly]
+            mine.append({"id": len(anns) + len(mine) + 1, "image_id": i + 1,
+                         "iscrowd": int(crowd), "category_id": int(rng.integers(1, DET_CATS + 1)),
+                         "bbox": [x, y, w, h], "area": w * h if crowd else area,
+                         "segmentation": seg})
+        anns += mine
+        for d in range(int(rng.integers(len(mine), DET_MAX_DETS + 1))):
+            if d < 2 * len(mine):
+                a = mine[d % len(mine)]
+                x, y, w, h = a["bbox"]
+                x, y = x + rng.normal(0, 0.08 * w), y + rng.normal(0, 0.08 * h)
+                w, h = w * rng.uniform(0.85, 1.15), h * rng.uniform(0.85, 1.15)
+                cat = a["category_id"] if rng.random() < 0.8 else int(rng.integers(1, DET_CATS + 1))
+            else:
+                w, h = rng.uniform(8, wd / 3), rng.uniform(8, ht / 3)
+                x, y = rng.uniform(0, wd - w), rng.uniform(0, ht - h)
+                cat = int(rng.integers(1, DET_CATS + 1))
+            x, y = max(0.0, x), max(0.0, y)
+            box = [x, y, min(w, wd - x), min(h, ht - y)]
+            det = {"image_id": i + 1, "category_id": cat, "score": float(rng.random())}
+            dts_bbox.append({**det, "bbox": box})
+            if i < DET_SEGM_IMAGES:
+                dts_segm.append({**det, "segmentation": box_rle(box, ht, wd)})
+    path = os.path.join(root, "instances_synthetic.json")
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": cats}, f)
+    return path, dts_bbox, dts_segm
+
+
+def detection(smi):
+    """Phase 13c: the detection stack on the card's host. Both native
+    libraries built there with g++ (forced, into adaptive_tpu_torch/native/
+    build/) and loaded; fast_json's columns of the synthetic ground truth
+    against the stdlib json parse of the file; COCOeval bbox and segm over
+    det_dataset: evaluate and accumulate seconds, the 12 stats (finite, in
+    [0, 1] or -1), and the same on a one-image set whose detections are its
+    ground truths (AP 1)."""
+    import tempfile
+
+    import numpy as np
+
+    from adaptive_tpu_torch.data import fast_json
+    from adaptive_tpu_torch.data.coco_api import COCO
+    from adaptive_tpu_torch.evalcap.detection import COCOeval
+    from adaptive_tpu_torch.native import build, mask
+
+    t0 = time.perf_counter()
+    libs = [build._build(build.SRC, True), build._build(build.JSON_SRC, True)]
+    build_s = time.perf_counter() - t0
+    if fast_json._load_lib() is None or mask._lib() is None:
+        raise AssertionError(f"13c: a native library did not load ({fast_json._lib_err})")
+    out = {"card": smi, "build_s": build_s, "libraries": [os.path.relpath(p, HERE) for p in libs]}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        gt_path, dts_bbox, dts_segm = det_dataset(root, SEED + 1400)
+        out["make_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cols = fast_json.load_columns(gt_path)
+        out["fast_json_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with open(gt_path) as f:
+            ref = json.load(f)
+        out["stdlib_json_s"] = time.perf_counter() - t0
+        out["json_bytes"] = os.path.getsize(gt_path)
+        want = {"img_ids": [i["id"] for i in ref["images"]],
+                "img_heights": [i["height"] for i in ref["images"]],
+                "img_widths": [i["width"] for i in ref["images"]],
+                "file_names": [i["file_name"] for i in ref["images"]],
+                "ann_ids": [a["id"] for a in ref["annotations"]],
+                "ann_img_ids": [a["image_id"] for a in ref["annotations"]],
+                "captions": [""] * len(ref["annotations"]),
+                "cat_ids": [c["id"] for c in ref["categories"]],
+                "cat_names": [c["name"] for c in ref["categories"]]}
+        for key, v in want.items():
+            got = getattr(cols, key)
+            if list(got.tolist() if isinstance(got, np.ndarray) else got) != v:
+                raise AssertionError(f"13c: fast_json's {key} differs from json's")
+        gt = COCO(gt_path)
+        out["images"], out["ground_truths"] = len(gt.imgs), len(gt.anns)
+        out["crowds"] = sum(a["iscrowd"] for a in gt.anns.values())
+        for iou_type, dts in (("bbox", dts_bbox), ("segm", dts_segm)):
+            t0 = time.perf_counter()
+            ev = COCOeval(gt, gt.loadRes(dts), iou_type)
+            ev.params.imgIds = sorted({d["image_id"] for d in dts})
+            t1 = time.perf_counter()
+            ev.evaluate()
+            t2 = time.perf_counter()
+            ev.accumulate()
+            t3 = time.perf_counter()
+            stats = ev.summarize()
+            ok = np.isfinite(stats).all() and all(s == -1 or 0 <= s <= 1 for s in stats)
+            if not ok or stats[0] <= 0:
+                raise AssertionError(f"13c {iou_type}: stats {stats.tolist()}")
+            out[iou_type] = {"images": len(ev.params.imgIds), "detections": len(dts),
+                             "load_res_s": t1 - t0,
+                             "evaluate_s": t2 - t1, "accumulate_s": t3 - t2,
+                             "stats": stats.tolist()}
+        one = COCO()
+        img = gt.imgs[1]
+        mine = [a for a in gt.anns.values() if a["image_id"] == 1 and not a["iscrowd"]]
+        one.dataset = {"images": [img], "annotations": mine, "categories": ref["categories"]}
+        one.createIndex()
+        for iou_type in ("bbox", "segm"):
+            res = [{"image_id": 1, "category_id": a["category_id"], "score": 1.0,
+                    **({"bbox": a["bbox"]} if iou_type == "bbox" else
+                       {"segmentation": one.annToRLE(a)})} for a in mine]
+            ev = COCOeval(one, one.loadRes(res), iou_type)
+            ev.evaluate()
+            ev.accumulate()
+            stats = ev.summarize()
+            if abs(stats[0] - 1.0) > 1e-12:  # the mean of 1.0s over the IoU thresholds
+                raise AssertionError(f"13c {iou_type}: detections equal to the ground truths "
+                                     f"give AP {stats[0]}")
+    for iou_type in ("bbox", "segm"):
+        v = out[iou_type]
+        log(f"[detection {iou_type}] {smi} (host): {v['images']} of {out['images']} images, "
+            f"{DET_CATS} categories, {out['ground_truths']} ground truths in all ({out['crowds']} "
+            f"crowds), {v['detections']} "
+            f"detections: loadRes {v['load_res_s']:.2f} s, evaluate {v['evaluate_s']:.2f} s, "
+            f"accumulate {v['accumulate_s']:.2f} s; stats "
+            f"{[round(s, 4) for s in v['stats']]}")
+    log(f"[detection native] {smi} (host): g++ built both libraries in {build_s:.2f} s "
+        f"({', '.join(out['libraries'])}); fast_json columns == json on a "
+        f"{out['json_bytes']} byte file: "
+        f"{out['fast_json_s']:.3f} s against {out['stdlib_json_s']:.3f} s; one image with its "
+        f"ground truths as detections: AP 1 (bbox, segm)")
+    return out
+
+
+def conv_bwd_quant(smi, none_step=None, fp32=None):
+    """Phase 13a and 13b: the conv-backward experiment. fp32: phase 4's
+    (cf, net on the card) for 13b's fp32 check, else built here."""
+    import torch
+
+    t0 = time.perf_counter()
+    line = {"card": smi, "shapes": qc_shape_checks(smi), "dw_layout": qc_layout(smi)}
+    t1 = time.perf_counter()
+    line["train"] = qc_train(smi, none_step)
+    if fp32 is None:
+        from adaptive_tpu_torch import Config
+
+        torch.backends.cudnn.allow_tf32 = False
+        cf = Config(compute_dtype="float32")
+        fp32 = (cf, random_model(cf, "cuda", seeded_images(32, SEED))[1])
+    line["manual_parity_fp32"] = qc_manual_parity(*fp32, smi)
+    line["phase_s"] = {"13a": t1 - t0, "13b": time.perf_counter() - t1}
+    return line
+
+
 def main() -> int:
     import argparse
 
@@ -3928,6 +4447,22 @@ def main() -> int:
     variant_line["phase_s"] = time.perf_counter() - t11
     log(f"[variant phases] 12 {variant_line['phase_s']:.1f} s")
 
+    # phase 13: the conv-backward experiment, 13a its conv shapes, 13b the
+    # step in modes manual and int8 beside 8a's none; 13c the detection
+    # stack on the host. None of the six kernels runs here: their counts are
+    # set to 0 just before and read just after
+    reset_launch_counts()
+    t12 = time.perf_counter()
+    qc_line = conv_bwd_quant(smi, train_line["step"]["encoder_on"], (fp32[0], fp32[2]))
+    t13 = time.perf_counter()
+    det_line = detection(smi)
+    det_line["phase_s"] = {"13c": time.perf_counter() - t13}
+    phase13_launches = launch_counts()
+    if any(phase13_launches.values()):
+        raise AssertionError(f"phase 13 launched a kernel: {phase13_launches}")
+    log(f"[qc phases] " + ", ".join(f"{k} {v:.1f} s" for k, v in qc_line["phase_s"].items())
+        + f", 13c {det_line['phase_s']['13c']:.1f} s; phase 13 {time.perf_counter() - t12:.1f} s")
+
     csrc = "adaptive_tpu_torch/ops/cuda/csrc/"
     sources = {
         "adaptive_decode_cell_fused": ("adaptive_tpu/ops/pallas/fused_step.py:221",
@@ -3953,6 +4488,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "launches_phase13": phase13_launches[name],
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
             "library_ms": bf["library_ms"], "dtype": "bfloat16",
@@ -3978,7 +4514,8 @@ def main() -> int:
         # per decode: the launch-weighted sums over the four layers' shapes
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], **int8_summary(int8_checks[name]), "library_ms": None,
+            "launches": launches[name], "launches_phase13": phase13_launches[name],
+            **int8_summary(int8_checks[name]), "library_ms": None,
             "dtype": "int8", "per_layer": int8_checks[name]})
     log(json.dumps({"kernels": kernels, "end_to_end_bf16": e2e,
                     f"end_to_end_beam{BEAM}_bf16": e2e_beam,
@@ -3991,6 +4528,8 @@ def main() -> int:
     log(json.dumps({"serving": serve_line}))
     log(json.dumps({"multi_device": md_line}))
     log(json.dumps({"variants": {"card": smi, **variant_line}}))
+    log(json.dumps({"conv_bwd_quant": qc_line}))
+    log(json.dumps({"detection": det_line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -221,8 +221,10 @@ def test_synthetic_split_and_loader_match_jax(tmp_path):
 
 
 def test_coco_api_matches_jax(tmp_path):
-    """The caption API's indexes and getters, and loadRes's caption, bbox and
-    keypoints branches; the mask methods raise NotImplementedError."""
+    """The caption API's indexes and getters, and loadRes's caption, bbox,
+    keypoints and segmentation branches, and the mask methods, equal to
+    JAX's (tests/test_torch_detection.py holds the rest of the detection
+    API)."""
     ann, _ = jsyn.make_synthetic_dataset(str(tmp_path), num_images=6, captions_per_image=3,
                                          seed=2, write_images=False)
     j, t = jcoco.COCO(ann), tcoco.COCO(ann)
@@ -242,7 +244,8 @@ def test_coco_api_matches_jax(tmp_path):
 
     dets = {"images": [{"id": 1, "height": 20, "width": 20}],
             "annotations": [{"id": 1, "image_id": 1, "category_id": 1, "bbox": [1, 2, 3, 4],
-                             "area": 12, "iscrowd": 0}],
+                             "area": 12, "iscrowd": 0,
+                             "segmentation": [[1, 2, 1, 6, 4, 6, 4, 2]]}],
             "categories": [{"id": 1, "name": "x", "supercategory": "y"}]}
     j, t = jcoco.COCO(), tcoco.COCO()
     for c in (j, t):
@@ -256,11 +259,13 @@ def test_coco_api_matches_jax(tmp_path):
     for res in (boxes, kps):
         a, b = t.loadRes(res), j.loadRes(res)
         assert (a.dataset, a.anns) == (b.dataset, b.anns)
-    with pytest.raises(NotImplementedError, match="not queued"):
-        t.loadRes([{"image_id": 1, "category_id": 1, "segmentation": {"size": [20, 20]}}])
-    for method in (t.annToMask, t.annToRLE, t.showAnns):
-        with pytest.raises(NotImplementedError, match="not queued"):
-            method(t.anns[1])
+    rle = t.annToRLE(t.anns[1])
+    assert rle == j.annToRLE(j.anns[1])
+    np.testing.assert_array_equal(t.annToMask(t.anns[1]), j.annToMask(j.anns[1]))
+    segs = [{"image_id": 1, "category_id": 1, "segmentation": rle, "score": 0.5}]
+    a, b = t.loadRes(segs), j.loadRes(segs)
+    assert (a.dataset, a.anns) == (b.dataset, b.anns) and a.anns[1]["area"] > 0
+    assert t.showAnns([]) == j.showAnns([]) == 0
     assert tcoco._as_list(5) == jcoco._as_list(5) == [5]
     assert tcoco._as_list(np.arange(2)) == jcoco._as_list(np.arange(2))
 

@@ -177,8 +177,10 @@ def test_port_imports_no_jax():
     and writes its checkpoint, runs the CLI's main on a config file with
     no stage on, serves a caption, exports and runs a decoder, converts a
     checkpoint, lays out a mesh, starts and ends a one-rank process group
-    (parallel), and imports the port's tools and examples, without loading
-    jax or any module of the JAX package."""
+    (parallel), runs a segm COCOeval (the detection API on the port's mask
+    library) and an "int8" conv backward (ops/quant_conv.py), and imports
+    the port's tools and examples, without loading jax or any module of
+    the JAX package."""
     code = textwrap.dedent("""
         import sys
         import tempfile
@@ -259,6 +261,30 @@ def test_port_imports_no_jax():
         assert parallel.init_distributed(load_config(cf, distributed_init=True), "cpu")
         assert parallel.get_world_size() == 1 and spmd.decode_mesh(model, cf) is None
         torch.distributed.destroy_process_group()
+        import torch.nn.functional as F
+        from adaptive_tpu_torch.data import coco_api, coco_legacy, fast_json
+        from adaptive_tpu_torch.evalcap.detection import COCOeval
+        from adaptive_tpu_torch.native import build as native_build, mask
+        from adaptive_tpu_torch.ops import quant_conv
+        gt = coco_api.COCO()
+        gt.dataset = {"images": [{"id": 1, "height": 20, "width": 20}],
+                      "categories": [{"id": 1, "name": "a"}],
+                      "annotations": [{"id": 1, "image_id": 1, "category_id": 1, "iscrowd": 0,
+                                       "bbox": [2, 2, 8, 8], "area": 64.0,
+                                       "segmentation": [[2, 2, 2, 10, 10, 10, 10, 2]]}]}
+        gt.createIndex()
+        ev = COCOeval(gt, gt.loadRes([{"image_id": 1, "category_id": 1, "score": 0.9,
+                                       "segmentation": mask.merge(mask.frPyObjects(
+                                           [[2, 2, 2, 10, 10, 10, 10, 2]], 20, 20))}]),
+                      "segm")
+        ev.evaluate(); ev.accumulate(); ev.summarize()
+        assert ev.stats[0] > 0.5, ev.stats
+        quant_conv.set_conv_bwd_quant("int8")
+        x = torch.randn(2, 8, 6, 6, requires_grad=True)
+        w = torch.randn(8, 8, 3, 3, requires_grad=True)
+        dx, dw = torch.autograd.grad(quant_conv.conv_nchw(x, w).sum(), (x, w))
+        assert dx.shape == x.shape and dw.shape == w.shape and torch.isfinite(dw).all()
+        quant_conv.set_conv_bwd_quant("none")
         sys.path[:0] = ["tools", "examples"]
         import torch_decode_timing, torch_int8_gate, torch_serving_bench
         import torch_caption_image, torch_convert_weights, torch_serve

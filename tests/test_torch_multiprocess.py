@@ -4,7 +4,8 @@ dir), each importing only the port; the JAX package's references run here
 on the virtual CPU devices of tests/conftest.py. Two process groups:
 
 * 2 ranks at mesh (2, 1): a data-parallel train step (Adam/Adam, encoder
-  on) against JAX's step on a (2, 1) mesh; the step with ZeRO-1 against the
+  on) against JAX's step on a (2, 1) mesh (and, task "step_int8", in the
+  conv-backward experiment's "int8" mode for tests/test_torch_quant_conv.py); the step with ZeRO-1 against the
   replicated one, and the checkpoint it writes read back by JAX's
   restore_opt_state; a decoder L-BFGS step against the port's one-process
   step; coco_eval against JAX's driver (==);
@@ -115,8 +116,12 @@ def train(kw, lbfgs=False):
 
 out = {}
 for task, kw in P["tasks"]:
-    if task == "step":
+    if task in ("step", "step_int8"):
+        from adaptive_tpu_torch.ops import quant_conv
+
+        quant_conv.set_conv_bwd_quant("int8" if task == "step_int8" else "none")
         net, dual, res, mesh = train(kw)
+        quant_conv.set_conv_bwd_quant("none")
         out[task] = {"loss": float(res.loss), "sd": snap(net), "grads": grads(net),
                      "coords": mesh.coords}
     elif task == "zero":
