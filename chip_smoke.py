@@ -178,10 +178,32 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    (80 categories, ~7 ground truths an image, up to 100 detections): load,
    evaluate and accumulate seconds and the stats.
 
-Phases run in the order 1, 2, 2b, 3, 3b, 2c, 5, 4, 4b, 6, 7, 7b, 8a, 8b, 8c,
-9a, 9b, 9c, 10a, 10b, 10c, 11, 12, 13a, 13b, 13c.
+14. runs the JAX package's configurations that phases 1-13 never set,
+   each launch count set to 0 just before a run and read just after: 14a
+   decode_early_exit on phase 3's weights (rebuilt from its seed), greedy
+   and beam 3 at batch 1024: ids and beams equal to the fixed loop's and
+   captions/s of both, then with the <end> logit's bias raised by 3 and by
+   1e4 (every row ends at once): the cell and head kernels launched once a
+   step actually run, attention and beta 0 after the exit; 14b beam widths
+   5 and 8 end to end in bf16 (kernels 3 and 4 once a step), and fp32 card
+   vs CPU at W = 5 and at W = 3 with length_alpha 0.7 under phase 4b's
+   rule; 14c the int8 encoder under baseline_attention and rnn_attention:
+   phase 6's check on each, the baseline in bf16 in modes (a) and (b)
+   (kernel 5 45 times a decode) and rnn in mode (a), then
+   encoder_quant_bias_correct in mode (a), fp32 card vs CPU, its
+   corrections held to calibrate_int8_bias's invariant; 14d
+   tools/torch_layer_bench.py's per-conv-shape int8 table at batch 512
+   (24 shapes, 155 convs) after each shape's int32 accumulator on the card
+   equals the CPU's at batch 2; 14e remat_encoder in bf16 at batch 256 and
+   in fp32 against the plain step, a bf16 step at batch 512, and SGD in
+   both groups, fp32 card vs CPU under phase 8c's bounds and bf16 timed.
 
-Prints one JSON line of per-kernel numbers (kernel 4's entry with its shard
+Phases run in the order 1, 2, 2b, 3, 3b, 2c, 5, 4, 4b, 6, 7, 7b, 8a, 8b, 8c,
+9a, 9b, 9c, 10a, 10b, 10c, 11, 12, 13a, 13b, 13c, 14a, 14b, 14c, 14d, 14e.
+
+Prints at the end of phase 14 one JSON line of each of its sub-phases
+({"phase14a_early_exit": ...} to {"phase14e_train": ...}), then one JSON
+line of per-kernel numbers (kernel 4's entry with its shard
 numbers), one of the eval driver's numbers ({"eval_driver": ...}), one of
 training's ({"train": ...}), one of the L-BFGS step's ({"lbfgs": ...}), one
 of the CLI's ({"cli": ...}), one of serving's, the export's and the gate's
@@ -337,6 +359,25 @@ DET_IMAGES, DET_CATS, DET_GT, DET_MAX_DETS = 500, 80, 7, 100
 # ~12 ms at 640x480), and every ground truth's polygon is rasterised in
 # COCOeval's prepare
 DET_SEGM_IMAGES = 100
+# phase 14: the JAX package's configurations that phases 1-13 never set.
+# 14a decode_early_exit, and the <end> logit's bias raised by each of
+# EXIT_BOOSTS (tests/test_torch_greedy.py::_eos_biased; 1e4 ends every row
+# at once, 3.0 mid-decode at the tests' width); 14b beam widths end to end, and length_alpha
+# LENGTH_ALPHA in fp32; 14d tools/torch_layer_bench.py at its default
+# batch, its gate at LAYER_GATE_B; 14e a train step at TRAIN_B_LARGE, and
+# remat_encoder held to the bound of tests/test_torch_train_step.py::
+# test_remat_encoder_equals_plain
+EXIT_BOOSTS = (3.0, 1e4)
+# 3.0 ends no row on the full-width random model: mid_exit_boost looks for
+# a boost at which every row of the fixed greedy loop ends after the first
+# step and before the last (a mid-decode exit) up this ladder, then by
+# bisection between its last boost without an exit and its first with one
+MID_EXIT_LADDER, MID_EXIT_BISECTIONS = tuple(3.0 * 2 ** k for k in range(1, 12)), 16
+BEAM_WIDTHS = (5, 8)
+LENGTH_ALPHA = 0.7
+LAYER_B, LAYER_INNER, LAYER_GATE_B = 512, 24, 2
+TRAIN_B_LARGE = 512
+REMAT_TOL = 1e-6
 
 
 def log(msg):
@@ -984,6 +1025,34 @@ def end_to_end(model, net, cf, images_u8, smi, profile_dir=None):
 
 
 # ---------------------------------------------------------------- phase 3b
+def check_beams(out, W):
+    """A beam decode of B images at width W well formed: every beam's ids in
+    the vocab, the maps as check_maps has them, finite scores sorted best
+    first, ids and score the best beam's. Returns the best ids (numpy)."""
+    import torch
+
+    all_ids = out.all_ids.cpu().numpy()
+    ids = out.ids.cpu().numpy()
+    if all_ids.shape != (B, W, STEPS) or all_ids.min() < 0 or all_ids.max() >= VOCAB:
+        raise AssertionError(f"all_ids of shape {all_ids.shape} in [{all_ids.min()}, "
+                             f"{all_ids.max()}]")
+    if ids.shape != (B, STEPS) or ids.min() < 0 or ids.max() >= VOCAB:
+        raise AssertionError(f"ids of shape {ids.shape} in [{ids.min()}, {ids.max()}]")
+    check_maps(out, (B,))
+    scores = out.all_scores
+    if tuple(scores.shape) != (B, W) or not torch.isfinite(scores).all():
+        raise AssertionError("all_scores malformed")
+    best = scores.argmax(1)
+    img = torch.arange(B, device=scores.device)
+    if not torch.equal(out.score, scores[img, best]):
+        raise AssertionError("score is not all_scores at the best beam")
+    if not torch.equal(out.ids, out.all_ids[img, best]):
+        raise AssertionError("ids are not all_ids at the best beam")
+    if not (scores[:, :-1] >= scores[:, 1:]).all():
+        raise AssertionError("beams are not sorted by score")
+    return ids
+
+
 def beam_end_to_end(model, net, cf, images_u8, smi, profile_dir=None):
     import torch
 
@@ -995,26 +1064,7 @@ def beam_end_to_end(model, net, cf, images_u8, smi, profile_dir=None):
               "adaptive_decode_cell_fused_beam": STEPS, "beam_head_topk": STEPS,
               "bottleneck_identity_int8": 0, "tail_conv1_int8": 0}
     out, launches, total_ms, enc_ms = timed_decodes(decode, net, model, cf, images, expect)
-
-    all_ids = out.all_ids.cpu().numpy()
-    ids = out.ids.cpu().numpy()
-    if all_ids.shape != (B, BEAM, STEPS) or all_ids.min() < 0 or all_ids.max() >= VOCAB:
-        raise AssertionError(f"all_ids of shape {all_ids.shape} in [{all_ids.min()}, "
-                             f"{all_ids.max()}]")
-    if ids.shape != (B, STEPS) or ids.min() < 0 or ids.max() >= VOCAB:
-        raise AssertionError(f"ids of shape {ids.shape} in [{ids.min()}, {ids.max()}]")
-    check_maps(out, (B,))
-    scores = out.all_scores
-    if tuple(scores.shape) != (B, BEAM) or not torch.isfinite(scores).all():
-        raise AssertionError("all_scores malformed")
-    best = scores.argmax(1)
-    img = torch.arange(B, device=scores.device)
-    if not torch.equal(out.score, scores[img, best]):
-        raise AssertionError("score is not all_scores at the best beam")
-    if not torch.equal(out.ids, out.all_ids[img, best]):
-        raise AssertionError("ids are not all_ids at the best beam")
-    if not (scores[:, :-1] >= scores[:, 1:]).all():
-        raise AssertionError("beams are not sorted by score")
+    ids = check_beams(out, BEAM)
 
     distinct = len({tuple(r) for r in ids.tolist()})
     total, enc = sum(total_ms) / len(total_ms), sum(enc_ms) / len(enc_ms)
@@ -1046,6 +1096,33 @@ def feature_check(name, got, ref):
     return int((g != r).sum())
 
 
+def int8_modes(cf, net, images_u8):
+    """The int8 models of phase 5's modes on net's weights, calibrated on the
+    first INT8_CALIB images: {tag: (model, its config, the launches of
+    kernels 5 and 6 a decode)}, and the two calibrations' seconds."""
+    import torch
+
+    from adaptive_tpu_torch.models import build_model
+    from adaptive_tpu_torch.models.infer import calibrate_model
+
+    cf_a = cf.replace(encoder_quant="int8")
+    cf_t = cf_a.replace(encoder_quant_granularity="tensor")
+    t0 = time.perf_counter()
+    model_a = calibrate_model(build_model(cf_a), cf_a, net, images_u8[:INT8_CALIB])
+    model_t = calibrate_model(build_model(cf_t), cf_t, net, images_u8[:INT8_CALIB])
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    none = {"bottleneck_identity_int8": 0, "tail_conv1_int8": 0}
+    return {
+        "a": (model_a, cf_a, none),
+        "t": (model_t, cf_t, none),  # the control of (b) and (c): no kernels
+        "b": (model_t._replace(int8_fused_layers=INT8_FUSED), cf_t,
+              {"bottleneck_identity_int8": INT8_LAUNCHES, "tail_conv1_int8": 0}),
+        "c": (model_t._replace(int8_fused_tails=INT8_FUSED), cf_t,
+              {"bottleneck_identity_int8": 0, "tail_conv1_int8": INT8_LAUNCHES}),
+    }, calib_s
+
+
 def int8_end_to_end(net, cf, images_u8, smi, profile_dir=None):
     """The int8 encoder end to end in bf16 at batch B on phase 3's model and
     images: build_model(encoder_quant="int8") -> calibrate_model (INT8_CALIB
@@ -1058,29 +1135,13 @@ def int8_end_to_end(net, cf, images_u8, smi, profile_dir=None):
     import torch
 
     from adaptive_tpu_torch.decoding import make_greedy_decoder
-    from adaptive_tpu_torch.models import build_model
-    from adaptive_tpu_torch.models.infer import calibrate_model
     from adaptive_tpu_torch.ops.preprocess import eval_preprocess
 
     images = torch.as_tensor(images_u8, device="cuda")
-    cf_a = cf.replace(encoder_quant="int8")
-    cf_t = cf_a.replace(encoder_quant_granularity="tensor")
-    t0 = time.perf_counter()
-    model_a = calibrate_model(build_model(cf_a), cf_a, net, images_u8[:INT8_CALIB])
-    model_t = calibrate_model(build_model(cf_t), cf_t, net, images_u8[:INT8_CALIB])
-    torch.cuda.synchronize()
-    calib_s = time.perf_counter() - t0
+    modes, calib_s = int8_modes(cf, net, images_u8)
+    model_t = modes["t"][0]
     base = {"adaptive_decode_cell_fused": STEPS, "greedy_head_argmax": STEPS,
             "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0}
-    none = {"bottleneck_identity_int8": 0, "tail_conv1_int8": 0}
-    modes = {
-        "a": (model_a, cf_a, none),
-        "t": (model_t, cf_t, none),  # the control of (b) and (c): no kernels
-        "b": (model_t._replace(int8_fused_layers=INT8_FUSED), cf_t,
-              {"bottleneck_identity_int8": INT8_LAUNCHES, "tail_conv1_int8": 0}),
-        "c": (model_t._replace(int8_fused_tails=INT8_FUSED), cf_t,
-              {"bottleneck_identity_int8": 0, "tail_conv1_int8": INT8_LAUNCHES}),
-    }
     with torch.no_grad():
         x = eval_preprocess(images, cf.train_crop_size, model_t.compute_dtype)
         ref = model_t.encode_inference(model_t.prepare_inference(net), x)[0]
@@ -1118,14 +1179,21 @@ def int8_end_to_end(net, cf, images_u8, smi, profile_dir=None):
 
 
 # ----------------------------------------------------------------- phase 6
-def int8_parity(cf, net_g, net_c):
-    """int8 in fp32 on 8 images, card against CPU, in modes (a) and (c):
-    scales calibrated once on the card and handed to both. The images are
+INT8_PARITY_MODES = (("a", "channel", {}), ("c", "tensor", {"int8_fused_tails": INT8_FUSED}))
+
+
+def int8_parity(cf, net_g, net_c, modes=INT8_PARITY_MODES, label="int8 parity fp32"):
+    """int8 in fp32 on 8 images, card against CPU, in modes (a) and (c)
+    (modes: (tag, granularity, model fields)): scales, and the bias
+    corrections where cf.encoder_quant_bias_correct, calibrated once on the
+    card and handed to both. The images are
     at the crop size (224 px, no resize: the card's antialiased resize rounds
     otherwise than the CPU's). The trunk features (the int8 ResNet's output)
     are held to phase 5's bound, 0 differing elements expected (exact
     products, the same IEEE epilogues, a device-exact BN fold); greedy ids
-    under phase 4's top-2 gap rule."""
+    under phase 4's top-2 gap rule. The card's bias corrections are held to
+    calibrate_int8_bias's defining invariant (bias_corr_invariant). Returns
+    {tag: numbers}."""
     import torch
 
     from adaptive_tpu_torch.models import build_model
@@ -1141,23 +1209,72 @@ def int8_parity(cf, net_g, net_c):
         with torch.no_grad():
             return I.resnet_apply_folded_int8(model.prepare_inference(net)["encoder"]["resnet"], x,
                                               model.arch, model.int8_scales, fused, tails,
-                                              stem_s2d=s2d)
+                                              stem_s2d=s2d, bias_corr=model.int8_bias_corr)
 
-    for tag, gran, kw in (("a", "channel", {}), ("c", "tensor", {"int8_fused_tails": INT8_FUSED})):
+    out = {}
+    for tag, gran, kw in modes:
         cf_i = cf.replace(encoder_quant="int8", encoder_quant_granularity=gran)
         mg = calibrate_model(build_model(cf_i), cf_i, net_g, imgs)._replace(**kw)
-        mc = build_model(cf_i, device="cpu")._replace(int8_scales=mg.int8_scales, **kw)
+        mc = build_model(cf_i, device="cpu")._replace(int8_scales=mg.int8_scales,
+                                                      int8_bias_corr=mg.int8_bias_corr, **kw)
+        line = {}
+        if mg.int8_bias_corr is not None:
+            line["bias_corr_residual_of_bound"] = bias_corr_invariant(mg, cf_i, net_g, imgs)
         reset_launch_counts()
         Ag = trunk(mg, net_g, "cuda").cpu()
         n6 = launch_counts()["tail_conv1_int8"]
         if n6 != (INT8_LAUNCHES if kw else 0):
-            raise AssertionError(f"int8 parity {tag}: kernel 6 launched {n6} times")
+            raise AssertionError(f"{label} {tag}: kernel 6 launched {n6} times")
         Ac = trunk(mc, net_c, "cpu")
-        differ = feature_check(f"int8 parity {tag}", Ag, Ac)
-        log(f"[int8 parity fp32 {tag}] {gran} scales, fused tails {mg.int8_fused_tails}: trunk "
+        differ = feature_check(f"{label} {tag}", Ag, Ac)
+        corr = (f", bias corrections on {len(mg.int8_bias_corr)} convs (their second pass's "
+                f"largest mean error {line['bias_corr_residual_of_bound']:.3e} of its bound)"
+                if line else "")
+        log(f"[{label} {tag}] {gran} scales, fused tails {mg.int8_fused_tails}{corr}: trunk "
             f"features card vs CPU: {differ}/{Ac.numel()} elements differ, max abs diff "
             f"{float((Ag - Ac).abs().max()):.3e}")
-        cross_device_parity(cf_i, mg, net_g, mc, net_c, imgs, tag=f"int8 parity fp32 {tag}")
+        line.update(features_differ=differ, greedy=cross_device_parity(
+            cf_i, mg, net_g, mc, net_c, imgs, tag=f"{label} {tag}"))
+        out[tag] = line
+    return out
+
+
+def bias_corr_invariant(model, cf, net, imgs):
+    """calibrate_int8_bias's defining invariant (tests/test_torch_int8.py::
+    test_calibrate_int8_bias_matches_jax) on the card, on the calibration
+    images: with the model's corrections folded in, a second pass of the
+    int8 carry finds every conv's per-channel mean error below 0.05 of the
+    fp32 forward's mean magnitude + 1e-3. Returns the largest error as a
+    share of its bound."""
+    import torch
+
+    from adaptive_tpu_torch.models import infer as I
+    from adaptive_tpu_torch.ops.preprocess import eval_preprocess
+
+    x = eval_preprocess(torch.as_tensor(imgs, device=model.device), cf.train_crop_size,
+                        torch.float32)
+    folded = I.fold_resnet(net.encoder.resnet_conv)
+    means, residual = {}, {}
+
+    def conv(name, xx, p, stride, pad):
+        y = I._plain_conv(name, xx, p, stride, pad)
+        means[name] = y.float().mean(dim=(0, 1, 2))
+        return y
+
+    with torch.no_grad(), I._tf32_off():
+        I._folded_forward(folded, x, cf.encoder_backbone, conv)
+        I._resnet_int8_carry(folded, x, cf.encoder_backbone, model.int8_scales,
+                             bias_corr=model.int8_bias_corr, fp_means=means,
+                             collect_into=residual)
+    if set(residual) != set(model.int8_bias_corr):
+        raise AssertionError("bias corrections and the carry's convs differ")
+    share = {k: float(v.abs().max()) / (0.05 * float(means[k].abs().mean()) + 1e-3)
+             for k, v in residual.items()}
+    worst = max(share, key=share.get)
+    if share[worst] >= 1:
+        raise AssertionError(f"bias correction of {worst}: a second pass's mean error "
+                             f"{share[worst]:.3f} of its bound")
+    return share[worst]
 
 
 def profile_decode(run, out_dir, smi, tag):
@@ -1329,15 +1446,19 @@ def beam_gaps(model, prepared, images_u8, cf, W):
     return torch.stack(ids[::-1], 2), torch.stack(gaps, 1)
 
 
-def beam_parity(cf, model_g, net_g, model_c, net_c, images_u8, tag="beam parity fp32"):
+def beam_parity(cf, model_g, net_g, model_c, net_c, images_u8, tag="beam parity fp32", W=BEAM,
+                length_alpha=0.0):
+    """Phase 4b: 8 images beam-decoded at width W (length_alpha: the
+    decoder's length normalisation of the final scores, which picks the best
+    beam and leaves the beams as they are) on the card and on the CPU."""
     import torch
 
     from adaptive_tpu_torch.decoding import make_beam_decoder
 
     imgs = images_u8[:8]
-    out_g = make_beam_decoder(model_g, cf, beam_size=BEAM)(net_g, imgs)
-    out_c = make_beam_decoder(model_c, cf, beam_size=BEAM)(net_c, imgs)
-    ref_ids, gaps = beam_gaps(model_c, model_c.prepare_inference(net_c), imgs, cf, BEAM)
+    out_g = make_beam_decoder(model_g, cf, beam_size=W, length_alpha=length_alpha)(net_g, imgs)
+    out_c = make_beam_decoder(model_c, cf, beam_size=W, length_alpha=length_alpha)(net_c, imgs)
+    ref_ids, gaps = beam_gaps(model_c, model_c.prepare_inference(net_c), imgs, cf, W)
     if not torch.equal(ref_ids, out_c.all_ids):
         raise AssertionError("the step-by-step CPU beam decode disagrees with make_beam_decoder")
     err = 0.0
@@ -1363,7 +1484,8 @@ def beam_parity(cf, model_g, net_g, model_c, net_c, images_u8, tag="beam parity 
             err = max(err, check_close(f"beam parity {name} image {row}", a[row].cpu(), b[row],
                                        PARITY_ATOL, 0.0))
     distinct = len({tuple(r) for r in out_c.ids.tolist()})
-    log(f"[{tag}, TF32 off] beam {BEAM}, card vs CPU: {n_same}/{imgs.shape[0]} images' "
+    log(f"[{tag}, TF32 off] beam {W}, length_alpha {length_alpha}, card vs CPU: "
+        f"{n_same}/{imgs.shape[0]} images' "
         f"beams identical ({distinct} distinct best captions); scores/attention/beta max abs "
         f"err {err:.3e} (atol {BEAM_SCORE_ATOL}/{PARITY_ATOL}); min adjacent candidate gap "
         f"{float(gaps.min()):.3e}; first: {out_g.ids[0, :12].tolist()}")
@@ -1722,10 +1844,12 @@ def step_marks():
 
 
 def train_throughput(smi, profile_dir=None, modes=(("encoder_off", False), ("encoder_on", True)),
-                     label=None, warmup=TRAIN_WARMUP, steps=TRAIN_STEPS, **cf_kw):
-    """Phase 8a: make_train_step at full width in bf16, batch 256, encoder
-    off and on (fine-tuning layers 2-4; modes: (tag, on) pairs; cf_kw: other
-    Config knobs, phase 12c's variants; label: the printed lines' tag):
+                     label=None, warmup=TRAIN_WARMUP, steps=TRAIN_STEPS, batch_size=TRAIN_B,
+                     **cf_kw):
+    """Phase 8a: make_train_step at full width in bf16, batch 256 (batch_size),
+    encoder off and on (fine-tuning layers 2-4; modes: (tag, on) pairs;
+    cf_kw: other Config knobs, phase 12c's variants and phase 14e's
+    configurations; label: the printed lines' tag):
     warmup steps, then steps timed (host clock around synchronised steps), the peak of
     allocated memory over them, one instrumented step split into forward,
     backward and optimizer by CUDA events, and one step under
@@ -1739,14 +1863,14 @@ def train_throughput(smi, profile_dir=None, modes=(("encoder_off", False), ("enc
     from adaptive_tpu_torch.training.optim import make_dual_optimizer
     from adaptive_tpu_torch.training.step import make_train_step
 
-    cf = Config(compute_dtype="bfloat16", vocab_pad_multiple=128, train_batch_size=TRAIN_B,
+    cf = Config(compute_dtype="bfloat16", vocab_pad_multiple=128, train_batch_size=batch_size,
                 **cf_kw)
     model = build_model(cf)
     net = model.init(SEED)
     dual = make_dual_optimizer(net, cf)
     step = make_train_step(model, dual, cf)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    batch = train_batch(TRAIN_B, SEED + 300, "cuda")
+    batch = train_batch(batch_size, SEED + 300, "cuda")
     out = {}
     label = label or ("train step" if not cf_kw else f"train step {cf.atten_model_name}")
     for tag, on in modes:
@@ -1773,9 +1897,9 @@ def train_throughput(smi, profile_dir=None, modes=(("encoder_off", False), ("enc
             step(net, batch, gen, on)
         flops = fc.get_total_flops()
         share = flops / (ms * 1e-3) / PEAK_FLOPS["bfloat16"]
-        log(f"[{label} {tag} bf16] {smi}: batch {TRAIN_B}, captions {TRAIN_T}, mean of "
+        log(f"[{label} {tag} bf16] {smi}: batch {batch_size}, captions {TRAIN_T}, mean of "
             f"{steps} steps after {warmup}: {ms:.3f} ms a step, "
-            f"{TRAIN_B / ms * 1e3:.1f} images/s; one instrumented step: forward "
+            f"{batch_size / ms * 1e3:.1f} images/s; one instrumented step: forward "
             f"{split['forward']:.3f} ms, backward {split['backward']:.3f} ms, optimizer "
             f"{split['optimizer']:.3f} ms; peak allocated {peak / 2**30:.2f} GiB; "
             f"{flops / 1e12:.3f} TFLOP a step (convolutions and matmuls), "
@@ -1784,7 +1908,7 @@ def train_throughput(smi, profile_dir=None, modes=(("encoder_off", False), ("enc
         if profile_dir:
             profile_decode(lambda: step(net, batch, gen, on), profile_dir, smi,
                            f"train_{tag}" if not cf_kw else f"train_{cf.atten_model_name}_{tag}")
-        out[tag] = {"ms": ms, "images_per_s": TRAIN_B / ms * 1e3, **{f"{k}_ms": v for k, v in
+        out[tag] = {"ms": ms, "images_per_s": batch_size / ms * 1e3, **{f"{k}_ms": v for k, v in
                     split.items()}, "peak_bytes": peak, "tflop": flops / 1e12,
                     "bf16_peak_share": share, "losses": losses.tolist()}
     del net, dual, step
@@ -1928,6 +2052,7 @@ def train_parity(cf, net_g, net_c, smi, label="train parity fp32"):
     import torch
 
     from adaptive_tpu_torch.models import build_model
+    from adaptive_tpu_torch.training import optim
     from adaptive_tpu_torch.training.optim import make_dual_optimizer
     from adaptive_tpu_torch.training.step import make_train_step
 
@@ -1942,11 +2067,25 @@ def train_parity(cf, net_g, net_c, smi, label="train parity fp32"):
         net.load_state_dict(start)
         model = build_model(cf, device=device)
         dual = make_dual_optimizer(net, cf)
-        res = make_train_step(model, dual, cf)(
-            net, {k: v.to(device) for k, v in batch.items()}, torch.Generator().manual_seed(SEED),
-            on)
-        grads = {n: p.grad.detach().cpu() for n, p in net.named_parameters()
-                 if p.grad is not None}
+        # the gradients as the step hands them to the first group's update:
+        # torch's foreach SGD (the card's default) adds its Nesterov term
+        # into .grad in place, the CPU's single-tensor SGD does not
+        grads = {}
+        update = optim.DualOptimizer.step
+
+        def recorded(self, *a, **kw):
+            if not grads:
+                grads.update({n: p.grad.detach().cpu().clone() for n, p in net.named_parameters()
+                              if p.grad is not None})
+            return update(self, *a, **kw)
+
+        optim.DualOptimizer.step = recorded
+        try:
+            res = make_train_step(model, dual, cf)(
+                net, {k: v.to(device) for k, v in batch.items()},
+                torch.Generator().manual_seed(SEED), on)
+        finally:
+            optim.DualOptimizer.step = update
         return (float(res.loss), float(res.lstm_grad_norm), grads,
                 {k: v.detach().cpu() for k, v in net.state_dict().items()}, dual)
 
@@ -3583,11 +3722,13 @@ def multi_device(smi):
 
 
 # ---------------------------------------------------------------- phase 12
-def variant_decode(model, net, cf, images_u8, smi, beam, profile_dir=None):
+def variant_decode(model, net, cf, images_u8, smi, beam, profile_dir=None, tag=None,
+                   extra=None):
     """Phase 12a: a variant's greedy or beam-3 decode end to end in bf16 at
     batch B, timed as phase 3 times it: kernel 2 (greedy) or kernel 4 (beam)
     launched STEPS times a decode and no other kernel (the variants' cells
-    run op by op); ids in the vocab; the maps [B, STEPS, K] finite in [0, 1],
+    run op by op; extra: other kernels' launches a decode, phase 14c's int8
+    encoder's); ids in the vocab; the maps [B, STEPS, K] finite in [0, 1],
     the baseline's softmax summing to 1 (rnn's are sigmoid gates); beta all
     zero; beams sorted, ids and score the best beam's."""
     import torch
@@ -3595,12 +3736,13 @@ def variant_decode(model, net, cf, images_u8, smi, beam, profile_dir=None):
     from adaptive_tpu_torch.decoding import make_beam_decoder, make_greedy_decoder
 
     variant = cf.atten_model_name
-    tag = f"beam{BEAM}" if beam else "greedy"
+    tag = tag or (f"beam{BEAM}" if beam else "greedy")
     decode = (make_beam_decoder(model, cf, beam_size=BEAM) if beam
               else make_greedy_decoder(model, cf))
     images = torch.as_tensor(images_u8, device="cuda")
     expect = {k: 0 for k in launch_counts()}
     expect["beam_head_topk" if beam else "greedy_head_argmax"] = STEPS
+    expect.update(extra or {})
     out, launches, total_ms, enc_ms = timed_decodes(decode, net, model, cf, images, expect)
     ids = out.ids.cpu().numpy()
     if ids.shape != (B, STEPS) or ids.min() < 0 or ids.max() >= VOCAB:
@@ -4300,6 +4442,379 @@ def conv_bwd_quant(smi, none_step=None, fp32=None):
     return line
 
 
+# ---------------------------------------------------------------- phase 14
+def counted(decode, net, images):
+    """One decode with every launch count set to 0 just before and read
+    just after: (output, counts)."""
+    import torch
+
+    reset_launch_counts()
+    out = decode(net, images)
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def steps_to_end(ids, eos) -> int:
+    """The steps an early-exit decode runs: until every sequence of ids
+    [..., STEPS] has emitted eos (STEPS where one never does). A beam
+    decode's final beams are the slots of its exit step, so their ids say
+    it as the greedy ids do."""
+    hit = ids == eos
+    first = hit.int().argmax(-1).masked_fill(~hit.any(-1), STEPS - 1)
+    return int(first.max()) + 1
+
+
+def mid_exit_boost(model, net, cf, images, bias, orig):
+    """A boost of the <end> bias at which the fixed greedy loop ends every
+    row after its first step and before its last: the first of
+    MID_EXIT_LADDER, or one found by MID_EXIT_BISECTIONS bisections where
+    the ladder jumps from no exit to an exit at step 1; None where neither
+    finds one. Leaves the bias as it found it."""
+    import torch
+
+    from adaptive_tpu_torch.decoding import make_greedy_decoder
+
+    eos = cf.decode_eos_token
+    decode = make_greedy_decoder(model, cf)
+
+    def steps(boost):
+        with torch.no_grad():
+            bias[eos] = orig + boost
+        return steps_to_end(decode(net, images).ids, eos)
+
+    try:
+        lo = EXIT_BOOSTS[0]
+        for hi in MID_EXIT_LADDER:
+            n = steps(hi)
+            if 1 < n < STEPS:
+                return hi
+            if n == 1:
+                break
+            lo = hi
+        else:
+            return None
+        for _ in range(MID_EXIT_BISECTIONS):
+            mid = (lo + hi) / 2
+            n = steps(mid)
+            if 1 < n < STEPS:
+                return mid
+            lo, hi = (mid, hi) if n == STEPS else (lo, mid)
+        return None
+    finally:
+        with torch.no_grad():
+            bias[eos] = orig
+
+
+def early_exit(model, net, cf, images, smi, e2e, e2e_beam, p14):
+    """Phase 14a: decode_early_exit=True, greedy and beam 3, on phase 3's
+    weights and images, against the fixed loop: first on the weights as
+    they are (ids, beams and scores torch.equal; captions/s of both, in
+    turns: the early loop reads a flag to the host after every step), then
+    with the head's <end> bias raised by each of EXIT_BOOSTS and by
+    mid_exit_boost's. In every run the cell and head kernels launched once
+    a step actually run, the steps steps_to_end counts on the fixed loop's
+    ids (fewer than STEPS at 1e4), attention rows summing to 1 up to the
+    exit and attention and beta 0 after it."""
+    import torch
+
+    from adaptive_tpu_torch.decoding import make_beam_decoder, make_greedy_decoder
+
+    eos = cf.decode_eos_token
+    bias = net.decoder.adaptive.mlp.bias
+    orig = bias.detach()[eos].clone()
+    mid = mid_exit_boost(model, net, cf, images, bias, orig)
+    boosts = tuple(sorted(EXIT_BOOSTS + ((mid,) if mid else ())))
+    line = {"mid_exit_boost": mid}
+    for beam in (False, True):
+        path = f"beam{BEAM}" if beam else "greedy"
+        kernels = (("adaptive_decode_cell_fused_beam", "beam_head_topk") if beam
+                   else ("adaptive_decode_cell_fused", "greedy_head_argmax"))
+
+        def make(c):
+            if beam:
+                return make_beam_decoder(model, c, beam_size=BEAM)
+            return make_greedy_decoder(model, c)
+
+        fixed, early = make(cf), make(cf.replace(decode_early_exit=True))
+        fixed(net, images)
+        early(net, images)
+        ms = {"fixed": [], "early": []}
+        for name in ("fixed", "early", "early", "fixed", "fixed", "early")[:2 * E2E_REPEATS]:
+            t0 = time.perf_counter()
+            (fixed if name == "fixed" else early)(net, images)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        res = {"fixed_ms": mean["fixed"], "early_ms": mean["early"],
+               "captions_per_s": B / mean["early"] * 1e3,
+               "fixed_captions_per_s": B / mean["fixed"] * 1e3}
+        try:
+            for boost in (0.0,) + boosts:
+                with torch.no_grad():
+                    bias[eos] = orig + boost
+                want = fixed(net, images)
+                got, counts = counted(early, net, images)
+                same = torch.equal(got.ids, want.ids)
+                if beam:
+                    same = same and torch.equal(got.all_ids, want.all_ids) and torch.equal(
+                        got.all_scores, want.all_scores)
+                need = steps_to_end(want.all_ids if beam else want.ids, eos)
+                expect = {k: 0 for k in counts}
+                expect.update({k: need for k in kernels})
+                att, beta = got.attention.float(), got.beta
+                ran = att[:, :need].sum(-1)
+                if not same or counts != expect or (boost == 1e4 and need >= STEPS) or \
+                        att[:, need:].any() or beta[:, need:].any() or \
+                        not torch.allclose(ran, torch.ones_like(ran), atol=1e-3):
+                    raise AssertionError(f"early exit {path} at boost {boost:g}: equal to the fixed "
+                                         f"loop {same}, launches {counts} for {need} steps, maps "
+                                         f"after the exit zero {not att[:, need:].any()}")
+                p14[f"14a {path} early exit, <end> bias +{boost:g}"] = counts
+                res[f"steps_boost_{boost:g}"] = need
+        finally:
+            with torch.no_grad():
+                bias[eos] = orig
+        ref = e2e_beam if beam else e2e
+        log(f"[early exit {path} bf16] {smi}: batch {B}, mean of {E2E_REPEATS} runs each in turns: "
+            f"fixed loop {mean['fixed']:.3f} ms {ms['fixed']}, early exit {mean['early']:.3f} ms "
+            f"{ms['early']} ({res['captions_per_s']:.1f} captions/s against the fixed loop's "
+            f"{res['fixed_captions_per_s']:.1f} here and {ref['captions_per_s']:.1f} in phase "
+            f"{'3b' if beam else '3'}); ids{' and beams' if beam else ''} equal the fixed loop's; "
+            f"steps run (each kernel launched once a step) with the <end> bias as it is "
+            f"{res['steps_boost_0']}, "
+            + ", ".join(f"+{b:g}: {res[f'steps_boost_{b:g}']}" for b in boosts)
+            + (f" (+{mid:g}: the ladder's first mid-decode exit of the greedy loop)" if mid
+               else " (no boost of the ladder ends the greedy loop mid-decode)")
+            + "; attention and beta 0 after the exit")
+        line[path] = res
+    return line
+
+
+def beam_widths(model, net, cf, images_u8, smi, fp32, p14):
+    """Phase 14b: make_beam_decoder at each of BEAM_WIDTHS in bf16 on phase
+    3's weights and images, timed as phase 3b (kernels 3 and 4 once a step,
+    kernels 1 and 2 never; beams well formed), then fp32 card vs CPU on
+    phase 4's 8 images under phase 4b's rule at W = 5, and at W = BEAM with
+    length_alpha LENGTH_ALPHA."""
+    import torch
+
+    from adaptive_tpu_torch.decoding import make_beam_decoder
+
+    images = torch.as_tensor(images_u8, device="cuda")
+    expect = {"adaptive_decode_cell_fused": 0, "greedy_head_argmax": 0,
+              "adaptive_decode_cell_fused_beam": STEPS, "beam_head_topk": STEPS,
+              "bottleneck_identity_int8": 0, "tail_conv1_int8": 0}
+    line = {}
+    for W in BEAM_WIDTHS:
+        decode = make_beam_decoder(model, cf, beam_size=W)
+        out, launches, total_ms, enc_ms = timed_decodes(decode, net, model, cf, images, expect)
+        ids = check_beams(out, W)
+        total, enc = sum(total_ms) / len(total_ms), sum(enc_ms) / len(enc_ms)
+        p14[f"14b beam{W}"] = launches
+        line[f"beam{W}"] = {"total_ms": total, "encoder_ms": enc, "decode_loop_ms": total - enc,
+                            "captions_per_s": B / total * 1e3}
+        log(f"[end-to-end beam {W} bf16] {smi}: batch {B} ({B * W} rows), {STEPS} steps, mean of "
+            f"{E2E_REPEATS} runs: total {total:.3f} ms {total_ms}, encoder {enc:.3f} ms "
+            f"{enc_ms}, decode loop {total - enc:.3f} ms, {B / total * 1e3:.1f} captions/s; "
+            f"launches {launches}; {len({tuple(r) for r in ids.tolist()})} distinct best "
+            f"captions, first: {ids[0, :12].tolist()} score {float(out.score[0]):.4f}")
+        del decode, out
+        torch.cuda.empty_cache()
+    line["parity_fp32_beam5"] = beam_parity(*fp32, images_u8, tag="beam parity fp32 W=5", W=5)
+    line[f"parity_fp32_beam{BEAM}_alpha"] = beam_parity(
+        *fp32, images_u8, tag=f"beam parity fp32 length_alpha={LENGTH_ALPHA}",
+        length_alpha=LENGTH_ALPHA)
+    return line
+
+
+def int8_beyond_adaptive(smi, images_u8, fp32, p14):
+    """Phase 14c: the int8 encoder under baseline_attention and
+    rnn_attention: phase 6 (int8_parity, modes (a) and (c), fp32 card vs
+    CPU) on each variant's phase 12b weights; in bf16 at batch B on phase
+    12's weights, the baseline in modes (a) and (b) and rnn in mode (a),
+    timed as phase 12a (kernel 2 STEPS times a decode, kernel 5 45 times in
+    (b), kernels 1 and 3 never); then encoder_quant_bias_correct on the
+    adaptive variant in mode (a), fp32 on phase 4's weights."""
+    import torch
+
+    from adaptive_tpu_torch import Config
+
+    line = {}
+    for variant, modes in zip(VARIANTS, ("ab", "a")):
+        fp = fp32_models(images_u8, atten_model_name=variant)
+        out = {"parity_fp32": int8_parity(fp[0], fp[2], fp[4], label=f"int8 parity {variant} fp32")}
+        del fp
+        cf = Config(compute_dtype="bfloat16", atten_model_name=variant)
+        model, net = random_model(cf, "cuda", images_u8[:32])
+        int8 = int8_modes(cf, net, images_u8)[0]
+        for tag in modes:
+            m, mcf, extra = int8[tag]
+            launches, out[f"int8_{tag}"] = variant_decode(m, net, mcf, images_u8, smi, False,
+                                                          tag=f"int8 {tag} greedy", extra=extra)
+            p14[f"14c {variant} int8 {tag} greedy"] = launches
+        line[variant] = out
+        del model, net, int8
+        torch.cuda.empty_cache()
+    line["bias_correct_fp32"] = int8_parity(
+        fp32[0].replace(encoder_quant_bias_correct=True), fp32[2], fp32[4],
+        modes=INT8_PARITY_MODES[:1], label="int8 bias-corrected parity fp32")
+    return line
+
+
+def layer_table(smi, e2e_int8):
+    """Phase 14d: tools/torch_layer_bench.py's table at batch LAYER_B over
+    ResNet-152's 24 conv shapes (155 convs), after its gate: each shape's
+    int32 accumulator on the card equal to the CPU's at batch LAYER_GATE_B
+    on the same inputs."""
+    import torch
+
+    lb = tools_module("torch_layer_bench")
+    convs = sum(c[-1] for c in lb.RESNET152_CONVS)
+    if convs != 155 or len(lb.RESNET152_CONVS) != 24:
+        raise AssertionError(f"RESNET152_CONVS: {len(lb.RESNET152_CONVS)} shapes, {convs} convs")
+    for i, (name, _, _, _, k, stride, _) in enumerate(lb.RESNET152_CONVS):
+        x, kernel, bias = lb.shape_inputs(i, LAYER_GATE_B)
+        got = lb.accumulator(*lb.to_device(x, kernel, bias, "cuda"), stride, k).cpu()
+        want = lb.accumulator(*lb.to_device(x, kernel, bias, "cpu"), stride, k)
+        if not torch.equal(got, want):
+            raise AssertionError(f"layer bench {name}: {int((got != want).sum())} accumulator "
+                                 f"elements differ between the card and the CPU")
+    table = lb.bench(LAYER_B, LAYER_INNER, device="cuda", log=lambda m: log(f"[layer bench] {m}"))
+    enc = e2e_int8["a"]["encoder_ms"]
+    log(f"[layer table int8 bf16] {smi}: _conv_i8 at batch {LAYER_B}, {len(table['rows'])} shapes, "
+        f"{convs} convs: weighted total {table['total_ms']} ms; int_mm peak "
+        f"{table['peak_tops']} TOPS; accumulators at batch {LAYER_GATE_B} equal the CPU's at "
+        f"every shape. Phase 5's int8 (a) encoder: {enc:.3f} ms at batch {B}; it runs the carry "
+        f"(_acc_i8: weights quantised once, s8 activations between convs), not _conv_i8, so the "
+        f"two are not the same quantity")
+    return {**table, "gate_batch": LAYER_GATE_B, "accumulators_equal": True,
+            "int8_a_encoder_ms_batch_1024": enc}
+
+
+def remat_parity(cf, net, smi):
+    """Phase 14e: one fp32 train step (TF32 off, encoder on) with
+    remat_encoder against one without, on the card from phase 4's weights
+    at batch TRAIN_PARITY_B, the same batch and draws, cuDNN deterministic
+    (so that two plain steps agree too): the loss within REMAT_TOL
+    (relative) and every weight and BN statistic within REMAT_TOL, the bound
+    of tests/test_torch_train_step.py::test_remat_encoder_equals_plain.
+    Leaves net at its weights."""
+    import torch
+
+    from adaptive_tpu_torch.models import build_model
+    from adaptive_tpu_torch.training.optim import make_dual_optimizer
+    from adaptive_tpu_torch.training.step import make_train_step
+
+    start = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    batch = train_batch(TRAIN_PARITY_B, SEED + 700, "cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for remat in (False, True):
+            c = cf.replace(remat_encoder=remat)
+            net.load_state_dict(start)
+            dual = make_dual_optimizer(net, c)
+            res = make_train_step(build_model(c), dual, c)(
+                net, batch, torch.Generator().manual_seed(SEED), True)
+            runs[remat] = (float(res.loss), {k: v.detach().double() for k, v in
+                                             net.state_dict().items()})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        net.load_state_dict(start)
+    (lp, sp), (lr, sr) = runs[False], runs[True]
+    loss_rel = abs(lr - lp) / abs(lp)
+    d = max(float((sr[k] - sp[k]).abs().max()) for k in sp)
+    moved = max(float((sp[k] - start[k].double()).abs().max()) for k in sp)
+    if loss_rel > REMAT_TOL or d > REMAT_TOL or moved == 0:
+        raise AssertionError(f"remat step: loss rel {loss_rel:.3e}, weights and BN {d:.3e}, "
+                             f"the plain step moved them by {moved:.3e}")
+    log(f"[remat parity fp32, TF32 off] {smi}: batch {TRAIN_PARITY_B}, encoder on, one step with "
+        f"remat_encoder against one without: loss {lr:.7f} vs {lp:.7f} (rel {loss_rel:.2e}), "
+        f"weights and BN statistics max |d| {d:.2e} (bound {REMAT_TOL}; the step moved them by up "
+        f"to {moved:.2e})")
+    return {"loss_rel": loss_rel, "state_abs": d}
+
+
+def train_configs(smi, fp32, step_8a):
+    """Phase 14e: the train step (adaptive_attention, encoder on, layers
+    2-4) with remat_encoder in bf16 at batch TRAIN_B beside phase 8a's, and
+    in fp32 against the plain step (remat_parity); at batch TRAIN_B_LARGE
+    in bf16; with SGD in both groups (the config's momenta), fp32 card vs
+    CPU under phase 8c's bounds (train_parity) and bf16 at TRAIN_B."""
+    sgd = {"opt_rnn_optimization": "sgd", "opt_cnn_optimization": "sgd"}
+    on = (("encoder_on", True),)
+    line = {"remat_bf16": train_throughput(smi, None, on, label="train step remat_encoder",
+                                           remat_encoder=True)["encoder_on"],
+            "remat_parity_fp32": remat_parity(fp32[0], fp32[2], smi)}
+    line[f"batch{TRAIN_B_LARGE}_bf16"] = train_throughput(
+        smi, None, on, label=f"train step batch {TRAIN_B_LARGE}",
+        batch_size=TRAIN_B_LARGE)["encoder_on"]
+    line["sgd_parity_fp32"] = train_parity(fp32[0].replace(**sgd), fp32[2], fp32[4], smi,
+                                           label="train parity sgd fp32")
+    line["sgd_bf16"] = train_throughput(smi, None, on, label="train step sgd", **sgd)["encoder_on"]
+    r, big, s = line["remat_bf16"], line[f"batch{TRAIN_B_LARGE}_bf16"], line["sgd_bf16"]
+    log(f"[train configs bf16] {smi}: encoder on; 8a's Adam step at batch {TRAIN_B} "
+        f"{step_8a['ms']:.3f} ms, {step_8a['peak_bytes'] / 2**30:.2f} GiB; remat_encoder "
+        f"{r['ms']:.3f} ms, {r['peak_bytes'] / 2**30:.2f} GiB; batch {TRAIN_B_LARGE} "
+        f"{big['images_per_s']:.1f} images/s ({big['ms']:.3f} ms, "
+        f"{big['peak_bytes'] / 2**30:.2f} GiB); SGD {s['images_per_s']:.1f} images/s against "
+        f"8a's {step_8a['images_per_s']:.1f}")
+    return line
+
+
+def phase14_launches(p14, name):
+    """{run of phase 14: the kernel's launches in it} where it launched."""
+    return {run: counts[name] for run, counts in p14.items() if counts.get(name)}
+
+
+def phase_14(smi, e2e, e2e_beam, e2e_int8, step_8a):
+    """Phase 14: 14a-14e in turn, each printing its JSON line. Its fp32
+    checks run on phase 4's weights rebuilt from their seed on both
+    devices (phases 8c-13 have stepped phase 4's nets, the card's and the
+    CPU's each by its own rounding). Returns {sub-phase: its numbers} and
+    {run: the launch counts of that run's main path, set to 0 just before
+    it and read just after}."""
+    import torch
+
+    from adaptive_tpu_torch import Config
+
+    p14, line, spans = {}, {"card": smi}, {}
+    images_u8 = seeded_images(B, SEED)
+    images = torch.as_tensor(images_u8, device="cuda")
+    t0 = time.perf_counter()
+    fp32 = fp32_models(images_u8)
+    cf = Config(compute_dtype="bfloat16")
+    model, net = random_model(cf, "cuda", images_u8[:32])  # phase 3's weights, from its seed
+    line["14a_early_exit"] = early_exit(model, net, cf, images, smi, e2e, e2e_beam, p14)
+    spans["14a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line["14b_beam_widths"] = beam_widths(model, net, cf, images_u8, smi, fp32, p14)
+    del model, net, images
+    torch.cuda.empty_cache()
+    spans["14b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line["14c_int8"] = int8_beyond_adaptive(smi, images_u8, fp32, p14)
+    spans["14c"] = time.perf_counter() - t0
+    del images_u8
+    reset_launch_counts()  # 14d and 14e run none of the six kernels
+    t0 = time.perf_counter()
+    line["14d_layer_table"] = layer_table(smi, e2e_int8)
+    spans["14d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line["14e_train"] = train_configs(smi, fp32, step_8a)
+    spans["14e"] = time.perf_counter() - t0
+    after = launch_counts()
+    if any(after.values()):
+        raise AssertionError(f"phases 14d and 14e launched a kernel: {after}")
+    line["phase_s"] = spans
+    for key in ("14a_early_exit", "14b_beam_widths", "14c_int8", "14d_layer_table", "14e_train"):
+        log(json.dumps({f"phase{key}": {"card": smi, **line[key]}}))
+    log("[phase 14] " + ", ".join(f"{k} {v:.1f} s" for k, v in spans.items())
+        + f"; phase 14 {sum(spans.values()):.1f} s")
+    return line, p14
+
+
 def main() -> int:
     import argparse
 
@@ -4463,6 +4978,12 @@ def main() -> int:
     log(f"[qc phases] " + ", ".join(f"{k} {v:.1f} s" for k, v in qc_line["phase_s"].items())
         + f", 13c {det_line['phase_s']['13c']:.1f} s; phase 13 {time.perf_counter() - t12:.1f} s")
 
+    # phase 14: the configurations phases 1-13 never set: 14a early exit,
+    # 14b beam widths and the length penalty, 14c the int8 encoder under the
+    # other variants and with bias correction, 14d the per-conv-shape int8
+    # table, 14e remat, batch 512 and SGD training
+    _, p14 = phase_14(smi, e2e, e2e_beam, e2e_int8, train_line["step"]["encoder_on"])
+
     csrc = "adaptive_tpu_torch/ops/cuda/csrc/"
     sources = {
         "adaptive_decode_cell_fused": ("adaptive_tpu/ops/pallas/fused_step.py:221",
@@ -4489,6 +5010,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "launches_phase13": phase13_launches[name],
+            "launches_phase14": phase14_launches(p14, name),
             "max_abs_err": bf["max_abs_err"], "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
             "library_ms": bf["library_ms"], "dtype": "bfloat16",
@@ -4515,6 +5037,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "launches_phase13": phase13_launches[name],
+            "launches_phase14": phase14_launches(p14, name),
             **int8_summary(int8_checks[name]), "library_ms": None,
             "dtype": "int8", "per_layer": int8_checks[name]})
     log(json.dumps({"kernels": kernels, "end_to_end_bf16": e2e,

@@ -3,7 +3,8 @@ the JAX package's on the CPU (tests/conftest.py::tiny_cf: ResNet-18 at 64
 px, K = 4 slots, E 8, H 16; rnn bidirectional with hr 8, and
 unidirectional with hr 16): the attention ops, the weight bridge, the
 teacher-forced scores, a decode step, greedy and beam-3 decodes through the
-kernels' twins and op by op, one Adam train step, a JAX-written model.npz,
+kernels' twins and op by op, greedy on the int8 encoder (modes (a) and (t)),
+one Adam train step, a JAX-written model.npz,
 the L-BFGS codec's order, coco_eval, CaptionService and the exported
 decoder. The same numpy-seeded inputs and JAX weights (from_jax) go through
 both packages. Each test states its tolerance."""
@@ -216,6 +217,59 @@ def test_decode_matches_jax(setup, jax_decodes, beam, use_pallas):
     for name in names:
         np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
                                    atol=MAP_ATOL, rtol=0, err_msg=name)
+    assert not got.beta.any()
+
+
+# variant -> (the init's seed, the encoder heads' gain, the BN variances of
+# tests/test_torch_int8.py::setup): weights whose int8 greedy captions are
+# not degenerate while the fp32 decoders' top-2 gaps stay wide
+INT8_WEIGHTS = {"baseline_attention": (11, 0.3, (1.0, 4.0, 16.0)),
+                "rnn_attention": (1, 3.0, (0.25, 1.0, 4.0))}
+
+
+@pytest.mark.parametrize("mode", ["a", "t"])
+@pytest.mark.parametrize("variant", list(INT8_WEIGHTS))
+def test_int8_greedy_matches_jax(tiny_cf, monkeypatch, variant, mode):
+    """The int8 encoder under the other variants: build_model(encoder_quant=
+    'int8') -> calibrate_model -> greedy, in mode (a) (per-channel scales,
+    the s2d stem) and (t) (per-tensor scales), against the JAX package's, as
+    tests/test_torch_int8.py::test_int8_decode_matches_jax holds the adaptive
+    decoder: the port's scales within 1e-5 of each conv's largest JAX scale,
+    then both decode on JAX's scales (images at the crop size, JAX's Pallas
+    kernels in interpret mode where it reaches one): equal ids, attention
+    within MAP_ATOL, beta zero."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from adaptive_tpu.decoding import greedy as jgreedy
+    from adaptive_tpu.decoding import spmd
+    from adaptive_tpu.models import infer as JI
+    from adaptive_tpu_torch.models import infer as TI
+    from tests import test_torch_int8 as int8_tests
+
+    gran = "channel" if mode == "a" else "tensor"
+    seed, gain, variances = INT8_WEIGHTS[variant]
+    jcf, params, state, model, net = int8_tests.setup(
+        tiny_cf, "resnet18", seed=seed, variances=variances, head_gain=gain,
+        atten_model_name=variant, vocab_length=37, vocab_pad_multiple=8, decode_max_len=6,
+        encoder_quant="int8", encoder_quant_granularity=gran)
+    imgs = int8_tests.DECODE_IMAGES
+    jm = JI.calibrate_model(_jmodel(jcf), jcf, params, state, imgs)
+    pcf = port_cf(jcf)
+    calibrated = TI.calibrate_model(model, pcf, net, imgs)
+    assert calibrated._resolved_fusion()[2]  # the s2d stem ("auto" at an even crop)
+    assert set(calibrated.int8_scales) == set(jm.int8_scales)
+    for k, w in jm.int8_scales.items():
+        w, g = np.asarray(w), np.asarray(calibrated.int8_scales[k])
+        assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max(), k
+    with monkeypatch.context() as m:
+        m.setattr(spmd, "decode_mesh", lambda *_: None)  # single-device program
+        with pltpu.force_tpu_interpret_mode():
+            want = jgreedy.make_greedy_decoder(jm, jcf)(params, state, jnp.asarray(imgs))
+    got = make_greedy_decoder(calibrated._replace(int8_scales=jm.int8_scales), pcf)(net, imgs)
+    assert len(np.unique(np.asarray(want.ids))) > 2  # not a degenerate caption
+    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
+    np.testing.assert_allclose(got.attention.numpy(), np.asarray(want.attention),
+                               atol=MAP_ATOL, rtol=0)
     assert not got.beta.any()
 
 
