@@ -1,0 +1,10 @@
+"""Percent of the card's bf16 peak (989 TFLOP/s): the model's FLOPs of the
+window's batches or steps, from their shapes (lib/flops.py), over the
+window's seconds on the host clock (a traced run's slice follows the
+window)."""
+
+from benchmark.lib.readings import peak_share
+
+
+def read(ctx):
+    return peak_share(ctx)
