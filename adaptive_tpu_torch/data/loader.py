@@ -29,6 +29,7 @@ import torch
 
 from adaptive_tpu_torch.data.coco_api import COCO
 from adaptive_tpu_torch.data.vocab import END_ID, Vocabulary
+from adaptive_tpu_torch.utils.profiling import span
 
 # Caption length buckets (token count incl. <start>/<end>): train captions
 # are max 52 / mean 10.47 tokens (reference statics:10-12).
@@ -283,18 +284,21 @@ def device_prefetch(iterator: Iterator, device, size: int = 2, mesh=None,
     with a non_blocking copy; on the CPU it is wrapped as a tensor. On a
     mesh each rank places its rows: the batch's own (local=True, the
     process-sharded loader) or its data rank's slice of a global batch
-    (parallel/mesh.py::place_batch)."""
+    (parallel/mesh.py::place_batch). Span (utils/profiling.py::span):
+    ``prefetch.put`` around each batch's placing, which pins it and
+    enqueues its copies."""
     from adaptive_tpu_torch.parallel.mesh import place_batch
 
     device = torch.device(device)
     pin = device.type == "cuda"
 
     def put(batch):
-        out = {}
-        host = {k: np.ascontiguousarray(v) for k, v in batch.items()}
-        for k, t in place_batch(mesh, host, local=local).items():
-            out[k] = t.pin_memory().to(device, non_blocking=True) if pin else t
-        return out
+        with span("prefetch.put"):
+            out = {}
+            host = {k: np.ascontiguousarray(v) for k, v in batch.items()}
+            for k, t in place_batch(mesh, host, local=local).items():
+                out[k] = t.pin_memory().to(device, non_blocking=True) if pin else t
+            return out
 
     buf = collections.deque()
     for item in iterator:
@@ -307,7 +311,9 @@ def device_prefetch(iterator: Iterator, device, size: int = 2, mesh=None,
 
 def _prefetched(fn, work_items: List, num_workers: int, prefetch: int) -> Iterator:
     """Run fn over work_items with a thread pool, yielding in order with a
-    bounded prefetch window (replaces torch DataLoader worker processes)."""
+    bounded prefetch window (replaces torch DataLoader worker processes).
+    Span (utils/profiling.py::span): ``loader.wait`` around the consumer's
+    wait for each item."""
     if not work_items:
         return
     with ThreadPoolExecutor(max_workers=num_workers) as pool:
@@ -321,4 +327,6 @@ def _prefetched(fn, work_items: List, num_workers: int, prefetch: int) -> Iterat
             if n_submitted < len(work_items):
                 pending.put(pool.submit(fn, work_items[n_submitted]))
                 n_submitted += 1
-            yield fut.result()
+            with span("loader.wait"):
+                done = fut.result()
+            yield done

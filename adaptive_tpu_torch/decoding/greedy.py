@@ -26,6 +26,7 @@ import torch
 from adaptive_tpu_torch.decoding import spmd
 from adaptive_tpu_torch.ops.fused_step import tracing
 from adaptive_tpu_torch.ops.preprocess import eval_preprocess
+from adaptive_tpu_torch.utils.profiling import span
 
 
 class GreedyOutput(NamedTuple):
@@ -73,6 +74,11 @@ def make_greedy_decoder(model, cf):
     images_u8: uint8 NHWC at any square size (numpy or tensor), resized to
     train_crop_size and normalized on model.device. net: the Encoder2Decoder
     holding the weights; its inference tree is prepared once (prepare_cached).
+
+    Spans (utils/profiling.py::span): ``decode.preprocess`` (the images'
+    copy to model.device, resize and normalisation), ``decode.encode``
+    (model.encode_inference) and ``decode.loop`` (precompute_slots, the
+    state's initialisation, the step loop and the stacking of its outputs).
     """
     max_len = cf.decode_max_len
     start, eos = cf.decode_start_token, cf.decode_eos_token
@@ -83,12 +89,18 @@ def make_greedy_decoder(model, cf):
     prepare = prepare_cached(model, mesh)
 
     def preprocess(images_u8):
-        return eval_preprocess(torch.as_tensor(images_u8, device=model.device), size,
-                               model.compute_dtype)
+        with span("decode.preprocess"):
+            return eval_preprocess(torch.as_tensor(images_u8, device=model.device), size,
+                                   model.compute_dtype)
 
     @torch.no_grad()
     def decode_images(prepared, images) -> GreedyOutput:
-        V, v_g, h0, c0 = model.encode_inference(prepared, images)
+        with span("decode.encode"):
+            V, v_g, h0, c0 = model.encode_inference(prepared, images)
+        with span("decode.loop"):
+            return decode_loop(prepared, V, v_g, h0, c0)
+
+    def decode_loop(prepared, V, v_g, h0, c0) -> GreedyOutput:
         dec, head, cell = prepared["decoder"], prepared["head"], prepared["cell"]
         tp_group, head_tp = prepared.get("tp") or (None, False)
         pv = model.precompute_slots(dec, V)  # hoisted out of the loop

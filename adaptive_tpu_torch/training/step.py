@@ -43,6 +43,7 @@ from adaptive_tpu_torch.models.resnet import CHILD_NAMES
 from adaptive_tpu_torch.ops import preprocess
 from adaptive_tpu_torch.parallel.mesh import all_reduce_sum_
 from adaptive_tpu_torch.training.optim import DualOptimizer
+from adaptive_tpu_torch.utils.profiling import span
 
 LSTM_NAMES = ("decoder.LSTM.weight_ih_l0", "decoder.LSTM.weight_hh_l0",
               "decoder.LSTM.bias_ih_l0", "decoder.LSTM.bias_hh_l0")
@@ -102,7 +103,14 @@ def make_train_step(model, dual: DualOptimizer, cf, mesh=None):
     backward; its BN statistics still update, as JAX's forward(train=True)
     updates them), as JAX's stop_gradient at the ResNet params has it.
     With encoder_on, the children before opt_fine_tune_cnn_start_layer run
-    without autograd too: their gradients feed no update."""
+    without autograd too: their gradients feed no update.
+
+    Spans (utils/profiling.py::span): ``train.step`` around the call; in it,
+    for each microbatch, ``train.forward`` (preprocess, model.forward, the
+    masked CE and the sums) and ``train.backward`` (its .backward(), whose
+    kernels the autograd engine launches from its own thread), then
+    ``train.optimizer`` (the all-reduce on a mesh, the division, the LSTM
+    clip, the dual steps and the loss)."""
     crop = cf.train_crop_size
     max_norm = cf.train_lstm_maxnormal
     accum = cf.train_grad_accum_steps
@@ -119,37 +127,41 @@ def make_train_step(model, dual: DualOptimizer, cf, mesh=None):
         return masked_ce_sum(scores, batch["captions"], batch["lengths"])
 
     def train_step(net, batch, gen: torch.Generator, encoder_on: bool = False) -> StepOutput:
-        batch = {k: torch.as_tensor(batch[k], device=model.device)
-                 for k in ("images", "captions", "lengths")}
-        params = dict(net.named_parameters())
-        for p in params.values():
-            p.grad = None
-        # sum-of-NLL gradients accumulate in .grad over the microbatches and
-        # are divided once by the valid count: the full batch's gradient
-        # (BN statistics update once a microbatch, as in JAX)
-        B = batch["images"].shape[0]
-        m = B // accum
-        s_nll, s_n = 0.0, 0
-        for k in range(accum):
-            mb = {key: v[k * m:(k + 1) * m] for key, v in batch.items()}
-            sum_nll, n = sum_loss(net, mb, gen, encoder_on)
-            sum_nll.backward()
-            s_nll, s_n = s_nll + sum_nll.detach(), s_n + n
-        if group is not None:
-            # the global sums: the gradients once a step, the loss and count
-            all_reduce_grads(params.values(), group)
-            sums = torch.stack([s_nll, s_n.float()])
-            all_reduce_sum_([sums], group)
-            s_nll, s_n = sums[0], sums[1]
-        n = torch.clamp(s_n, min=1).float()
-        for p in params.values():
-            if p.grad is not None:
-                p.grad.div_(n)
-        lstm_norm = clip_lstm_grads([params[k].grad for k in LSTM_NAMES], max_norm)
-        dual.step("decoder")
-        if encoder_on:
-            dual.step("encoder")
-        return StepOutput(s_nll / n, lstm_norm)
+        with span("train.step"):
+            batch = {k: torch.as_tensor(batch[k], device=model.device)
+                     for k in ("images", "captions", "lengths")}
+            params = dict(net.named_parameters())
+            for p in params.values():
+                p.grad = None
+            # sum-of-NLL gradients accumulate in .grad over the microbatches and
+            # are divided once by the valid count: the full batch's gradient
+            # (BN statistics update once a microbatch, as in JAX)
+            B = batch["images"].shape[0]
+            m = B // accum
+            s_nll, s_n = 0.0, 0
+            for k in range(accum):
+                mb = {key: v[k * m:(k + 1) * m] for key, v in batch.items()}
+                with span("train.forward"):
+                    sum_nll, n = sum_loss(net, mb, gen, encoder_on)
+                    s_nll, s_n = s_nll + sum_nll.detach(), s_n + n
+                with span("train.backward"):
+                    sum_nll.backward()
+            with span("train.optimizer"):
+                if group is not None:
+                    # the global sums: the gradients once a step, the loss and count
+                    all_reduce_grads(params.values(), group)
+                    sums = torch.stack([s_nll, s_n.float()])
+                    all_reduce_sum_([sums], group)
+                    s_nll, s_n = sums[0], sums[1]
+                n = torch.clamp(s_n, min=1).float()
+                for p in params.values():
+                    if p.grad is not None:
+                        p.grad.div_(n)
+                lstm_norm = clip_lstm_grads([params[k].grad for k in LSTM_NAMES], max_norm)
+                dual.step("decoder")
+                if encoder_on:
+                    dual.step("encoder")
+                return StepOutput(s_nll / n, lstm_norm)
 
     return train_step
 

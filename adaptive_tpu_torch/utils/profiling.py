@@ -6,15 +6,32 @@ of adaptive_tpu/utils/profiling.py).
 device work is inside the sample. ``profile_trace`` records the CPU and CUDA
 activity of its block with torch.profiler and writes a gzipped Chrome trace
 under ``logdir``, which utils/trace_report.py summarises.
+
+``span(name)`` marks a phase of the port (the train step's forward,
+backward and optimizer, the loader's wait, the device prefetch, the greedy
+decoder's encoder and loop; the function that opens a span names it in its
+docstring). A span records only while a torch profiler runs on the calling
+thread (``profile_trace``, a benchmark's traced slice): then it opens a
+``torch.profiler.record_function`` range of its name, which a trace with
+CPU activity shows as a ``user_annotation``, and keeps its name, start,
+end, parent and thread in memory, where ``take_spans()`` collects them. A
+trace with CUDA activity alone holds no such range, but its device events
+and CUDA runtime calls are on the same clock as the kept spans. With no
+profiler running a span costs one check and records nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
-from typing import List, Optional
+import warnings
+from typing import List, NamedTuple, Optional
 
 import torch
+
+# spans kept between two take_spans() calls; those past it are counted
+SPAN_CAP = 100_000
 
 
 class Timer:
@@ -73,3 +90,97 @@ def profile_trace(logdir: str, enabled: bool = True):
         yield
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
+
+
+class Span(NamedTuple):
+    """A finished span. start_ns and end_ns are time.time_ns(): the clock of
+    a torch.profiler Chrome trace's ``ts`` (us) plus its
+    ``baseTimeNanoseconds``. parent: the index, in the same take_spans()
+    list, of the span open on the same thread when this one opened (None at
+    the thread's top level). thread: threading.get_native_id(), the ``tid``
+    of the thread's events in a trace."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[int]
+    thread: int
+
+
+class _SpanRecorder:
+    """The spans of the running profiler's sessions, kept in memory up to
+    ``cap``; a record is [name, start_ns, end_ns, parent record, thread]."""
+
+    def __init__(self, cap: int):
+        self.cap = cap
+        self.dropped = 0
+        self._records: List[list] = []
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def start(self, name: str, start_ns: int) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        rec = [name, start_ns, 0, stack[-1] if stack else None, threading.get_native_id()]
+        with self._lock:
+            if len(self._records) < self.cap:
+                self._records.append(rec)
+            else:
+                self.dropped += 1
+        stack.append(rec)
+        return rec
+
+    def end(self, rec: list) -> None:
+        self._local.stack.pop()
+        rec[2] = time.time_ns()
+
+    def take(self) -> List[Span]:
+        with self._lock:
+            records, self._records = self._records, []
+            dropped, self.dropped = self.dropped, 0
+        if dropped:
+            warnings.warn(f"{dropped} spans past the cap of {self.cap} were not kept")
+        done = [r for r in records if r[2]]  # those still open are left out
+        index = {id(r): i for i, r in enumerate(done)}
+        return [Span(r[0], r[1], r[2], None if r[3] is None else index.get(id(r[3])), r[4])
+                for r in done]
+
+
+_RECORDER = _SpanRecorder(SPAN_CAP)
+_NO_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+class _OpenSpan:
+    __slots__ = ("name", "_range", "_record")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._record = _RECORDER.start(self.name, time.time_ns())
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        _RECORDER.end(self._record)
+        return False
+
+
+def span(name: str):
+    """A context manager that marks a phase of the port (module docstring).
+    It records only while a torch profiler runs on this thread, and never
+    while torch.export or torch.compile traces the code, so that a traced
+    program holds no profiler operator; otherwise it is a shared no-op."""
+    if not _profiler_enabled() or torch.compiler.is_compiling():
+        return _NO_SPAN
+    return _OpenSpan(name)
+
+
+def take_spans() -> List[Span]:
+    """The finished spans recorded since the last call, in the order they
+    opened; clears them."""
+    return _RECORDER.take()

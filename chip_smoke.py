@@ -76,8 +76,7 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
 
 8. trains (training/): 8a make_train_step at full width in bf16, batch
    256, captions in bucket 24, with the encoder off and on (fine-tuning
-   layers 2-4): images/s (mean of 10 steps after 2), forward, backward and
-   optimizer ms of an instrumented step (CUDA events), peak allocated
+   layers 2-4): images/s (mean of 10 steps after 2), peak allocated
    memory, the step's convolution and matmul TFLOP (FlopCounterMode) and
    their share of the bf16 peak, finite losses (--profile: a table each);
    8b main_train end to end in bf16 on a 1,024-image split in memory, 2
@@ -168,7 +167,7 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    "manual" against cuDNN's backward at batch 256 within QC_MANUAL_REL,
    the three backwards timed at batch 256 and the largest |count| as a
    share of 2^31; 13b phase 8a's step in modes "manual" and "int8" beside
-   8a's "none" (images/s, forward/backward/optimizer ms, peak memory, busy
+   8a's "none" (images/s, peak memory, busy
    share from a profile of one step; per layer group the gradients' cosine
    and relative error against "none"'s, printed), and one fp32 "manual"
    step against "none" at batch 4 under phase 8c's bounds; 13c the native
@@ -1798,51 +1797,6 @@ def train_batch(n, seed, device):
             "lengths": torch.as_tensor(lengths.astype(np.int32), device=device)}
 
 
-@contextlib.contextmanager
-def step_marks():
-    """CUDA events at the train step's seams: before the augmentation
-    (forward starts), after the masked loss (forward ends, backward
-    starts), before the LSTM clip (backward and the gradients' division
-    end) and after each group's update. Yields the list of (label, event)
-    the calls record; restores the functions on exit."""
-    import torch
-
-    from adaptive_tpu_torch.ops import preprocess
-    from adaptive_tpu_torch.training import optim, step
-
-    marks = []
-
-    def mark(label):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((label, ev))
-
-    def around(owner, attr, before=None, after=None):
-        fn = getattr(owner, attr)
-
-        @functools.wraps(fn)
-        def wrapped(*a, **kw):
-            if before:
-                mark(before)
-            out = fn(*a, **kw)
-            if after:
-                mark(after)
-            return out
-        return owner, attr, fn, wrapped
-
-    patches = [around(preprocess, "train_preprocess", before="start"),
-               around(step, "masked_ce_sum", after="forward"),
-               around(step, "clip_lstm_grads", before="backward"),
-               around(optim.DualOptimizer, "step", after="optimizer")]
-    for owner, attr, _, wrapped in patches:
-        setattr(owner, attr, wrapped)
-    try:
-        yield marks
-    finally:
-        for owner, attr, fn, _ in patches:
-            setattr(owner, attr, fn)
-
-
 def train_throughput(smi, profile_dir=None, modes=(("encoder_off", False), ("encoder_on", True)),
                      label=None, warmup=TRAIN_WARMUP, steps=TRAIN_STEPS, batch_size=TRAIN_B,
                      **cf_kw):
@@ -1851,8 +1805,7 @@ def train_throughput(smi, profile_dir=None, modes=(("encoder_off", False), ("enc
     cf_kw: other Config knobs, phase 12c's variants and phase 14e's
     configurations; label: the printed lines' tag):
     warmup steps, then steps timed (host clock around synchronised steps), the peak of
-    allocated memory over them, one instrumented step split into forward,
-    backward and optimizer by CUDA events, and one step under
+    allocated memory over them, and one step under
     torch.utils.flop_counter.FlopCounterMode (the operations of every
     convolution and matmul, forward and backward, from their shapes)."""
     import torch
@@ -1886,30 +1839,21 @@ def train_throughput(smi, profile_dir=None, modes=(("encoder_off", False), ("enc
         losses = torch.stack(losses).float().cpu()
         if not torch.isfinite(losses).all():
             raise AssertionError(f"train {tag}: losses {losses.tolist()}")
-        with step_marks() as marks:
-            step(net, batch, gen, on)
-        torch.cuda.synchronize()
-        ev = dict(marks[:3])
-        split = {"forward": ev["start"].elapsed_time(ev["forward"]),
-                 "backward": ev["forward"].elapsed_time(ev["backward"]),
-                 "optimizer": ev["backward"].elapsed_time(marks[-1][1])}
         with FlopCounterMode(display=False) as fc:
             step(net, batch, gen, on)
         flops = fc.get_total_flops()
         share = flops / (ms * 1e-3) / PEAK_FLOPS["bfloat16"]
         log(f"[{label} {tag} bf16] {smi}: batch {batch_size}, captions {TRAIN_T}, mean of "
             f"{steps} steps after {warmup}: {ms:.3f} ms a step, "
-            f"{batch_size / ms * 1e3:.1f} images/s; one instrumented step: forward "
-            f"{split['forward']:.3f} ms, backward {split['backward']:.3f} ms, optimizer "
-            f"{split['optimizer']:.3f} ms; peak allocated {peak / 2**30:.2f} GiB; "
+            f"{batch_size / ms * 1e3:.1f} images/s; peak allocated {peak / 2**30:.2f} GiB; "
             f"{flops / 1e12:.3f} TFLOP a step (convolutions and matmuls), "
             f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {share:.4f} of the bf16 peak; losses "
             f"{[round(v, 4) for v in losses.tolist()]}")
         if profile_dir:
             profile_decode(lambda: step(net, batch, gen, on), profile_dir, smi,
                            f"train_{tag}" if not cf_kw else f"train_{cf.atten_model_name}_{tag}")
-        out[tag] = {"ms": ms, "images_per_s": batch_size / ms * 1e3, **{f"{k}_ms": v for k, v in
-                    split.items()}, "peak_bytes": peak, "tflop": flops / 1e12,
+        out[tag] = {"ms": ms, "images_per_s": batch_size / ms * 1e3, "peak_bytes": peak,
+                    "tflop": flops / 1e12,
                     "bf16_peak_share": share, "losses": losses.tolist()}
     del net, dual, step
     torch.cuda.empty_cache()
@@ -4189,8 +4133,7 @@ def qc_train(smi, none_step=None):
                       for gname, v in quality.get(mode, {}).items())
         log(f"[qc train {mode} bf16] {smi}: batch {TRAIN_B}, encoder on: {s['ms']:.3f} ms a step, "
             f"{s['images_per_s']:.1f} images/s ({s['images_per_s'] / steps['none']['images_per_s']:.3f}"
-            f" of none), forward/backward/optimizer {s['forward_ms']:.3f}/{s['backward_ms']:.3f}/"
-            f"{s['optimizer_ms']:.3f} ms, peak allocated {s['peak_bytes'] / 2 ** 30:.2f} GiB, device "
+            f" of none), peak allocated {s['peak_bytes'] / 2 ** 30:.2f} GiB, device "
             f"busy {busy[mode]:.3f} ms a step ({s['busy_share']:.4f} of the step)"
             + (f"; gradients against none: {q}" if q else ""))
     return {"steps": steps, "grad_quality": quality}
