@@ -4,8 +4,10 @@ and the int8 encoder (counterpart of adaptive_tpu/models/infer.py).
 Eval-mode BatchNorm is an affine map, so it folds into the preceding conv:
 kernel' = kernel * scale/sqrt(var+eps) per out-channel, bias' = bias_bn -
 mean * scale/sqrt(var+eps). ``prepare_encoder_inference`` does that once per
-checkpoint; the per-batch forward then runs conv+bias+relu only. Folded conv
-kernels are torch's OIHW, stored channels_last to match the activations.
+checkpoint; the per-batch forward then runs conv+bias+relu only: each conv
+without its bias, then one pass of ops/conv_epilogue.py::folded_epilogue
+adds the bias (and the residual) and applies the relu. Folded conv kernels
+are torch's OIHW, stored channels_last to match the activations.
 
 quant="int8" is symmetric post-training quantisation: per-output-channel s8
 weights, s8 activations with calibrated static scales (``calibrate_model``;
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 
 from adaptive_tpu_torch.models.encoder import AttentiveCNN, encoder_heads, head_params
 from adaptive_tpu_torch.models.resnet import RESNET_SPECS, ResNet
+from adaptive_tpu_torch.ops import conv_epilogue as CE
 from adaptive_tpu_torch.ops import fused_block as FB
 from adaptive_tpu_torch.ops import fused_tail as FT
 from adaptive_tpu_torch.ops.int8 import f32, im2col, int_mm, requant, true_div, wmat
@@ -78,15 +81,26 @@ def fold_resnet(net: ResNet) -> Dict[str, Any]:
     return out
 
 
-def _plain_conv(name, x, p, stride, pad):
-    """Float conv of NHWC x with a folded OIHW kernel and its bias. pad:
-    symmetric ((k, k), (k, k)), or None for SAME (the 7x7 stem's (3, 3) and
-    every other conv's (k - 1) / 2 alike). The NCHW view of an NHWC tensor is
-    channels_last, as the folded kernels are stored."""
-    k = p["kernel"]
+def _float_conv(x, k, bias, stride, pad):
+    """Float conv of NHWC x with a folded OIHW kernel k and bias (or None).
+    pad: symmetric ((k, k), (k, k)), or None for SAME (the 7x7 stem's (3, 3)
+    and every other conv's (k - 1) / 2 alike). The NCHW view of an NHWC
+    tensor is channels_last, as the folded kernels are stored, and so is the
+    conv's output: its NHWC view is contiguous."""
     padding = (k.shape[-1] - 1) // 2 if pad is None else pad[0][0]
-    y = F.conv2d(x.permute(0, 3, 1, 2), k.to(x.dtype), p["bias"].to(x.dtype), stride, padding)
+    y = F.conv2d(x.permute(0, 3, 1, 2), k.to(x.dtype), bias, stride, padding)
     return y.permute(0, 2, 3, 1)
+
+
+def _plain_conv(name, x, p, stride, pad):
+    """A folded conv with its bias: the pre-activation _folded_forward's
+    conv_fn returns."""
+    return _float_conv(x, p["kernel"], p["bias"].to(x.dtype), stride, pad)
+
+
+def _bias_free_conv(name, x, p, stride, pad):
+    """A folded conv without its bias, which _fused_epilogue adds."""
+    return _float_conv(x, p["kernel"], None, stride, pad)
 
 
 def _max_pool(y):
@@ -94,34 +108,58 @@ def _max_pool(y):
     return F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
 
 
-def _folded_forward(folded: Dict, x: torch.Tensor, arch: str, conv_fn) -> torch.Tensor:
+def _relu_epilogue(z, p, residual=None, residual_p=None):
+    """_folded_forward's epilogue for a conv_fn that returns biased
+    pre-activations: relu(z), or relu(z + residual)."""
+    return F.relu(z if residual is None else z + residual)
+
+
+def _fused_epilogue(z, p, residual=None, residual_p=None):
+    """The epilogue of _bias_free_conv's outputs: the conv's bias (and the
+    downsample's, on its raw output) added, the residual and the relu, in one
+    pass written into z (conv_epilogue.folded_epilogue)."""
+    rb = None if residual_p is None else residual_p["bias"].to(z.dtype)
+    return CE.folded_epilogue(z, p["bias"].to(z.dtype), residual, rb)
+
+
+def _folded_forward(folded: Dict, x: torch.Tensor, arch: str, conv_fn,
+                    epilogue=_relu_epilogue) -> torch.Tensor:
     """Single NHWC traversal shared by the float, dynamic-int8 and
     calibration forwards. conv_fn(name, x, params, stride, pad) -> the conv's
-    pre-activation; names follow torchvision ('conv1', 'layerL.B.convN',
-    'layerL.B.downsample')."""
+    output; names follow torchvision ('conv1', 'layerL.B.convN',
+    'layerL.B.downsample'). epilogue(z, params, residual=None,
+    residual_p=None) -> the activation from conv z of the conv with params;
+    a block's last conv takes the block input as its residual, or the
+    downsample's output with its params as residual_p. The default takes
+    conv_fn's outputs as biased pre-activations."""
     block_type, stages = RESNET_SPECS[arch]
-    y = _max_pool(F.relu(conv_fn("conv1", x, folded["conv1"], 2, ((3, 3), (3, 3)))))
+    y = _max_pool(epilogue(conv_fn("conv1", x, folded["conv1"], 2, ((3, 3), (3, 3))),
+                           folded["conv1"]))
     for li, n_blocks in enumerate(stages):
         for bi in range(n_blocks):
             p = folded[f"layer{li + 1}"][bi]
             nm = f"layer{li + 1}.{bi}"
             stride = 2 if (li > 0 and bi == 0) else 1
             if block_type == "bottleneck":
-                z = F.relu(conv_fn(f"{nm}.conv1", y, p["conv1"], 1, None))
-                z = F.relu(conv_fn(f"{nm}.conv2", z, p["conv2"], stride, None))
-                z = conv_fn(f"{nm}.conv3", z, p["conv3"], 1, None)
+                z = epilogue(conv_fn(f"{nm}.conv1", y, p["conv1"], 1, None), p["conv1"])
+                z = epilogue(conv_fn(f"{nm}.conv2", z, p["conv2"], stride, None), p["conv2"])
+                z, last = conv_fn(f"{nm}.conv3", z, p["conv3"], 1, None), p["conv3"]
             else:
-                z = F.relu(conv_fn(f"{nm}.conv1", y, p["conv1"], stride, None))
-                z = conv_fn(f"{nm}.conv2", z, p["conv2"], 1, None)
-            sc = conv_fn(f"{nm}.downsample", y, p["downsample"], stride, None) \
-                if "downsample" in p else y
-            y = F.relu(z + sc)
+                z = epilogue(conv_fn(f"{nm}.conv1", y, p["conv1"], stride, None), p["conv1"])
+                z, last = conv_fn(f"{nm}.conv2", z, p["conv2"], 1, None), p["conv2"]
+            if "downsample" in p:
+                y = epilogue(z, last, conv_fn(f"{nm}.downsample", y, p["downsample"], stride,
+                                              None), p["downsample"])
+            else:
+                y = epilogue(z, last, y)
     return y
 
 
 def resnet_apply_folded(folded: Dict, x: torch.Tensor, arch: str) -> torch.Tensor:
-    """BN-free forward, NHWC in and out; equals the eval-mode ResNet."""
-    return _folded_forward(folded, x, arch, _plain_conv)
+    """BN-free forward, NHWC in and out; equals the eval-mode ResNet. Each
+    conv runs without its bias, and one pass of the fused epilogue follows
+    it (1 + 3 x 50 passes in ResNet-152)."""
+    return _folded_forward(folded, x, arch, _bias_free_conv, _fused_epilogue)
 
 
 # ------------------------------------------------------------- int8 path

@@ -25,14 +25,16 @@ BUILD_DIR = HERE / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures in csrc/fused_step.cu, head_topk.cu, fused_block.cu, fused_tail.cu
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# C signatures in csrc/fused_step.cu, head_topk.cu, fused_block.cu, fused_tail.cu,
+# conv_epilogue.cu
 SIGNATURES = {
     "adaptive_cell_launch": [_I] + [_P] * 24 + [_I] * 8 + [_P],
     "head_argmax_launch": [_I] + [_P] * 8 + [_I] * 6 + [_P],
     "head_topk_launch": [_I] + [_P] * 11 + [_I] * 8 + [_P],
     "bottleneck_block_launch": [_P] * 11 + [_F] * 4 + [_I] * 11 + [_P],
     "tail_conv1_launch": [_P] * 10 + [_F] * 3 + [_I] * 9 + [_P],
+    "folded_epilogue_launch": [_I] + [_P] * 4 + [_L, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -124,7 +124,8 @@ def tracing(t: torch.Tensor) -> bool:
 
 
 # The operators of the kernels (module docstring). One library holds them
-# all; ops/fused_block.py and ops/fused_tail.py define theirs in it too.
+# all; ops/fused_block.py, ops/fused_tail.py and ops/conv_epilogue.py define
+# theirs in it too.
 LIBRARY = torch.library.Library("adaptive_tpu_torch", "DEF")
 
 

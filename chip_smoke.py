@@ -28,10 +28,17 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    beside the bound, with each kernel's launch plan (rows or images a
    block, chunks, shared bytes, blocks an SM); plus a correctness-only pass
    of each at 3 images of 13 x 13;
+2d. holds kernel 7, the float encoder's conv epilogue (bias, residual and
+   relu in one pass), at each shape of one ResNet-152 encode at batch 1024
+   against its twin in bf16 and fp32 (equal) and, in fp32, against the
+   separate PyTorch passes it replaces (equal); times kernel, twin and those
+   passes, summed over the encode's 151 launches, beside the bound of the
+   kernel's bytes;
 3. runs the greedy path end to end in bf16 at full width: build_model ->
    make_greedy_decoder -> greedy captions for 1024 seeded uint8 256x256
    images with a seeded random ResNet-152 / H 512 model; checks that each
-   kernel launched exactly once per decode step and that the outputs are
+   kernel launched exactly once per decode step (kernel 7 151 times a
+   decode, once an encode's conv but the downsamples) and that the outputs are
    well formed, and times the decode and the encoder alone (mean of
    E2E_REPEATS runs); --profile adds a torch.profiler kernel table;
 3b. runs beam search (beam 3) end to end on the same model and images:
@@ -160,7 +167,7 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    baseline's greedy decoder exported at batch 8 (ids equal).
 
 13. runs the conv-backward experiment (ops/quant_conv.py) and the COCO
-   detection API, none of the six kernels (their counts set to 0 before
+   detection API, none of the seven kernels (their counts set to 0 before
    and read after): 13a each stride-1 conv shape of ResNet-152's layers
    2-4 in bf16, the int8 backward against its CPU twin at 8 images
    (operands, scales and int32 counts equal, dx and dw within 1 ulp),
@@ -197,7 +204,7 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    in fp32 against the plain step, a bf16 step at batch 512, and SGD in
    both groups, fp32 card vs CPU under phase 8c's bounds and bf16 timed.
 
-Phases run in the order 1, 2, 2b, 3, 3b, 2c, 5, 4, 4b, 6, 7, 7b, 8a, 8b, 8c,
+Phases run in the order 1, 2, 2b, 3, 3b, 2c, 2d, 5, 4, 4b, 6, 7, 7b, 8a, 8b, 8c,
 9a, 9b, 9c, 10a, 10b, 10c, 11, 12, 13a, 13b, 13c, 14a, 14b, 14c, 14d, 14e.
 
 Prints at the end of phase 14 one JSON line of each of its sub-phases
@@ -260,6 +267,11 @@ INT8_TAILS = ((56, 256, 64, 64, 1), (56, 256, 64, 128, 1), (28, 512, 128, 128, 6
               (7, 2048, 512, 512, 1))
 INT8_FUSED = ("layer1", "layer2", "layer3", "layer4")
 INT8_LAUNCHES = sum(n for *_, n in INT8_LAYERS)
+# kernel 7 (ops/conv_epilogue.py::folded_epilogue): its launches in one
+# encode of the float ResNet-152 (the stem and 3 convs a block, 50 blocks),
+# and its timed launches at each of the encode's shapes (phase 2d)
+ENCODE_EPILOGUES = 1 + 3 * 50
+EPILOGUE_ITERS = 10
 INT8_ITERS = 5  # timed launches of each int8 kernel and its twin (ms each)
 INT8_CALIB = 32  # images that calibrate_model sees
 # kernels 5 and 6 against their twins: +/-1 quantum on under 0.2% of
@@ -894,6 +906,117 @@ def int8_summary(per_layer):
             "max_abs_err": max(r["max_abs_err"] for r in per_layer)}
 
 
+# ----------------------------------------------------------------- phase 2d
+def epilogue_shapes(size=224):
+    """(rows an image, C, mode) of each kernel 7 launch of one ResNet-152
+    encode at size px, in models/infer.py::_folded_forward's order: the stem
+    and every conv1 and conv2 "mid" (bias + relu), every conv3 "downsample"
+    (a layer's block 0: + the downsample's raw output and its bias) or
+    "identity" (+ the block input)."""
+    from adaptive_tpu_torch.models.resnet import RESNET_SPECS
+
+    out = [((size // 2) ** 2, 64, "mid")]
+    hw = size // 4
+    for li, n in enumerate(RESNET_SPECS["resnet152"][1]):
+        width = 64 << li
+        for bi in range(n):
+            out.append((hw * hw, width, "mid"))
+            hw //= 2 if li > 0 and bi == 0 else 1
+            out += [(hw * hw, width, "mid"),
+                    (hw * hw, 4 * width, "identity" if bi else "downsample")]
+    return out
+
+
+def separate_passes(acc, bias, res, rb, side):
+    """The float encoder's epilogue before kernel 7, on [rows, C] operands
+    of side x side images: F.conv2d's bias add_ on the conv output's NCHW
+    (channels_last) view as cuDNN's route adds it, the downsample's, then
+    relu(z + sc)."""
+    import torch.nn.functional as F
+
+    def nchw(t):
+        return t.view(-1, side, side, t.shape[-1]).permute(0, 3, 1, 2)
+
+    z = nchw(acc).add_(bias[:, None, None])
+    if res is not None:
+        sc = nchw(res)
+        if rb is not None:
+            sc.add_(rb[:, None, None])
+        z = z + sc
+    return F.relu(z)
+
+
+def epilogue_checks(smi):
+    """Phase 2d: kernel 7 at each distinct (rows, C, mode) of one ResNet-152
+    encode at batch B (epilogue_shapes), seeded N(0, 1) operands: in bf16
+    and fp32 equal to its twin (the same adds, one rounding), in fp32 equal
+    to separate_passes; then in bf16 the kernel, the twin and
+    separate_passes (library_ms) timed back to back, in place, and summed
+    over the encode's launches, beside the bound of the bytes the kernel
+    moves (conv output read and written, residual read)."""
+    import collections
+
+    import torch
+
+    from adaptive_tpu_torch.ops import conv_epilogue as CE
+
+    shapes = collections.Counter(epilogue_shapes())
+    if sum(shapes.values()) != ENCODE_EPILOGUES:
+        raise AssertionError(f"epilogue_shapes gives {sum(shapes.values())} launches an encode, "
+                             f"expected {ENCODE_EPILOGUES}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    per_shape, tot = [], collections.Counter()
+    for (hw, C, mode), n in shapes.items():
+        N, side = B * hw, int(round(hw ** 0.5))
+        for dt in (torch.float32, torch.bfloat16):
+            def r(*shape):
+                return torch.randn(*shape, device="cuda", generator=gen).to(dt)
+
+            acc, bias = r(N, C), r(C)
+            res = None if mode == "mid" else r(N, C)
+            rb = r(C) if mode == "downsample" else None
+            CE.folded_epilogue.launches = 0
+            got = CE.folded_epilogue(acc.clone(), bias, res, rb)
+            torch.cuda.synchronize()
+            if CE.folded_epilogue.launches != 1:
+                raise AssertionError(f"kernel 7 launched {CE.folded_epilogue.launches} times")
+            if not torch.equal(got, CE.folded_epilogue_plain(acc, bias, res, rb)):
+                raise AssertionError(f"kernel 7 {mode} {dt} [{N}, {C}]: differs from its twin")
+            if dt == torch.float32:
+                want = separate_passes(acc.clone(), bias, None if res is None else res.clone(),
+                                       rb, side)
+                if not torch.equal(got, want.permute(0, 2, 3, 1).reshape(N, C)):
+                    raise AssertionError(f"kernel 7 {mode} fp32 [{N}, {C}]: differs from the "
+                                         "separate passes")
+                del got, want, acc, res
+                continue
+            del got
+            ms = cuda_ms(lambda: CE.folded_epilogue(acc, bias, res, rb), EPILOGUE_ITERS)
+            plain = cuda_ms(lambda: CE.folded_epilogue_plain(acc, bias, res, rb), EPILOGUE_ITERS)
+            lib = cuda_ms(lambda: separate_passes(acc, bias, res, rb, side), EPILOGUE_ITERS)
+            moved = nbytes(*(t for t in (acc, acc, res, bias, rb) if t is not None))
+            per_shape.append({"rows": N, "C": C, "mode": mode, "launches": n, "ms": ms,
+                              "plain_ms": plain, "library_ms": lib,
+                              "bound_ms": bound(moved, 0, "bfloat16")[0]})
+            tot.update({"ms": n * ms, "plain_ms": n * plain, "library_ms": n * lib,
+                        "bytes": n * moved})
+            del acc, res
+        torch.cuda.empty_cache()
+    bound_ms = bound(tot["bytes"], 0, "bfloat16")[0]
+    out = {"ms": tot["ms"], "bound_ms": bound_ms, "bound_by": "bytes",
+           "plain_ms": tot["plain_ms"], "library_ms": tot["library_ms"],
+           "max_abs_err": 0.0, "dtype": "bfloat16", "per_shape": per_shape}
+    worst = sorted(per_shape, key=lambda e: e["launches"] * (e["ms"] - e["bound_ms"]))[-3:]
+    log(f"[kernel 7 conv epilogue bf16] {smi}: one encode at batch {B}, {ENCODE_EPILOGUES} "
+        f"launches at {len(per_shape)} shapes, each equal to its twin (bf16, fp32) and to the "
+        f"separate passes (fp32): kernel {tot['ms']:.3f} ms, bound {bound_ms:.3f} ms "
+        f"({tot['bytes'] / 1e9:.1f} GB; {tot['bytes'] / tot['ms'] / 1e9:.3f} TB/s), twin "
+        f"{tot['plain_ms']:.3f} ms, separate passes {tot['library_ms']:.3f} ms; most lost "
+        + ", ".join(f"[{e['rows']}, {e['C']}] {e['mode']} x{e['launches']} {e['ms']:.3f} ms "
+                    f"(bound {e['bound_ms']:.3f})" for e in reversed(worst)))
+    return out
+
+
 # ----------------------------------------------------------------- phase 3
 def seeded_images(n, seed, size=256, cells=4):
     """n uint8 NHWC images from a numpy seed: a random cells x cells grid of
@@ -927,6 +1050,7 @@ def random_model(cf, device, calib_images):
 
 
 def launch_counts():
+    from adaptive_tpu_torch.ops import conv_epilogue as ce
     from adaptive_tpu_torch.ops import fused_block as fb
     from adaptive_tpu_torch.ops import fused_step as fs
     from adaptive_tpu_torch.ops import fused_tail as ft
@@ -936,16 +1060,25 @@ def launch_counts():
             "adaptive_decode_cell_fused_beam": fs.decode_cell.launches_beam,
             "beam_head_topk": fs.beam_head_topk.launches,
             "bottleneck_identity_int8": fb.bottleneck_identity_int8.launches,
-            "tail_conv1_int8": ft.tail_conv1_int8.launches}
+            "tail_conv1_int8": ft.tail_conv1_int8.launches,
+            "folded_epilogue": ce.folded_epilogue.launches}
 
 
 def reset_launch_counts():
+    from adaptive_tpu_torch.ops import conv_epilogue as ce
     from adaptive_tpu_torch.ops import fused_block as fb
     from adaptive_tpu_torch.ops import fused_step as fs
     from adaptive_tpu_torch.ops import fused_tail as ft
 
     fs.reset_launch_counts()
     fb.bottleneck_identity_int8.launches = ft.tail_conv1_int8.launches = 0
+    ce.folded_epilogue.launches = 0
+
+
+def encode_epilogues(cf, encodes=1):
+    """folded_epilogue's launches in `encodes` encodes of cf's ResNet-152:
+    ENCODE_EPILOGUES each on the float encoder, none on the int8 one."""
+    return 0 if cf.encoder_quant == "int8" else encodes * ENCODE_EPILOGUES
 
 
 def timed_decodes(decode, net, model, cf, images, expect):
@@ -1003,7 +1136,8 @@ def end_to_end(model, net, cf, images_u8, smi, profile_dir=None):
     images = torch.as_tensor(images_u8, device="cuda")
     expect = {"adaptive_decode_cell_fused": STEPS, "greedy_head_argmax": STEPS,
               "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0,
-              "bottleneck_identity_int8": 0, "tail_conv1_int8": 0}
+              "bottleneck_identity_int8": 0, "tail_conv1_int8": 0,
+              "folded_epilogue": ENCODE_EPILOGUES}
     out, launches, total_ms, enc_ms = timed_decodes(decode, net, model, cf, images, expect)
 
     ids = out.ids.cpu().numpy()
@@ -1061,7 +1195,8 @@ def beam_end_to_end(model, net, cf, images_u8, smi, profile_dir=None):
     images = torch.as_tensor(images_u8, device="cuda")
     expect = {"adaptive_decode_cell_fused": 0, "greedy_head_argmax": 0,
               "adaptive_decode_cell_fused_beam": STEPS, "beam_head_topk": STEPS,
-              "bottleneck_identity_int8": 0, "tail_conv1_int8": 0}
+              "bottleneck_identity_int8": 0, "tail_conv1_int8": 0,
+              "folded_epilogue": ENCODE_EPILOGUES}
     out, launches, total_ms, enc_ms = timed_decodes(decode, net, model, cf, images, expect)
     ids = check_beams(out, BEAM)
 
@@ -1140,7 +1275,7 @@ def int8_end_to_end(net, cf, images_u8, smi, profile_dir=None):
     modes, calib_s = int8_modes(cf, net, images_u8)
     model_t = modes["t"][0]
     base = {"adaptive_decode_cell_fused": STEPS, "greedy_head_argmax": STEPS,
-            "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0}
+            "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0, "folded_epilogue": 0}
     with torch.no_grad():
         x = eval_preprocess(images, cf.train_crop_size, model_t.compute_dtype)
         ref = model_t.encode_inference(model_t.prepare_inference(net), x)[0]
@@ -1600,8 +1735,9 @@ def eval_driver(net, cf, smi):
     beam = {"adaptive_decode_cell_fused": 0, "greedy_head_argmax": 0,
             "adaptive_decode_cell_fused_beam": loop, "beam_head_topk": loop}
     none = {"bottleneck_identity_int8": 0, "tail_conv1_int8": 0}
-    modes = (("greedy", {}, {**greedy, **none}), (f"beam{BEAM}", {"beam_size": BEAM}, {**beam, **none}),
-             ("int8_a", {"encoder_quant": "int8"}, {**greedy, **none}))
+    exact = {**none, "folded_epilogue": n_batches * ENCODE_EPILOGUES}
+    modes = (("greedy", {}, {**greedy, **exact}), (f"beam{BEAM}", {"beam_size": BEAM}, {**beam, **exact}),
+             ("int8_a", {"encoder_quant": "int8"}, {**greedy, **none, "folded_epilogue": 0}))
     tok, stem = text_backends()
     out = {}
     with tempfile.TemporaryDirectory() as root:
@@ -1925,7 +2061,8 @@ def train_loop(smi):
         loop = TRAIN_EPOCHS * 2 * STEPS
         expect = {"adaptive_decode_cell_fused": loop, "greedy_head_argmax": loop,
                   "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0,
-                  "bottleneck_identity_int8": 0, "tail_conv1_int8": 0}
+                  "bottleneck_identity_int8": 0, "tail_conv1_int8": 0,
+                  "folded_epilogue": TRAIN_EPOCHS * 2 * ENCODE_EPILOGUES}
         if launches != expect:
             raise AssertionError(f"main_train launches {launches}, expected {expect}")
         d = os.path.join(root, "trained_models")
@@ -2623,7 +2760,8 @@ opt_rnn_lbfgs_max_iter = {CLI_MAX_ITER}
         loop = 4 * STEPS  # (2 per-epoch evals + valid + test) x 1 batch x 30 steps
         expect = {"adaptive_decode_cell_fused": loop, "greedy_head_argmax": loop,
                   "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0,
-                  "bottleneck_identity_int8": 0, "tail_conv1_int8": 0}
+                  "bottleneck_identity_int8": 0, "tail_conv1_int8": 0,
+                  "folded_epilogue": 4 * ENCODE_EPILOGUES}
         if launches != expect:
             raise AssertionError(f"CLI launches {launches}, expected {expect}")
         results = [os.path.join(exp, n) for n in os.listdir(exp) if n.endswith(".json")
@@ -2745,6 +2883,8 @@ def serving_mode(tag, cf, net, vocab, images, calib, smi, profile_dir=None):
                       else ("adaptive_decode_cell_fused", "greedy_head_argmax"))
         for name, n in launches.items():
             want_n = STEPS * batches if name in (cell, head) else 0
+            if name == "folded_epilogue":
+                want_n = encode_epilogues(cf, batches)
             if n != want_n:
                 raise AssertionError(f"[serve {tag}] {name} launched {n} times by the service's "
                                      f"worker over {batches} batches, expected {want_n}")
@@ -2843,9 +2983,11 @@ def export_check(model, net, cf, smi, out_dir):
                   for k in ("cell_gates_kernel", "cell_attend_kernel", "head_argmax_mma_kernel",
                             "head_argmax_reduce")}
     if any(n != STEPS for n in per_kernel.values()) or \
-            launches["adaptive_decode_cell_fused"] != STEPS or launches["greedy_head_argmax"] != STEPS:
+            launches["adaptive_decode_cell_fused"] != STEPS or launches["greedy_head_argmax"] != STEPS \
+            or launches["folded_epilogue"] != ENCODE_EPILOGUES:
         raise AssertionError(f"exported call launched {per_kernel} (trace), {launches} (counts); "
-                             f"expected {STEPS} of each of kernels 1 and 2")
+                             f"expected {STEPS} of each of kernels 1 and 2 and "
+                             f"{ENCODE_EPILOGUES} of kernel 7")
     timers = {"exported": Timer(), "in_process": Timer()}
     for _ in range(5):
         for name, fn in (("exported", lambda: decode(images)),
@@ -3110,7 +3252,7 @@ def md_tp_decode(model, net, cf):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         launches = launch_counts()
-        expect = {cell: STEPS, "beam_head_topk": STEPS}
+        expect = {cell: STEPS, "beam_head_topk": STEPS, "folded_epilogue": ENCODE_EPILOGUES}
         if {k: v for k, v in launches.items() if v} != expect:
             raise AssertionError(f"11a {tag}: launches {launches}, expected {expect}")
         prepared = decode.prepare(net)
@@ -3156,7 +3298,8 @@ def md_dp_eval(cf, job, rank):
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in launch_counts().items() if v}
     loop = MD_EVAL_IMAGES // MD_EVAL_BATCH * STEPS
-    if launches != {"adaptive_decode_cell_fused": loop, "greedy_head_argmax": loop}:
+    if launches != {"adaptive_decode_cell_fused": loop, "greedy_head_argmax": loop,
+                    "folded_epilogue": loop // STEPS * ENCODE_EPILOGUES}:
         raise AssertionError(f"11b: launches {launches}")
     return {"cider": cider, "per_image": per_image, "wall_s": wall, "launches": launches}
 
@@ -3559,7 +3702,8 @@ distributed_init = {on}
                                                  "cider_scores_train_eval")}}
     loop = 2 * (MD_CLI_IMAGES // (2 * MD_CLI_BATCH)) * STEPS
     for tag, run in runs.items():
-        if run["launches"] != {"adaptive_decode_cell_fused": loop, "greedy_head_argmax": loop}:
+        if run["launches"] != {"adaptive_decode_cell_fused": loop, "greedy_head_argmax": loop,
+                               "folded_epilogue": loop // STEPS * ENCODE_EPILOGUES}:
             raise AssertionError(f"11e {tag}: launches {run['launches']}")
     if started != [("nccl", 1)] or dist.is_initialized():
         raise AssertionError(f"11e: process groups started {started}, "
@@ -3686,6 +3830,7 @@ def variant_decode(model, net, cf, images_u8, smi, beam, profile_dir=None, tag=N
     images = torch.as_tensor(images_u8, device="cuda")
     expect = {k: 0 for k in launch_counts()}
     expect["beam_head_topk" if beam else "greedy_head_argmax"] = STEPS
+    expect["folded_epilogue"] = encode_epilogues(cf)
     expect.update(extra or {})
     out, launches, total_ms, enc_ms = timed_decodes(decode, net, model, cf, images, expect)
     ids = out.ids.cpu().numpy()
@@ -3810,6 +3955,7 @@ def variant_checkpoint_eval(model, net, cf, smi):
         results = read_results(os.path.join(root, "val_results", "validation-1.json"), n)
     expect = {k: 0 for k in launches}
     expect["greedy_head_argmax"] = -(-n // EVAL_BATCH) * STEPS
+    expect["folded_epilogue"] = -(-n // EVAL_BATCH) * ENCODE_EPILOGUES
     if launches != expect or len(per_image) != n or not np.isfinite(cider):
         raise AssertionError(f"{variant} eval: launches {launches}, {len(per_image)} per-image "
                              f"scores, CIDEr {cider}")
@@ -3846,6 +3992,7 @@ def variant_export(model, net, cf, smi):
     att_err = float((got["attention"].float() - want.attention.float()).abs().max())
     expect = {k: 0 for k in launches}
     expect["greedy_head_argmax"] = STEPS
+    expect["folded_epilogue"] = ENCODE_EPILOGUES
     if not (got["ids"] == want.ids).all() or att_err > EXPORT_BETA_ATOL or launches != expect:
         raise AssertionError(f"{cf.atten_model_name} export: ids equal "
                              f"{bool((got['ids'] == want.ids).all())}, attention {att_err:.3e}, "
@@ -4503,7 +4650,7 @@ def early_exit(model, net, cf, images, smi, e2e, e2e_beam, p14):
                         got.all_scores, want.all_scores)
                 need = steps_to_end(want.all_ids if beam else want.ids, eos)
                 expect = {k: 0 for k in counts}
-                expect.update({k: need for k in kernels})
+                expect.update({k: need for k in kernels}, folded_epilogue=ENCODE_EPILOGUES)
                 att, beta = got.attention.float(), got.beta
                 ran = att[:, :need].sum(-1)
                 if not same or counts != expect or (boost == 1e4 and need >= STEPS) or \
@@ -4546,7 +4693,8 @@ def beam_widths(model, net, cf, images_u8, smi, fp32, p14):
     images = torch.as_tensor(images_u8, device="cuda")
     expect = {"adaptive_decode_cell_fused": 0, "greedy_head_argmax": 0,
               "adaptive_decode_cell_fused_beam": STEPS, "beam_head_topk": STEPS,
-              "bottleneck_identity_int8": 0, "tail_conv1_int8": 0}
+              "bottleneck_identity_int8": 0, "tail_conv1_int8": 0,
+              "folded_epilogue": ENCODE_EPILOGUES}
     line = {}
     for W in BEAM_WIDTHS:
         decode = make_beam_decoder(model, cf, beam_size=W)
@@ -4740,7 +4888,7 @@ def phase_14(smi, e2e, e2e_beam, e2e_int8, step_8a):
     line["14c_int8"] = int8_beyond_adaptive(smi, images_u8, fp32, p14)
     spans["14c"] = time.perf_counter() - t0
     del images_u8
-    reset_launch_counts()  # 14d and 14e run none of the six kernels
+    reset_launch_counts()  # 14d and 14e run none of the seven kernels
     t0 = time.perf_counter()
     line["14d_layer_table"] = layer_table(smi, e2e_int8)
     spans["14d"] = time.perf_counter() - t0
@@ -4823,6 +4971,10 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     int8_checks = int8_kernel_checks()
+
+    # phase 2d: kernel 7, the float encoder's conv epilogue, at one encode's
+    # shapes
+    epilogue = epilogue_checks(smi)
 
     # phase 5: the int8 encoder end to end, modes (a), (t), (b), (c)
     int8_launches, e2e_int8 = int8_end_to_end(net, cf, images_u8, smi, args.profile)
@@ -4907,7 +5059,7 @@ def main() -> int:
 
     # phase 13: the conv-backward experiment, 13a its conv shapes, 13b the
     # step in modes manual and int8 beside 8a's none; 13c the detection
-    # stack on the host. None of the six kernels runs here: their counts are
+    # stack on the host. None of the seven kernels runs here: their counts are
     # set to 0 just before and read just after
     reset_launch_counts()
     t12 = time.perf_counter()
@@ -4983,6 +5135,12 @@ def main() -> int:
             "launches_phase14": phase14_launches(p14, name),
             **int8_summary(int8_checks[name]), "library_ms": None,
             "dtype": "int8", "per_layer": int8_checks[name]})
+    kernels.append({
+        "name": "folded_epilogue", "route": "cuda", "source": csrc + "conv_epilogue.cu",
+        "replaces": None,  # no TPU kernel: XLA fused these epilogues into the convs
+        "launches": launches["folded_epilogue"],
+        "launches_phase13": phase13_launches["folded_epilogue"],
+        "launches_phase14": phase14_launches(p14, "folded_epilogue"), **epilogue})
     log(json.dumps({"kernels": kernels, "end_to_end_bf16": e2e,
                     f"end_to_end_beam{BEAM}_bf16": e2e_beam,
                     **{f"end_to_end_int8_{t}_bf16": v for t, v in e2e_int8.items()},

@@ -3,8 +3,8 @@ that chip_smoke.py does not reach: row blocks cut short, beam groups that
 straddle blocks, widths below a tile, row counts off the heads' 128-row
 bands, top-W lists up to 128, planted ties inside a vocab tile, across two
 tiles of a split and across two splits, int8 images of odd sizes and row
-counts off the tiles. Each test skips where
-there is no card. On a machine with one:
+counts off the tiles, the conv epilogue's rows off its block steps and the
+float encode through it. Each test skips where there is no card. On a machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
@@ -18,6 +18,7 @@ import torch
 from adaptive_tpu_torch import Config
 from adaptive_tpu_torch.decoding import make_beam_decoder, make_greedy_decoder
 from adaptive_tpu_torch.models import build_model
+from adaptive_tpu_torch.ops import conv_epilogue as ce
 from adaptive_tpu_torch.ops import fused_step as fs
 
 pytestmark = pytest.mark.cuda
@@ -602,3 +603,91 @@ def test_int8_greedy_decode_on_the_card_matches_cpu(cuda, scheme):
     out_g = make_greedy_decoder(model_g, cf)(net_g, images)
     out_c = make_greedy_decoder(model_c, cf)(net_c, images)
     np.testing.assert_array_equal(out_g.ids.cpu().numpy(), out_c.ids.numpy())
+
+
+# ------------------------------------------------- kernel 7, the conv epilogue
+def _epilogue_args(rows, C, mode, dtype, device, seed=3):
+    """acc, bias, residual, residual_bias of one mode, N(0, 1) values."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g).to(dtype).to(device)  # noqa: E731
+    acc, bias = r(rows, C), r(C)
+    res = None if mode == "mid" else r(rows, C)
+    return acc, bias, res, r(C) if mode == "downsample" else None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["mid", "identity", "downsample"])
+@pytest.mark.parametrize("rows,C", [(1, 64), (1001, 64), (200_003, 64), (4099, 256),
+                                    (777, 1024), (53, 2048)])
+def test_conv_epilogue_kernel_matches_twin(cuda, dtype, mode, rows, C):
+    """Row counts that fill no block evenly (a block holds 256 / (C /
+    lanes) rows; 200,003 rows of 64 bf16 make 6,251 blocks, the last cut
+    short). Equal to the twin: the same adds, one rounding. In fp32 also
+    equal to the separate PyTorch passes it replaces (the conv's bias add_,
+    the downsample's, z + sc, relu)."""
+    acc, bias, res, rb = _epilogue_args(rows, C, mode, dtype, cuda)
+    ce.folded_epilogue.launches = 0
+    got = ce.folded_epilogue(acc.clone(), bias, res, rb)
+    torch.cuda.synchronize()
+    assert ce.folded_epilogue.launches == 1
+    assert torch.equal(got, ce.folded_epilogue_plain(acc, bias, res, rb))
+    if dtype == torch.float32:
+        z = acc.clone().add_(bias)
+        if res is not None:
+            z = z + (res if rb is None else res.clone().add_(rb))
+        assert torch.equal(got, torch.relu(z))
+
+
+def test_conv_epilogue_refuses_what_the_kernel_does_not_take(cuda):
+    acc, bias, res, rb = _epilogue_args(64, 64, "downsample", torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="acc must be contiguous"):
+        ce.folded_epilogue(acc.T.contiguous().T, bias, res, rb)
+    with pytest.raises(ValueError, match="residual must be contiguous"):
+        ce.folded_epilogue(acc, bias, res.T.contiguous().T, rb)
+    off = torch.empty(acc.numel() + 4, dtype=acc.dtype, device=cuda)[4:].view(acc.shape)
+    with pytest.raises(ValueError, match="acc must be 16-byte aligned"):
+        ce.folded_epilogue(off, bias, res, rb)  # 8 bytes off a 16-byte boundary
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ce.folded_epilogue(*_epilogue_args(64, 60, "mid", torch.bfloat16, cuda)[:2])
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ce.folded_epilogue(*_epilogue_args(64, 6, "mid", torch.float32, cuda)[:2])
+    with pytest.raises(ValueError, match="at most 4096"):
+        ce.folded_epilogue(*_epilogue_args(4, 4104, "mid", torch.bfloat16, cuda)[:2])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ce.folded_epilogue(acc.half(), bias.half())
+    with pytest.raises(ValueError, match="bias has dtype"):
+        ce.folded_epilogue(acc, bias.float(), res, rb)
+    with pytest.raises(ValueError, match="residual_bias is on cpu"):
+        ce.folded_epilogue(acc, bias, res, rb.cpu())
+
+
+@pytest.mark.parametrize("arch,launches", [("resnet18", 17), ("resnet50", 49)])
+def test_float_encode_on_the_card_runs_the_epilogue(cuda, arch, launches):
+    """An fp32 encode (TF32 off) launches kernel 7 once for each conv but
+    the downsamples, gives the bits of the traversal with biased convs and
+    separate passes on the card (the conv without its bias is the same
+    cuDNN call; the adds are the same), and the CPU's features within the
+    repo's fp32 parity bound."""
+    from adaptive_tpu_torch.models import infer
+
+    cf = Config(encoder_backbone=arch, train_crop_size=64, vocab_length=37,
+                vocab_pad_multiple=8, adaptive_word_embed_size=16,
+                adaptive_lstm_hidden_size=32, decode_max_len=4)
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(3, 64, 64, 3)).astype(np.float32))
+    model_g = build_model(cf, device=cuda)
+    net_g = model_g.init(0)
+    model_c = build_model(cf, device="cpu")
+    net_c = model_c.init(0)
+    net_c.load_state_dict({k: v.cpu() for k, v in net_g.state_dict().items()})
+    prepared = model_g.prepare_inference(net_g)
+    with torch.no_grad():
+        ce.folded_epilogue.launches = 0
+        feats_g = model_g.encode_inference(prepared, x.to(cuda))
+        torch.cuda.synchronize()
+        assert ce.folded_epilogue.launches == launches
+        folded, xg = prepared["encoder"]["resnet"], x.to(cuda)
+        fused = infer.resnet_apply_folded(folded, xg, arch)
+        assert torch.equal(fused, infer._folded_forward(folded, xg, arch, infer._plain_conv))
+        feats_c = model_c.encode_inference(model_c.prepare_inference(net_c), x)
+    for name, g, c in zip(("V", "v_g", "h0", "c0"), feats_g, feats_c):
+        torch.testing.assert_close(g.cpu(), c, atol=2e-4, rtol=0, msg=name)
