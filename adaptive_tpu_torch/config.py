@@ -10,8 +10,11 @@ configuration.py:25-40).
 
 Checks run when a Config is made (``_validate``, the JAX package's, which it
 runs in ``load_config`` only). Every knob loads as in the JAX package; the
-decoder sizes pick the ``atten_model_name``'s pair (``word_embed_size``,
-``lstm_hidden_size``). The mesh knobs (``mesh_shape``, ``mesh_axes``), ZeRO-1
+LSTM decoders' sizes pick the ``atten_model_name``'s pair
+(``word_embed_size``, ``lstm_hidden_size``). The port adds a variant the JAX
+package lacks, ``granite_h_micro``: a hybrid Mamba-2/attention language
+model as the caption decoder (models/hybrid_lm.py), sized by its own knob
+``hybrid_lm``. The mesh knobs (``mesh_shape``, ``mesh_axes``), ZeRO-1
 (``opt_state_sharding``) and ``distributed_init`` are read by the
 ``parallel`` package. ``param_dtype`` and ``train_tb_gradOrnot`` are read
 nowhere in the JAX package and nowhere here; ``decode_scan_prefix`` changes
@@ -25,9 +28,12 @@ import dataclasses
 import json
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
-VARIANTS = ("baseline_attention", "adaptive_attention", "rnn_attention")
+LSTM_VARIANTS = ("baseline_attention", "adaptive_attention", "rnn_attention")
+# and the decoders that are a hybrid language model over the trunk map's
+# image tokens (models/hybrid_lm.py)
+VARIANTS = LSTM_VARIANTS + ("granite_h_micro",)
 OPTIMIZERS = ("adam", "sgd", "lbfgs")
 
 
@@ -46,7 +52,8 @@ class Config:
     test_anno_path: str = "data/annotations/karpathy_split_test.json"
     train_eval_anno_path: str = "data/annotations/karpathy_split_train_eval.json"
 
-    atten_model_name: str = "adaptive_attention"  # baseline_attention|adaptive_attention|rnn_attention
+    # baseline_attention|adaptive_attention|rnn_attention|granite_h_micro
+    atten_model_name: str = "adaptive_attention"
 
     # stage flags (main.py), the reference's names and spelling
     trainOrnot: bool = False
@@ -139,6 +146,11 @@ class Config:
     rnn_attention_embed_size: int = 256
     rnn_attention_numlayers: int = 1  # only 1 is implemented (_validate)
     rnn_attention_hiddensize: int = 512
+    # granite_h_micro's language model: Hugging Face config.json keys of
+    # granite-4.0-h-micro (models/hybrid_lm.py::PUBLISHED) that replace the
+    # published values; None runs the published model. Its vocabulary is
+    # vocab_length. Read by no other variant.
+    hybrid_lm: Optional[Dict[str, Any]] = None
 
     encoder_backbone: str = "resnet152"  # resnet18|34|50|101|152
     # a trunk converted from torchvision weights (the JAX package's
@@ -235,6 +247,13 @@ class Config:
             "adaptive_attention": self.adaptive_lstm_hidden_size,
             "rnn_attention": self.rnn_attention_hiddensize,
         }[self.atten_model_name]
+
+
+def unsupported(variant: str, what: str):
+    """The NotImplementedError of a path a hybrid LM variant does not run."""
+    return NotImplementedError(
+        f"{what} is not implemented for atten_model_name={variant!r}: the hybrid LM decoder "
+        "runs greedy decoding only (decoding/greedy.py)")
 
 
 _CONFIG_FIELDS = {f.name for f in dataclasses.fields(Config)}
@@ -356,3 +375,9 @@ def _validate(cf: Config) -> None:
             f"rnn_attention_numlayers={cf.rnn_attention_numlayers} — only 1 "
             "layer is implemented"
         )
+    if cf.atten_model_name not in LSTM_VARIANTS:  # a hybrid LM decoder
+        if cf.encoder_quant != "none":
+            raise unsupported(cf.atten_model_name, f"encoder_quant={cf.encoder_quant!r}")
+        from adaptive_tpu_torch.models.hybrid_lm import lm_spec
+
+        lm_spec(cf)  # raises on an unknown or unsupported hybrid_lm key

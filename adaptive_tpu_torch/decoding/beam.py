@@ -25,6 +25,7 @@ import torch
 from adaptive_tpu_torch.decoding import spmd
 from adaptive_tpu_torch.decoding.greedy import prepare_cached
 from adaptive_tpu_torch.models.decoders import DecodeState
+from adaptive_tpu_torch.models.factory import require_lstm
 from adaptive_tpu_torch.ops.fused_step import topk_lower_index_first, tracing
 from adaptive_tpu_torch.ops.preprocess import eval_preprocess
 
@@ -72,6 +73,7 @@ def make_beam_decoder(model, cf, beam_size: int = None, length_alpha: float = 0.
     and the other variants, whose cells run op by op, repeat V/pv per beam
     row (the tiled layout, as the JAX package's beam.py:46-57); the outputs
     are the same."""
+    require_lstm(model, "beam search")
     W = beam_size if beam_size is not None else cf.beam_size
     if W < 1:
         raise ValueError(f"beam_size must be >= 1, got {W}")

@@ -14,6 +14,11 @@ a Python loop over eager calls, two kernel launches per step on the fused
 path (ops/fused_step.py). In a process group of more than one rank the fused
 decode runs over the config's mesh (decoding/spmd.py): every rank is handed
 the whole batch and returns the whole batch's outputs.
+
+A model with its own greedy loop, ``greedy_ids`` (the hybrid LM decoder,
+models/hybrid_lm.py), runs that loop in place of the LSTM's: it has no
+attention maps or sentinel, so its GreedyOutput's attention is [B, L, 0]
+and its beta [B, 0].
 """
 
 from __future__ import annotations
@@ -79,6 +84,8 @@ def make_greedy_decoder(model, cf):
     copy to model.device, resize and normalisation), ``decode.encode``
     (model.encode_inference) and ``decode.loop`` (precompute_slots, the
     state's initialisation, the step loop and the stacking of its outputs).
+    A hybrid LM's ``decode.loop`` is its ``greedy_ids``, which opens
+    ``decode.prefill`` first.
     """
     max_len = cf.decode_max_len
     start, eos = cf.decode_start_token, cf.decode_eos_token
@@ -96,9 +103,9 @@ def make_greedy_decoder(model, cf):
     @torch.no_grad()
     def decode_images(prepared, images) -> GreedyOutput:
         with span("decode.encode"):
-            V, v_g, h0, c0 = model.encode_inference(prepared, images)
+            encoded = model.encode_inference(prepared, images)
         with span("decode.loop"):
-            return decode_loop(prepared, V, v_g, h0, c0)
+            return loop(prepared, *encoded)
 
     def decode_loop(prepared, V, v_g, h0, c0) -> GreedyOutput:
         dec, head, cell = prepared["decoder"], prepared["head"], prepared["cell"]
@@ -131,6 +138,15 @@ def make_greedy_decoder(model, cf):
             betas.append(torch.zeros_like(betas[-1]))
         return GreedyOutput(ids=torch.stack(ids, 1), attention=torch.stack(alphas, 1),
                             beta=torch.stack(betas, 1))
+
+    def lm_loop(prepared, A_flat) -> GreedyOutput:
+        ids = model.greedy_ids(prepared, A_flat, max_len, start, eos, early_exit)
+        B = A_flat.shape[0]
+        return GreedyOutput(ids=ids, attention=A_flat.new_zeros((B, max_len, 0)),
+                            beta=A_flat.new_zeros((B, 0)))
+
+    # a language-model decoder supplies its own loop (models/hybrid_lm.py)
+    loop = lm_loop if hasattr(model, "greedy_ids") else decode_loop
 
     decode_prepared = spmd.wrap_decode_body(
         lambda prepared, images_u8: decode_images(prepared, preprocess(images_u8)), mesh)

@@ -30,7 +30,7 @@ from adaptive_tpu_torch.parallel.mesh import Mesh, gather, get_world_size, make_
 def decode_mesh(model, cf) -> Optional[Mesh]:
     """The mesh the fused decode runs over, or None (one process, the plain
     path, or a variant whose decode never reaches a kernel)."""
-    if not (model.fused and model.spec.variant == "adaptive_attention"):
+    if model.variant != "adaptive_attention" or not model.fused:
         return None
     if get_world_size() <= 1:
         return None

@@ -28,6 +28,8 @@ from typing import Optional
 
 import torch
 
+from adaptive_tpu_torch.models.factory import require_lstm
+
 
 class _DecodeProgram(torch.nn.Module):
     """images_u8 -> {'ids', 'attention', 'beta'} over the prepared weights,
@@ -52,6 +54,7 @@ def export_decoder(model, cf, net, path: str, batch_size: Optional[int] = None) 
     kernels, a CPU one a program of the plain twins."""
     from adaptive_tpu_torch.decoding import make_beam_decoder, make_greedy_decoder
 
+    require_lstm(model, "export")
     decode = (make_beam_decoder(model, cf) if cf.beam_size > 1
               else make_greedy_decoder(model, cf))
     B = batch_size or cf.eval_batch_size

@@ -19,7 +19,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 import torch.nn as nn
 
-from adaptive_tpu_torch.config import VARIANTS
+from adaptive_tpu_torch.config import LSTM_VARIANTS, VARIANTS, unsupported
 from adaptive_tpu_torch.models import decoders as D
 from adaptive_tpu_torch.models import encoder as E
 from adaptive_tpu_torch.models.encoder import AttentiveCNN
@@ -221,9 +221,23 @@ class CaptionModel(NamedTuple):
                                   tp_group=tp_group, head_tp=head_tp)
 
 
+def require_lstm(model, what: str) -> None:
+    """Raise config.unsupported (NotImplementedError naming the variant)
+    where model is not a CaptionModel: the hybrid LM decoder
+    (models/hybrid_lm.py) runs greedy decoding only."""
+    if not isinstance(model, CaptionModel):
+        raise unsupported(model.variant, what)
+
+
 def build_model(cf, device="cuda") -> CaptionModel:
+    """The CaptionModel of cf's LSTM variant, or the HybridModel of a hybrid
+    LM variant (models/hybrid_lm.py), on device."""
     if cf.atten_model_name not in VARIANTS:
         raise ValueError(f"unknown atten_model_name {cf.atten_model_name!r}")
+    if cf.atten_model_name not in LSTM_VARIANTS:
+        from adaptive_tpu_torch.models.hybrid_lm import build_hybrid
+
+        return build_hybrid(cf, resolve_device(device), DTYPES[cf.compute_dtype])
     if cf.atten_model_name == "rnn_attention" and cf.rnn_attention_numlayers != 1:
         # only the 1-layer attention LSTM of rnn_attention.py:25 is
         # implemented; the other variants never read the knob

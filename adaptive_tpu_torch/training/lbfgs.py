@@ -56,6 +56,7 @@ import torch
 
 from adaptive_tpu_torch.models import decoders as D
 from adaptive_tpu_torch.models import encoder as E
+from adaptive_tpu_torch.models.factory import require_lstm
 from adaptive_tpu_torch.models.resnet import CHILD_NAMES
 from adaptive_tpu_torch.ops import preprocess
 from adaptive_tpu_torch.ops.dropout import make_dropout
@@ -84,6 +85,7 @@ def make_lbfgs_train_step(model, dual: DualOptimizer, cf, mesh=None):
     """Returns train_step(net, batch, gen, encoder_on=False) -> StepOutput,
     the interface of training/step.py::make_train_step; the loss is the
     first evaluation's (what torch's LBFGS.step returns)."""
+    require_lstm(model, "L-BFGS training")
     crop = cf.train_crop_size
     max_norm = cf.train_lstm_maxnormal
     start_layer = cf.opt_fine_tune_cnn_start_layer

@@ -39,6 +39,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from adaptive_tpu_torch.models.factory import require_lstm
 from adaptive_tpu_torch.models.resnet import CHILD_NAMES
 from adaptive_tpu_torch.ops import preprocess
 from adaptive_tpu_torch.parallel.mesh import all_reduce_sum_
@@ -111,6 +112,7 @@ def make_train_step(model, dual: DualOptimizer, cf, mesh=None):
     kernels the autograd engine launches from its own thread), then
     ``train.optimizer`` (the all-reduce on a mesh, the division, the LSTM
     clip, the dual steps and the loss)."""
+    require_lstm(model, "training")
     crop = cf.train_crop_size
     max_norm = cf.train_lstm_maxnormal
     accum = cf.train_grad_accum_steps
@@ -168,6 +170,7 @@ def make_train_step(model, dual: DualOptimizer, cf, mesh=None):
 
 def make_eval_loss_step(model, cf):
     """Masked-CE eval loss on a batch of preprocessed images, eval-mode BN."""
+    require_lstm(model, "the eval loss")
 
     @torch.no_grad()
     def eval_loss(net, images, captions, lengths):

@@ -36,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from adaptive_tpu_torch.config import LSTM_VARIANTS, unsupported
 from adaptive_tpu_torch.data.loader import CocoCaptionDataset, TrainBatches, device_prefetch
 from adaptive_tpu_torch.data.vocab import Vocabulary
 from adaptive_tpu_torch.models.factory import get_model, resolve_device
@@ -62,6 +63,8 @@ def main_train(cf, dataset=None, device="cuda", eval_datasets=None, image_source
     images in place of their JPEGs (coco_eval's dataset=).
     image_source: the reader of those JPEGs (file path -> uint8 HWC array)
     in place of the JPEG decode, for the train split and the evals."""
+    if cf.atten_model_name not in LSTM_VARIANTS:  # before any work: the hybrid LM does not train
+        raise unsupported(cf.atten_model_name, "training")
     device = resolve_device(device)  # no card: raise before any work
     trained_model_path = cf.train_auto_resume_dir or os.path.join(
         cf.exp_dir or ".", "trained_models"

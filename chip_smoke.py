@@ -34,6 +34,11 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    separate PyTorch passes it replaces (equal); times kernel, twin and those
    passes, summed over the encode's 151 launches, beside the bound of the
    kernel's bytes;
+2e. holds kernel 8, the hybrid LM's Mamba-2 decode step, at batch 1024 and
+   granite-4.0-h-micro's widths in bf16 (xbc and dt strided slices of an
+   in_proj output) against its twin: one launch a call, y and the state
+   within one bf16 rounding, the conv state equal; times kernel and twin
+   beside the bound of the kernel's bytes;
 3. runs the greedy path end to end in bf16 at full width: build_model ->
    make_greedy_decoder -> greedy captions for 1024 seeded uint8 256x256
    images with a seeded random ResNet-152 / H 512 model; checks that each
@@ -45,6 +50,12 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    make_beam_decoder; checks that the beam kernels launched once per step
    and the greedy ones not at all, that ids, scores, attention and beta are
    well formed, and times it as phase 3 does (--profile: a second table);
+3c. runs the granite_h_micro variant (a hybrid Mamba-2/attention language
+   model over the trunk's 49 image tokens, published widths, vocab
+   100,352, seeded random weights) greedily end to end on the same images:
+   kernel 8 launched 36 times a step (1,080 a decode), kernel 7 151 times,
+   no other kernel; ids in the vocab, attention and beta of zero width;
+   times it as phase 3 does (--profile: a table);
 5. runs the int8 encoder end to end in bf16 on the same model and images:
    build_model(encoder_quant="int8") -> calibrate_model (32 images) ->
    make_greedy_decoder, in mode (a) per-channel scales, s2d stem, no fused
@@ -167,7 +178,7 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    baseline's greedy decoder exported at batch 8 (ids equal).
 
 13. runs the conv-backward experiment (ops/quant_conv.py) and the COCO
-   detection API, none of the seven kernels (their counts set to 0 before
+   detection API, none of the eight kernels (their counts set to 0 before
    and read after): 13a each stride-1 conv shape of ResNet-152's layers
    2-4 in bf16, the int8 backward against its CPU twin at 8 images
    (operands, scales and int32 counts equal, dx and dw within 1 ulp),
@@ -204,8 +215,8 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    in fp32 against the plain step, a bf16 step at batch 512, and SGD in
    both groups, fp32 card vs CPU under phase 8c's bounds and bf16 timed.
 
-Phases run in the order 1, 2, 2b, 3, 3b, 2c, 2d, 5, 4, 4b, 6, 7, 7b, 8a, 8b, 8c,
-9a, 9b, 9c, 10a, 10b, 10c, 11, 12, 13a, 13b, 13c, 14a, 14b, 14c, 14d, 14e.
+Phases run in the order 1, 2, 2b, 3, 3b, 2c, 2d, 2e, 3c, 5, 4, 4b, 6, 7, 7b, 8a,
+8b, 8c, 9a, 9b, 9c, 10a, 10b, 10c, 11, 12, 13a, 13b, 13c, 14a, 14b, 14c, 14d, 14e.
 
 Prints at the end of phase 14 one JSON line of each of its sub-phases
 ({"phase14a_early_exit": ...} to {"phase14e_train": ...}), then one JSON
@@ -272,6 +283,10 @@ INT8_LAUNCHES = sum(n for *_, n in INT8_LAYERS)
 # and its timed launches at each of the encode's shapes (phase 2d)
 ENCODE_EPILOGUES = 1 + 3 * 50
 EPILOGUE_ITERS = 10
+# kernel 8 (ops/ssm_step.py): its timed launches (phase 2e); phase 3c's
+# granite_h_micro vocabulary (granite-4.0-h-micro's config.json)
+SSM_ITERS = 20
+HYBRID_VOCAB = 100352
 INT8_ITERS = 5  # timed launches of each int8 kernel and its twin (ms each)
 INT8_CALIB = 32  # images that calibrate_model sees
 # kernels 5 and 6 against their twins: +/-1 quantum on under 0.2% of
@@ -1017,6 +1032,70 @@ def epilogue_checks(smi):
     return out
 
 
+
+# ----------------------------------------------------------------- phase 2e
+def ssm_widths():
+    """(H, P, N, G, K, Mamba layers) of granite-4.0-h-micro's Mamba-2 layers
+    (models/hybrid_lm.py::PUBLISHED)."""
+    from adaptive_tpu_torch.models.hybrid_lm import PUBLISHED as c
+
+    return (c["mamba_n_heads"], c["mamba_d_head"], c["mamba_d_state"], c["mamba_n_groups"],
+            c["mamba_d_conv"], c["layer_types"].count("mamba"))
+
+
+def ssm_step_checks(smi):
+    """Phase 2e: kernel 8, a Mamba-2 layer's decode step, at batch B and
+    granite-4.0-h-micro's widths in bf16, xbc and dt the row-strided slices
+    of a seeded in_proj output as the decode hands them over: one launch a
+    call, y and the updated state within one bf16 rounding of the twin
+    (TOL), the shifted conv state equal; then kernel and twin timed beside
+    the bound of the bytes the kernel moves (state and conv state read and
+    written, xbc, dt and the weights read, y written)."""
+    import torch
+
+    from adaptive_tpu_torch.ops import ssm_step as SS
+
+    H, P, N, G, Kc, _ = ssm_widths()
+    inner, dt = H * P, torch.bfloat16
+    C = inner + 2 * G * N
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def u(*shape, lo=-0.5, hi=0.5):
+        return torch.rand(*shape, device="cuda", generator=gen) * (hi - lo) + lo
+
+    proj = torch.randn(B, inner + C + H, device="cuda", generator=gen).to(dt)  # [z, xBC, dt]
+    xbc, dt_raw = proj[:, inner:inner + C], proj[:, inner + C:]
+    conv = torch.randn(B, Kc - 1, C, device="cuda", generator=gen).to(dt)
+    w, b = u(C, Kc).to(dt), u(C).to(dt)
+    dt_bias, A, D = u(H, lo=-7.0, hi=-3.0), -u(H, lo=1.0, hi=16.0), torch.ones(H, device="cuda")
+    state = (0.1 * torch.randn(B, H, P, N, device="cuda", generator=gen)).to(dt)
+    args = (xbc, dt_raw, conv, w, b, dt_bias, A, D, state)
+    want_y, want_conv, want_state = SS.ssm_step_plain(*args)
+    SS.ssm_step.launches = 0
+    y = SS.ssm_step(*args)
+    torch.cuda.synchronize()
+    if SS.ssm_step.launches != 1:
+        raise AssertionError(f"kernel 8 launched {SS.ssm_step.launches} times in a call")
+    if not torch.equal(conv, want_conv):
+        raise AssertionError("kernel 8: the shifted conv state differs from its twin's")
+    err = max(check_close("kernel 8 y", y, want_y, *TOL["bfloat16"]),
+              check_close("kernel 8 state", state, want_state, *TOL["bfloat16"]))
+    del want_y, want_conv, want_state
+    ms = cuda_ms(lambda: SS.ssm_step(*args), SSM_ITERS)
+    plain = cuda_ms(lambda: SS.ssm_step_plain(*args), 3, warmup=1)
+    torch.cuda.empty_cache()
+    moved = nbytes(state, state, conv, conv, xbc, dt_raw, y, w, b, dt_bias, A, D)
+    flops = 4.0 * B * inner * N + 2.0 * B * Kc * C
+    bound_ms, by = bound(moved, flops, "bfloat16")
+    log(f"[kernel 8 ssm_step bf16] {smi}: batch {B}, H {H} P {P} N {N} G {G} d_conv {Kc}, one "
+        f"launch a call, within one bf16 rounding of its twin (max abs err {err:.3e}), conv "
+        f"state equal: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({moved / 1e9:.3f} GB, "
+        f"{100 * bound_ms / ms:.1f}% of the roofline; {moved / ms / 1e9:.3f} TB/s), twin "
+        f"{plain:.3f} ms")
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": by, "plain_ms": plain,
+            "library_ms": None, "max_abs_err": err, "dtype": "bfloat16"}
+
+
 # ----------------------------------------------------------------- phase 3
 def seeded_images(n, seed, size=256, cells=4):
     """n uint8 NHWC images from a numpy seed: a random cells x cells grid of
@@ -1054,6 +1133,7 @@ def launch_counts():
     from adaptive_tpu_torch.ops import fused_block as fb
     from adaptive_tpu_torch.ops import fused_step as fs
     from adaptive_tpu_torch.ops import fused_tail as ft
+    from adaptive_tpu_torch.ops import ssm_step as ss
 
     return {"adaptive_decode_cell_fused": fs.decode_cell.launches,
             "greedy_head_argmax": fs.greedy_head_argmax.launches,
@@ -1061,7 +1141,8 @@ def launch_counts():
             "beam_head_topk": fs.beam_head_topk.launches,
             "bottleneck_identity_int8": fb.bottleneck_identity_int8.launches,
             "tail_conv1_int8": ft.tail_conv1_int8.launches,
-            "folded_epilogue": ce.folded_epilogue.launches}
+            "folded_epilogue": ce.folded_epilogue.launches,
+            "ssm_step": ss.ssm_step.launches}
 
 
 def reset_launch_counts():
@@ -1069,10 +1150,11 @@ def reset_launch_counts():
     from adaptive_tpu_torch.ops import fused_block as fb
     from adaptive_tpu_torch.ops import fused_step as fs
     from adaptive_tpu_torch.ops import fused_tail as ft
+    from adaptive_tpu_torch.ops import ssm_step as ss
 
     fs.reset_launch_counts()
     fb.bottleneck_identity_int8.launches = ft.tail_conv1_int8.launches = 0
-    ce.folded_epilogue.launches = 0
+    ce.folded_epilogue.launches = ss.ssm_step.launches = 0
 
 
 def encode_epilogues(cf, encodes=1):
@@ -1137,7 +1219,7 @@ def end_to_end(model, net, cf, images_u8, smi, profile_dir=None):
     expect = {"adaptive_decode_cell_fused": STEPS, "greedy_head_argmax": STEPS,
               "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0,
               "bottleneck_identity_int8": 0, "tail_conv1_int8": 0,
-              "folded_epilogue": ENCODE_EPILOGUES}
+              "folded_epilogue": ENCODE_EPILOGUES, "ssm_step": 0}
     out, launches, total_ms, enc_ms = timed_decodes(decode, net, model, cf, images, expect)
 
     ids = out.ids.cpu().numpy()
@@ -1196,7 +1278,7 @@ def beam_end_to_end(model, net, cf, images_u8, smi, profile_dir=None):
     expect = {"adaptive_decode_cell_fused": 0, "greedy_head_argmax": 0,
               "adaptive_decode_cell_fused_beam": STEPS, "beam_head_topk": STEPS,
               "bottleneck_identity_int8": 0, "tail_conv1_int8": 0,
-              "folded_epilogue": ENCODE_EPILOGUES}
+              "folded_epilogue": ENCODE_EPILOGUES, "ssm_step": 0}
     out, launches, total_ms, enc_ms = timed_decodes(decode, net, model, cf, images, expect)
     ids = check_beams(out, BEAM)
 
@@ -1210,6 +1292,52 @@ def beam_end_to_end(model, net, cf, images_u8, smi, profile_dir=None):
     if profile_dir:
         profile_decode(lambda: decode(net, images), profile_dir, smi, f"beam{BEAM}")
     return launches, {"total_ms": total, "encoder_ms": enc, "captions_per_s": B / total * 1e3}
+
+
+
+# ---------------------------------------------------------------- phase 3c
+def hybrid_end_to_end(images_u8, smi, profile_dir=None):
+    """Phase 3c: the granite_h_micro variant's greedy path in bf16 at its
+    published widths (40 layers, vocab 100,352): a seeded random model,
+    the trunk calibrated as phase 3's, make_greedy_decoder on the same
+    images; kernel 8 launched once a Mamba layer a step, kernel 7 151 times
+    a decode, no other kernel; ids in the vocab, attention [B, STEPS, 0]
+    and beta [B, 0]. Returns (launches, {total_ms, encoder_ms,
+    captions_per_s, cache_bytes})."""
+    import torch
+
+    from adaptive_tpu_torch import Config
+    from adaptive_tpu_torch.decoding import make_greedy_decoder
+    from adaptive_tpu_torch.models.hybrid_lm import HybridCache
+
+    torch.cuda.reset_peak_memory_stats()
+    cf = Config(atten_model_name="granite_h_micro", compute_dtype="bfloat16",
+                vocab_length=HYBRID_VOCAB)
+    model, net = random_model(cf, "cuda", images_u8[:32])
+    decode = make_greedy_decoder(model, cf)
+    images = torch.as_tensor(images_u8, device="cuda")
+    mamba = ssm_widths()[-1]
+    expect = {**{k: 0 for k in launch_counts()}, "folded_epilogue": ENCODE_EPILOGUES,
+              "ssm_step": mamba * STEPS}
+    out, launches, total_ms, enc_ms = timed_decodes(decode, net, model, cf, images, expect)
+    ids = out.ids.cpu().numpy()
+    if ids.shape != (B, STEPS) or ids.min() < 0 or ids.max() >= HYBRID_VOCAB:
+        raise AssertionError(f"ids of shape {ids.shape} in [{ids.min()}, {ids.max()}]")
+    if tuple(out.attention.shape) != (B, STEPS, 0) or tuple(out.beta.shape) != (B, 0):
+        raise AssertionError(f"attention {tuple(out.attention.shape)} and beta "
+                             f"{tuple(out.beta.shape)}, expected ({B}, {STEPS}, 0) and ({B}, 0)")
+    cache = HybridCache(model.lm, B, K + STEPS, model.compute_dtype, "meta").nbytes()
+    distinct = len({tuple(r) for r in ids.tolist()})
+    total, enc = sum(total_ms) / len(total_ms), sum(enc_ms) / len(enc_ms)
+    log(f"[end-to-end granite_h_micro bf16] {smi}: batch {B}, {STEPS} steps, mean of "
+        f"{E2E_REPEATS} runs: total {total:.3f} ms {total_ms}, encoder {enc:.3f} ms {enc_ms}, "
+        f"prefill and steps {total - enc:.3f} ms, {B / total * 1e3:.1f} captions/s; launches "
+        f"{launches}; cache bytes {cache}; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB; {distinct} distinct captions, first: {ids[0, :12].tolist()}")
+    if profile_dir:
+        profile_decode(lambda: decode(net, images), profile_dir, smi, "granite_h_micro")
+    return launches, {"total_ms": total, "encoder_ms": enc, "captions_per_s": B / total * 1e3,
+                      "cache_bytes": cache}
 
 
 # ----------------------------------------------------------------- phase 5
@@ -1246,7 +1374,7 @@ def int8_modes(cf, net, images_u8):
     model_t = calibrate_model(build_model(cf_t), cf_t, net, images_u8[:INT8_CALIB])
     torch.cuda.synchronize()
     calib_s = time.perf_counter() - t0
-    none = {"bottleneck_identity_int8": 0, "tail_conv1_int8": 0}
+    none = {"bottleneck_identity_int8": 0, "tail_conv1_int8": 0, "ssm_step": 0}
     return {
         "a": (model_a, cf_a, none),
         "t": (model_t, cf_t, none),  # the control of (b) and (c): no kernels
@@ -1275,7 +1403,8 @@ def int8_end_to_end(net, cf, images_u8, smi, profile_dir=None):
     modes, calib_s = int8_modes(cf, net, images_u8)
     model_t = modes["t"][0]
     base = {"adaptive_decode_cell_fused": STEPS, "greedy_head_argmax": STEPS,
-            "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0, "folded_epilogue": 0}
+            "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0, "folded_epilogue": 0,
+            "ssm_step": 0}
     with torch.no_grad():
         x = eval_preprocess(images, cf.train_crop_size, model_t.compute_dtype)
         ref = model_t.encode_inference(model_t.prepare_inference(net), x)[0]
@@ -1734,7 +1863,7 @@ def eval_driver(net, cf, smi):
               "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0}
     beam = {"adaptive_decode_cell_fused": 0, "greedy_head_argmax": 0,
             "adaptive_decode_cell_fused_beam": loop, "beam_head_topk": loop}
-    none = {"bottleneck_identity_int8": 0, "tail_conv1_int8": 0}
+    none = {"bottleneck_identity_int8": 0, "tail_conv1_int8": 0, "ssm_step": 0}
     exact = {**none, "folded_epilogue": n_batches * ENCODE_EPILOGUES}
     modes = (("greedy", {}, {**greedy, **exact}), (f"beam{BEAM}", {"beam_size": BEAM}, {**beam, **exact}),
              ("int8_a", {"encoder_quant": "int8"}, {**greedy, **none, "folded_epilogue": 0}))
@@ -2062,7 +2191,7 @@ def train_loop(smi):
         expect = {"adaptive_decode_cell_fused": loop, "greedy_head_argmax": loop,
                   "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0,
                   "bottleneck_identity_int8": 0, "tail_conv1_int8": 0,
-                  "folded_epilogue": TRAIN_EPOCHS * 2 * ENCODE_EPILOGUES}
+                  "folded_epilogue": TRAIN_EPOCHS * 2 * ENCODE_EPILOGUES, "ssm_step": 0}
         if launches != expect:
             raise AssertionError(f"main_train launches {launches}, expected {expect}")
         d = os.path.join(root, "trained_models")
@@ -2761,7 +2890,7 @@ opt_rnn_lbfgs_max_iter = {CLI_MAX_ITER}
         expect = {"adaptive_decode_cell_fused": loop, "greedy_head_argmax": loop,
                   "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0,
                   "bottleneck_identity_int8": 0, "tail_conv1_int8": 0,
-                  "folded_epilogue": 4 * ENCODE_EPILOGUES}
+                  "folded_epilogue": 4 * ENCODE_EPILOGUES, "ssm_step": 0}
         if launches != expect:
             raise AssertionError(f"CLI launches {launches}, expected {expect}")
         results = [os.path.join(exp, n) for n in os.listdir(exp) if n.endswith(".json")
@@ -4694,7 +4823,7 @@ def beam_widths(model, net, cf, images_u8, smi, fp32, p14):
     expect = {"adaptive_decode_cell_fused": 0, "greedy_head_argmax": 0,
               "adaptive_decode_cell_fused_beam": STEPS, "beam_head_topk": STEPS,
               "bottleneck_identity_int8": 0, "tail_conv1_int8": 0,
-              "folded_epilogue": ENCODE_EPILOGUES}
+              "folded_epilogue": ENCODE_EPILOGUES, "ssm_step": 0}
     line = {}
     for W in BEAM_WIDTHS:
         decode = make_beam_decoder(model, cf, beam_size=W)
@@ -4888,7 +5017,7 @@ def phase_14(smi, e2e, e2e_beam, e2e_int8, step_8a):
     line["14c_int8"] = int8_beyond_adaptive(smi, images_u8, fp32, p14)
     spans["14c"] = time.perf_counter() - t0
     del images_u8
-    reset_launch_counts()  # 14d and 14e run none of the seven kernels
+    reset_launch_counts()  # 14d and 14e run none of the eight kernels
     t0 = time.perf_counter()
     line["14d_layer_table"] = layer_table(smi, e2e_int8)
     spans["14d"] = time.perf_counter() - t0
@@ -4976,6 +5105,14 @@ def main() -> int:
     # shapes
     epilogue = epilogue_checks(smi)
 
+    # phase 2e: kernel 8, the hybrid LM's Mamba-2 decode step; phase 3c: the
+    # granite_h_micro variant's greedy path end to end on phase 3's images
+    ssm = ssm_step_checks(smi)
+    torch.cuda.empty_cache()
+    hybrid_launches, e2e_hybrid = hybrid_end_to_end(images_u8, smi, args.profile)
+    launches["ssm_step"] = hybrid_launches["ssm_step"]
+    torch.cuda.empty_cache()
+
     # phase 5: the int8 encoder end to end, modes (a), (t), (b), (c)
     int8_launches, e2e_int8 = int8_end_to_end(net, cf, images_u8, smi, args.profile)
     launches["bottleneck_identity_int8"] = int8_launches["b"]["bottleneck_identity_int8"]
@@ -5059,7 +5196,7 @@ def main() -> int:
 
     # phase 13: the conv-backward experiment, 13a its conv shapes, 13b the
     # step in modes manual and int8 beside 8a's none; 13c the detection
-    # stack on the host. None of the seven kernels runs here: their counts are
+    # stack on the host. None of the eight kernels runs here: their counts are
     # set to 0 just before and read just after
     reset_launch_counts()
     t12 = time.perf_counter()
@@ -5141,9 +5278,15 @@ def main() -> int:
         "launches": launches["folded_epilogue"],
         "launches_phase13": phase13_launches["folded_epilogue"],
         "launches_phase14": phase14_launches(p14, "folded_epilogue"), **epilogue})
+    kernels.append({
+        "name": "ssm_step", "route": "cuda", "source": csrc + "ssm_step.cu",
+        "replaces": None,  # no TPU kernel: the JAX package has no state-space model
+        "launches": launches["ssm_step"], "launches_phase13": phase13_launches["ssm_step"],
+        "launches_phase14": phase14_launches(p14, "ssm_step"), **ssm})
     log(json.dumps({"kernels": kernels, "end_to_end_bf16": e2e,
                     f"end_to_end_beam{BEAM}_bf16": e2e_beam,
                     **{f"end_to_end_int8_{t}_bf16": v for t, v in e2e_int8.items()},
+                    "end_to_end_granite_h_micro_bf16": e2e_hybrid,
                     "card": smi}))
     log(json.dumps({"eval_driver": eval_line}))
     log(json.dumps({"train": train_line}))
