@@ -76,8 +76,9 @@ def load_decoder(path: str):
     """Load an exported decoder; returns images_u8 (numpy or tensor) ->
     dict of tensors on the program's device. A batch or image size other
     than the exported one raises."""
-    import adaptive_tpu_torch.ops.conv_epilogue  # noqa: F401  the operators the
-    import adaptive_tpu_torch.ops.fused_block  # noqa: F401  program calls
+    import adaptive_tpu_torch.ops.conv1x1  # noqa: F401  the operators the
+    import adaptive_tpu_torch.ops.conv_epilogue  # noqa: F401  program calls
+    import adaptive_tpu_torch.ops.fused_block  # noqa: F401
     import adaptive_tpu_torch.ops.fused_step  # noqa: F401
     import adaptive_tpu_torch.ops.fused_tail  # noqa: F401
 

@@ -6,8 +6,10 @@ kernel' = kernel * scale/sqrt(var+eps) per out-channel, bias' = bias_bn -
 mean * scale/sqrt(var+eps). ``prepare_encoder_inference`` does that once per
 checkpoint; the per-batch forward then runs conv+bias+relu only: each conv
 without its bias, then one pass of ops/conv_epilogue.py::folded_epilogue
-adds the bias (and the residual) and applies the relu. Folded conv kernels
-are torch's OIHW, stored channels_last to match the activations.
+adds the bias (and the residual) and applies the relu; a stride-1 1x1 conv
+of a bf16 activation runs as one GEMM with that epilogue
+(ops/conv1x1.py::conv1x1_epilogue). Folded conv kernels are torch's OIHW,
+stored channels_last to match the activations.
 
 quant="int8" is symmetric post-training quantisation: per-output-channel s8
 weights, s8 activations with calibrated static scales (``calibrate_model``;
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 
 from adaptive_tpu_torch.models.encoder import AttentiveCNN, encoder_heads, head_params
 from adaptive_tpu_torch.models.resnet import RESNET_SPECS, ResNet
+from adaptive_tpu_torch.ops import conv1x1 as CX
 from adaptive_tpu_torch.ops import conv_epilogue as CE
 from adaptive_tpu_torch.ops import fused_block as FB
 from adaptive_tpu_torch.ops import fused_tail as FT
@@ -108,12 +111,6 @@ def _max_pool(y):
     return F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
 
 
-def _relu_epilogue(z, p, residual=None, residual_p=None):
-    """_folded_forward's epilogue for a conv_fn that returns biased
-    pre-activations: relu(z), or relu(z + residual)."""
-    return F.relu(z if residual is None else z + residual)
-
-
 def _fused_epilogue(z, p, residual=None, residual_p=None):
     """The epilogue of _bias_free_conv's outputs: the conv's bias (and the
     downsample's, on its raw output) added, the residual and the relu, in one
@@ -122,44 +119,63 @@ def _fused_epilogue(z, p, residual=None, residual_p=None):
     return CE.folded_epilogue(z, p["bias"].to(z.dtype), residual, rb)
 
 
+def _fused_conv(name, x, p, stride, pad, residual=None, residual_p=None):
+    """The float encoder's conv and epilogue: a stride-1 1x1 conv of a bf16
+    activation as one GEMM with the epilogue in it (conv1x1.conv1x1_epilogue),
+    any other conv as _bias_free_conv followed by _fused_epilogue."""
+    k = p["kernel"]
+    if stride == 1 and tuple(k.shape[-2:]) == (1, 1) and x.dtype == torch.bfloat16:
+        rb = None if residual_p is None else residual_p["bias"].to(x.dtype)
+        return CX.conv1x1_epilogue(x, k.to(x.dtype), p["bias"].to(x.dtype), residual, rb)
+    return _fused_epilogue(_bias_free_conv(name, x, p, stride, pad), p, residual, residual_p)
+
+
 def _folded_forward(folded: Dict, x: torch.Tensor, arch: str, conv_fn,
-                    epilogue=_relu_epilogue) -> torch.Tensor:
+                    conv_act=None) -> torch.Tensor:
     """Single NHWC traversal shared by the float, dynamic-int8 and
     calibration forwards. conv_fn(name, x, params, stride, pad) -> the conv's
     output; names follow torchvision ('conv1', 'layerL.B.convN',
-    'layerL.B.downsample'). epilogue(z, params, residual=None,
-    residual_p=None) -> the activation from conv z of the conv with params;
+    'layerL.B.downsample'). conv_act(name, x, params, stride, pad,
+    residual=None, residual_p=None) -> the activation of a conv with params:
     a block's last conv takes the block input as its residual, or the
-    downsample's output with its params as residual_p. The default takes
-    conv_fn's outputs as biased pre-activations."""
+    downsample's output (conv_fn's, run before that conv) with its params as
+    residual_p. The default is relu(z) or relu(z + residual), conv_fn's
+    output z taken as the biased pre-activation."""
+    if conv_act is None:
+        def conv_act(name, xx, p, stride, pad, residual=None, residual_p=None):
+            z = conv_fn(name, xx, p, stride, pad)
+            return F.relu(z if residual is None else z + residual)
+
     block_type, stages = RESNET_SPECS[arch]
-    y = _max_pool(epilogue(conv_fn("conv1", x, folded["conv1"], 2, ((3, 3), (3, 3))),
-                           folded["conv1"]))
+    y = _max_pool(conv_act("conv1", x, folded["conv1"], 2, ((3, 3), (3, 3))))
     for li, n_blocks in enumerate(stages):
         for bi in range(n_blocks):
             p = folded[f"layer{li + 1}"][bi]
             nm = f"layer{li + 1}.{bi}"
             stride = 2 if (li > 0 and bi == 0) else 1
             if block_type == "bottleneck":
-                z = epilogue(conv_fn(f"{nm}.conv1", y, p["conv1"], 1, None), p["conv1"])
-                z = epilogue(conv_fn(f"{nm}.conv2", z, p["conv2"], stride, None), p["conv2"])
-                z, last = conv_fn(f"{nm}.conv3", z, p["conv3"], 1, None), p["conv3"]
+                z = conv_act(f"{nm}.conv1", y, p["conv1"], 1, None)
+                z = conv_act(f"{nm}.conv2", z, p["conv2"], stride, None)
+                last = "conv3"
             else:
-                z = epilogue(conv_fn(f"{nm}.conv1", y, p["conv1"], stride, None), p["conv1"])
-                z, last = conv_fn(f"{nm}.conv2", z, p["conv2"], 1, None), p["conv2"]
+                z = conv_act(f"{nm}.conv1", y, p["conv1"], stride, None)
+                last = "conv2"
+            r, rp = y, None
             if "downsample" in p:
-                y = epilogue(z, last, conv_fn(f"{nm}.downsample", y, p["downsample"], stride,
-                                              None), p["downsample"])
-            else:
-                y = epilogue(z, last, y)
+                rp = p["downsample"]
+                r = conv_fn(f"{nm}.downsample", y, rp, stride, None)
+            y = conv_act(f"{nm}.{last}", z, p[last], 1, None, r, rp)
     return y
 
 
 def resnet_apply_folded(folded: Dict, x: torch.Tensor, arch: str) -> torch.Tensor:
     """BN-free forward, NHWC in and out; equals the eval-mode ResNet. Each
     conv runs without its bias, and one pass of the fused epilogue follows
-    it (1 + 3 x 50 passes in ResNet-152)."""
-    return _folded_forward(folded, x, arch, _bias_free_conv, _fused_epilogue)
+    it (1 + 3 x 50 passes in ResNet-152); in bf16 the stride-1 1x1 convs
+    (every conv1 and conv3 of a bottleneck, 100 in ResNet-152) take their
+    epilogue inside one GEMM instead, and the stem and every conv2 keep the
+    pass (51)."""
+    return _folded_forward(folded, x, arch, _bias_free_conv, _fused_conv)
 
 
 # ------------------------------------------------------------- int8 path

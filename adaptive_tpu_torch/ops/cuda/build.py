@@ -27,7 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signatures in csrc/fused_step.cu, head_topk.cu, fused_block.cu, fused_tail.cu,
-# conv_epilogue.cu, ssm_step.cu
+# conv_epilogue.cu, ssm_step.cu, conv1x1_epilogue.cu
 SIGNATURES = {
     "adaptive_cell_launch": [_I] + [_P] * 24 + [_I] * 8 + [_P],
     "head_argmax_launch": [_I] + [_P] * 8 + [_I] * 6 + [_P],
@@ -36,6 +36,8 @@ SIGNATURES = {
     "tail_conv1_launch": [_P] * 10 + [_F] * 3 + [_I] * 9 + [_P],
     "folded_epilogue_launch": [_I] + [_P] * 4 + [_L, _I, _P],
     "ssm_step_launch": [_I, _P, _L, _P, _L] + [_P] * 8 + [_I] * 7 + [_P],
+    "conv1x1_epilogue_launch": [_P] * 6 + [_L, _I, _I, _P],
+    "conv1x1_epilogue_plan": [_L, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

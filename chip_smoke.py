@@ -39,11 +39,22 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    in_proj output) against its twin: one launch a call, y and the state
    within one bf16 rounding, the conv state equal; times kernel and twin
    beside the bound of the kernel's bytes;
+2f. holds kernel 9, the bf16 encoder's stride-1 1x1 convolution with
+   kernel 7's epilogue in it, at each (M, K, N, mode) of one ResNet-152
+   encode at batch 1024 and at batch 32 (serving's) against its twin (one
+   launch a call, within one bf16 rounding); times kernel, twin and cuDNN's
+   bias-free conv followed by kernel 7 (library_ms), summed over the
+   encode's 100 launches, beside the bound (the larger of x, W, the
+   residual and y over the HBM rate and the products over the bf16 peak),
+   with each shape's launch plan; names the shapes where kernel 9 is slower
+   than that pair;
 3. runs the greedy path end to end in bf16 at full width: build_model ->
    make_greedy_decoder -> greedy captions for 1024 seeded uint8 256x256
    images with a seeded random ResNet-152 / H 512 model; checks that each
-   kernel launched exactly once per decode step (kernel 7 151 times a
-   decode, once an encode's conv but the downsamples) and that the outputs are
+   kernel launched exactly once per decode step (kernel 9 100 times a
+   decode, once a bottleneck's conv1 and conv3, and kernel 7 51 times, once
+   for the stem and each conv2; an fp32 encode launches kernel 7 151 times,
+   once a conv but the downsamples) and that the outputs are
    well formed, and times the decode and the encoder alone (mean of
    E2E_REPEATS runs); --profile adds a torch.profiler kernel table;
 3b. runs beam search (beam 3) end to end on the same model and images:
@@ -178,7 +189,7 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    baseline's greedy decoder exported at batch 8 (ids equal).
 
 13. runs the conv-backward experiment (ops/quant_conv.py) and the COCO
-   detection API, none of the eight kernels (their counts set to 0 before
+   detection API, none of the nine kernels (their counts set to 0 before
    and read after): 13a each stride-1 conv shape of ResNet-152's layers
    2-4 in bf16, the int8 backward against its CPU twin at 8 images
    (operands, scales and int32 counts equal, dx and dw within 1 ulp),
@@ -215,7 +226,7 @@ Builds the port's CUDA kernels from adaptive_tpu_torch/ops/cuda/csrc, then:
    in fp32 against the plain step, a bf16 step at batch 512, and SGD in
    both groups, fp32 card vs CPU under phase 8c's bounds and bf16 timed.
 
-Phases run in the order 1, 2, 2b, 3, 3b, 2c, 2d, 2e, 3c, 5, 4, 4b, 6, 7, 7b, 8a,
+Phases run in the order 1, 2, 2b, 3, 3b, 2c, 2d, 2e, 2f, 3c, 5, 4, 4b, 6, 7, 7b, 8a,
 8b, 8c, 9a, 9b, 9c, 10a, 10b, 10c, 11, 12, 13a, 13b, 13c, 14a, 14b, 14c, 14d, 14e.
 
 Prints at the end of phase 14 one JSON line of each of its sub-phases
@@ -279,9 +290,12 @@ INT8_TAILS = ((56, 256, 64, 64, 1), (56, 256, 64, 128, 1), (28, 512, 128, 128, 6
 INT8_FUSED = ("layer1", "layer2", "layer3", "layer4")
 INT8_LAUNCHES = sum(n for *_, n in INT8_LAYERS)
 # kernel 7 (ops/conv_epilogue.py::folded_epilogue): its launches in one
-# encode of the float ResNet-152 (the stem and 3 convs a block, 50 blocks),
-# and its timed launches at each of the encode's shapes (phase 2d)
+# fp32 encode of the float ResNet-152 (the stem and 3 convs a block, 50
+# blocks), and its timed launches at each of the encode's shapes (phase 2d);
+# kernel 9 (ops/conv1x1.py::conv1x1_epilogue) takes each block's conv1 and
+# conv3 of a bf16 encode, which leaves kernel 7 the stem and the conv2s
 ENCODE_EPILOGUES = 1 + 3 * 50
+ENCODE_CONV1X1 = 2 * 50
 EPILOGUE_ITERS = 10
 # kernel 8 (ops/ssm_step.py): its timed launches (phase 2e); phase 3c's
 # granite_h_micro vocabulary (granite-4.0-h-micro's config.json)
@@ -922,12 +936,13 @@ def int8_summary(per_layer):
 
 
 # ----------------------------------------------------------------- phase 2d
-def epilogue_shapes(size=224):
-    """(rows an image, C, mode) of each kernel 7 launch of one ResNet-152
-    encode at size px, in models/infer.py::_folded_forward's order: the stem
-    and every conv1 and conv2 "mid" (bias + relu), every conv3 "downsample"
-    (a layer's block 0: + the downsample's raw output and its bias) or
-    "identity" (+ the block input)."""
+def epilogue_shapes(size=224, bf16=False):
+    """(rows an image, C, mode) of each kernel 7 launch of one fp32
+    ResNet-152 encode at size px, in models/infer.py::_folded_forward's
+    order: the stem and every conv1 and conv2 "mid" (bias + relu), every
+    conv3 "downsample" (a layer's block 0: + the downsample's raw output and
+    its bias) or "identity" (+ the block input). bf16: those of a bf16
+    encode, the stem and the conv2s (kernel 9 takes the conv1s and conv3s)."""
     from adaptive_tpu_torch.models.resnet import RESNET_SPECS
 
     out = [((size // 2) ** 2, 64, "mid")]
@@ -935,10 +950,12 @@ def epilogue_shapes(size=224):
     for li, n in enumerate(RESNET_SPECS["resnet152"][1]):
         width = 64 << li
         for bi in range(n):
-            out.append((hw * hw, width, "mid"))
+            if not bf16:
+                out.append((hw * hw, width, "mid"))
             hw //= 2 if li > 0 and bi == 0 else 1
-            out += [(hw * hw, width, "mid"),
-                    (hw * hw, 4 * width, "identity" if bi else "downsample")]
+            out.append((hw * hw, width, "mid"))
+            if not bf16:
+                out.append((hw * hw, 4 * width, "identity" if bi else "downsample"))
     return out
 
 
@@ -1018,9 +1035,17 @@ def epilogue_checks(smi):
             del acc, res
         torch.cuda.empty_cache()
     bound_ms = bound(tot["bytes"], 0, "bfloat16")[0]
+    # the bf16 encode's launches: the stem and the conv2s
+    at = {(e["rows"], e["C"], e["mode"]): e for e in per_shape}
+    kept = [(at[(B * hw, C, mode)], n)
+            for (hw, C, mode), n in collections.Counter(epilogue_shapes(bf16=True)).items()]
+    bf16_encode = {"launches": sum(n for _, n in kept),
+                   "ms": sum(n * e["ms"] for e, n in kept),
+                   "bound_ms": sum(n * e["bound_ms"] for e, n in kept)}
     out = {"ms": tot["ms"], "bound_ms": bound_ms, "bound_by": "bytes",
            "plain_ms": tot["plain_ms"], "library_ms": tot["library_ms"],
-           "max_abs_err": 0.0, "dtype": "bfloat16", "per_shape": per_shape}
+           "max_abs_err": 0.0, "dtype": "bfloat16", "bf16_encode": bf16_encode,
+           "per_shape": per_shape}
     worst = sorted(per_shape, key=lambda e: e["launches"] * (e["ms"] - e["bound_ms"]))[-3:]
     log(f"[kernel 7 conv epilogue bf16] {smi}: one encode at batch {B}, {ENCODE_EPILOGUES} "
         f"launches at {len(per_shape)} shapes, each equal to its twin (bf16, fp32) and to the "
@@ -1028,9 +1053,136 @@ def epilogue_checks(smi):
         f"({tot['bytes'] / 1e9:.1f} GB; {tot['bytes'] / tot['ms'] / 1e9:.3f} TB/s), twin "
         f"{tot['plain_ms']:.3f} ms, separate passes {tot['library_ms']:.3f} ms; most lost "
         + ", ".join(f"[{e['rows']}, {e['C']}] {e['mode']} x{e['launches']} {e['ms']:.3f} ms "
-                    f"(bound {e['bound_ms']:.3f})" for e in reversed(worst)))
+                    f"(bound {e['bound_ms']:.3f})" for e in reversed(worst))
+        + f"; a bf16 encode's {bf16_encode['launches']} (the stem and the conv2s) "
+          f"{bf16_encode['ms']:.3f} ms, bound {bf16_encode['bound_ms']:.3f} ms")
     return out
 
+
+
+# ----------------------------------------------------------------- phase 2f
+def conv1x1_shapes(size=224):
+    """(rows an image, K, N, mode) of each kernel 9 launch of one bf16
+    ResNet-152 encode at size px, in models/infer.py::_folded_forward's
+    order: every conv1 "mid" (bias + relu, stride 1, so at the block
+    input's resolution) and conv3 "downsample" (a layer's block 0: + the
+    downsample's raw output and its bias) or "identity" (+ the block
+    input)."""
+    from adaptive_tpu_torch.models.resnet import RESNET_SPECS
+
+    out, hw, cin = [], size // 4, 64
+    for li, n in enumerate(RESNET_SPECS["resnet152"][1]):
+        width = 64 << li
+        for bi in range(n):
+            out.append((hw * hw, cin, width, "mid"))
+            hw //= 2 if li > 0 and bi == 0 else 1
+            out.append((hw * hw, width, 4 * width, "identity" if bi else "downsample"))
+            cin = 4 * width
+    return out
+
+
+def conv1x1_library(x, w4, bias, res, rb, side):
+    """The bf16 encoder's path before kernel 9, on [M, K] x and [M, N]
+    operands of side x side images: cuDNN's bias-free conv of the NHWC
+    activation (its channels_last NCHW view), then kernel 7 in place."""
+    import torch.nn.functional as F
+
+    from adaptive_tpu_torch.ops import conv_epilogue as CE
+
+    K = x.shape[-1]
+    z = F.conv2d(x.view(-1, side, side, K).permute(0, 3, 1, 2), w4).permute(0, 2, 3, 1)
+    return CE.folded_epilogue(z, bias, None if res is None else res.view(z.shape), rb)
+
+
+def conv1x1_checks(smi, batches=(B, 32)):
+    """Phase 2f: kernel 9 at each distinct (M, K, N, mode) of one bf16
+    ResNet-152 encode (conv1x1_shapes) at each of `batches`, seeded N(0, 1)
+    activations and residuals and N(0, 1/K) weights: one launch a call,
+    within one bf16 rounding of its twin (the fp32 product in another
+    order, then the same epilogue); then the kernel, the twin and
+    conv1x1_library timed back to back and summed over the encode's
+    launches, beside the bound: the larger of the bytes of x, W, the
+    residual and y over the HBM rate and the products over the bf16 peak,
+    a launch at a time; the kernel's ms the mean of a timing before and
+    one after the twin's and the library's. Returns the first batch's
+    numbers, with the others' under "batch_<n>"."""
+    import collections
+
+    import torch
+
+    from adaptive_tpu_torch.ops import conv1x1 as CX
+
+    shapes = collections.Counter(conv1x1_shapes())
+    if sum(shapes.values()) != ENCODE_CONV1X1:
+        raise AssertionError(f"conv1x1_shapes gives {sum(shapes.values())} launches an encode, "
+                             f"expected {ENCODE_CONV1X1}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    atol, rtol = TOL["bfloat16"]
+    out = {}
+    for nb in batches:
+        per_shape, tot = [], collections.Counter()
+        for (hw, K, N, mode), n in shapes.items():
+            M, side = nb * hw, int(round(hw ** 0.5))
+
+            def r(*shape, scale=1.0):
+                return (torch.randn(*shape, device="cuda", generator=gen) * scale).bfloat16()
+
+            x, w4, bias = r(M, K), r(N, K, 1, 1, scale=K ** -0.5), r(N)
+            res = None if mode == "mid" else r(M, N)
+            rb = r(N) if mode == "downsample" else None
+            CX.conv1x1_epilogue.launches = 0
+            got = CX.conv1x1_epilogue(x, w4, bias, res, rb)
+            torch.cuda.synchronize()
+            if CX.conv1x1_epilogue.launches != 1:
+                raise AssertionError(f"kernel 9 launched {CX.conv1x1_epilogue.launches} times")
+            err = check_close(f"kernel 9 {mode} [{M}, {K}] x [{N}, {K}]", got,
+                              CX.conv1x1_epilogue_plain(x, w4, bias, res, rb), atol, rtol)
+            del got
+            # the kernel before and after the others, whose heavier fp32 twin
+            # can leave the card's clocks lowered for the next timing
+            def kernel():
+                return CX.conv1x1_epilogue(x, w4, bias, res, rb)
+
+            ms = cuda_ms(kernel, EPILOGUE_ITERS)
+            plain = cuda_ms(lambda: CX.conv1x1_epilogue_plain(x, w4, bias, res, rb),
+                            EPILOGUE_ITERS)
+            lib = cuda_ms(lambda: conv1x1_library(x, w4, bias, res, rb, side), EPILOGUE_ITERS)
+            ms = (ms + cuda_ms(kernel, EPILOGUE_ITERS)) / 2
+            moved = nbytes(*(t for t in (x, w4, res, x.new_empty(M, N)) if t is not None))
+            flops = 2.0 * M * K * N
+            bms = bound(moved, flops, "bfloat16")[0]
+            per_shape.append({"M": M, "K": K, "N": N, "mode": mode, "launches": n, "ms": ms,
+                              "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+                              "max_abs_err": err,
+                              "plan": CX.launch_plan(M, K, N, res is not None)})
+            tot.update({"ms": n * ms, "plain_ms": n * plain, "library_ms": n * lib,
+                        "bound_ms": n * bms, "bytes": n * moved, "flops": n * flops})
+            del x, w4, res
+            torch.cuda.empty_cache()
+        line = {"ms": tot["ms"], "bound_ms": tot["bound_ms"], "plain_ms": tot["plain_ms"],
+                "library_ms": tot["library_ms"], "bytes": tot["bytes"], "flops": tot["flops"],
+                "max_abs_err": max(e["max_abs_err"] for e in per_shape), "dtype": "bfloat16",
+                "batch": nb, "per_shape": per_shape}
+        slower = [e for e in per_shape if e["ms"] > e["library_ms"]]
+        worst = sorted(per_shape, key=lambda e: e["launches"] * (e["ms"] - e["bound_ms"]))[-3:]
+        log(f"[kernel 9 conv1x1 epilogue bf16 batch {nb}] {smi}: one encode, {ENCODE_CONV1X1} "
+            f"launches at {len(per_shape)} shapes, each within one bf16 rounding of its twin: "
+            f"kernel {tot['ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
+            f"({100 * tot['bound_ms'] / tot['ms']:.1f}%; {tot['bytes'] / 1e9:.2f} GB, "
+            f"{tot['flops'] / 1e12:.2f} TFLOP), twin {tot['plain_ms']:.3f} ms, cuDNN conv + "
+            f"kernel 7 {tot['library_ms']:.3f} ms; most lost "
+            + ", ".join(f"[{e['M']}, {e['K']}, {e['N']}] {e['mode']} x{e['launches']} "
+                        f"{e['ms']:.4f} ms (bound {e['bound_ms']:.4f}, plan {e['plan']})"
+                        for e in reversed(worst))
+            + "; slower than cuDNN + kernel 7: "
+            + (", ".join(f"[{e['M']}, {e['K']}, {e['N']}] {e['mode']} {e['ms']:.4f} vs "
+                         f"{e['library_ms']:.4f} ms (plan {e['plan']})" for e in slower)
+               or "none"))
+        if not out:
+            out = line
+        else:
+            out[f"batch_{nb}"] = line
+    return out
 
 
 # ----------------------------------------------------------------- phase 2e
@@ -1129,6 +1281,7 @@ def random_model(cf, device, calib_images):
 
 
 def launch_counts():
+    from adaptive_tpu_torch.ops import conv1x1 as cx
     from adaptive_tpu_torch.ops import conv_epilogue as ce
     from adaptive_tpu_torch.ops import fused_block as fb
     from adaptive_tpu_torch.ops import fused_step as fs
@@ -1142,10 +1295,12 @@ def launch_counts():
             "bottleneck_identity_int8": fb.bottleneck_identity_int8.launches,
             "tail_conv1_int8": ft.tail_conv1_int8.launches,
             "folded_epilogue": ce.folded_epilogue.launches,
+            "conv1x1_epilogue": cx.conv1x1_epilogue.launches,
             "ssm_step": ss.ssm_step.launches}
 
 
 def reset_launch_counts():
+    from adaptive_tpu_torch.ops import conv1x1 as cx
     from adaptive_tpu_torch.ops import conv_epilogue as ce
     from adaptive_tpu_torch.ops import fused_block as fb
     from adaptive_tpu_torch.ops import fused_step as fs
@@ -1154,13 +1309,22 @@ def reset_launch_counts():
 
     fs.reset_launch_counts()
     fb.bottleneck_identity_int8.launches = ft.tail_conv1_int8.launches = 0
-    ce.folded_epilogue.launches = ss.ssm_step.launches = 0
+    ce.folded_epilogue.launches = cx.conv1x1_epilogue.launches = ss.ssm_step.launches = 0
 
 
-def encode_epilogues(cf, encodes=1):
-    """folded_epilogue's launches in `encodes` encodes of cf's ResNet-152:
-    ENCODE_EPILOGUES each on the float encoder, none on the int8 one."""
-    return 0 if cf.encoder_quant == "int8" else encodes * ENCODE_EPILOGUES
+def encode_kernels(cf, encodes=1):
+    """{"folded_epilogue": kernel 7's launches, "conv1x1_epilogue": kernel
+    9's} in `encodes` encodes of cf's ResNet-152: in bf16 ENCODE_CONV1X1 of
+    kernel 9 and the rest of ENCODE_EPILOGUES of kernel 7, in fp32
+    ENCODE_EPILOGUES of kernel 7; none on the int8 encoder."""
+    if cf.encoder_quant == "int8":
+        return {"folded_epilogue": 0, "conv1x1_epilogue": 0}
+    n9 = ENCODE_CONV1X1 if cf.compute_dtype == "bfloat16" else 0
+    return {"folded_epilogue": encodes * (ENCODE_EPILOGUES - n9), "conv1x1_epilogue": encodes * n9}
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
 
 
 def timed_decodes(decode, net, model, cf, images, expect):
@@ -1219,7 +1383,7 @@ def end_to_end(model, net, cf, images_u8, smi, profile_dir=None):
     expect = {"adaptive_decode_cell_fused": STEPS, "greedy_head_argmax": STEPS,
               "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0,
               "bottleneck_identity_int8": 0, "tail_conv1_int8": 0,
-              "folded_epilogue": ENCODE_EPILOGUES, "ssm_step": 0}
+              **encode_kernels(cf), "ssm_step": 0}
     out, launches, total_ms, enc_ms = timed_decodes(decode, net, model, cf, images, expect)
 
     ids = out.ids.cpu().numpy()
@@ -1278,7 +1442,7 @@ def beam_end_to_end(model, net, cf, images_u8, smi, profile_dir=None):
     expect = {"adaptive_decode_cell_fused": 0, "greedy_head_argmax": 0,
               "adaptive_decode_cell_fused_beam": STEPS, "beam_head_topk": STEPS,
               "bottleneck_identity_int8": 0, "tail_conv1_int8": 0,
-              "folded_epilogue": ENCODE_EPILOGUES, "ssm_step": 0}
+              **encode_kernels(cf), "ssm_step": 0}
     out, launches, total_ms, enc_ms = timed_decodes(decode, net, model, cf, images, expect)
     ids = check_beams(out, BEAM)
 
@@ -1300,8 +1464,8 @@ def hybrid_end_to_end(images_u8, smi, profile_dir=None):
     """Phase 3c: the granite_h_micro variant's greedy path in bf16 at its
     published widths (40 layers, vocab 100,352): a seeded random model,
     the trunk calibrated as phase 3's, make_greedy_decoder on the same
-    images; kernel 8 launched once a Mamba layer a step, kernel 7 151 times
-    a decode, no other kernel; ids in the vocab, attention [B, STEPS, 0]
+    images; kernel 8 launched once a Mamba layer a step, kernel 9 100 times
+    a decode and kernel 7 51, no other kernel; ids in the vocab, attention [B, STEPS, 0]
     and beta [B, 0]. Returns (launches, {total_ms, encoder_ms,
     captions_per_s, cache_bytes})."""
     import torch
@@ -1317,7 +1481,7 @@ def hybrid_end_to_end(images_u8, smi, profile_dir=None):
     decode = make_greedy_decoder(model, cf)
     images = torch.as_tensor(images_u8, device="cuda")
     mamba = ssm_widths()[-1]
-    expect = {**{k: 0 for k in launch_counts()}, "folded_epilogue": ENCODE_EPILOGUES,
+    expect = {**{k: 0 for k in launch_counts()}, **encode_kernels(cf),
               "ssm_step": mamba * STEPS}
     out, launches, total_ms, enc_ms = timed_decodes(decode, net, model, cf, images, expect)
     ids = out.ids.cpu().numpy()
@@ -1404,7 +1568,7 @@ def int8_end_to_end(net, cf, images_u8, smi, profile_dir=None):
     model_t = modes["t"][0]
     base = {"adaptive_decode_cell_fused": STEPS, "greedy_head_argmax": STEPS,
             "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0, "folded_epilogue": 0,
-            "ssm_step": 0}
+            "conv1x1_epilogue": 0, "ssm_step": 0}
     with torch.no_grad():
         x = eval_preprocess(images, cf.train_crop_size, model_t.compute_dtype)
         ref = model_t.encode_inference(model_t.prepare_inference(net), x)[0]
@@ -1864,9 +2028,10 @@ def eval_driver(net, cf, smi):
     beam = {"adaptive_decode_cell_fused": 0, "greedy_head_argmax": 0,
             "adaptive_decode_cell_fused_beam": loop, "beam_head_topk": loop}
     none = {"bottleneck_identity_int8": 0, "tail_conv1_int8": 0, "ssm_step": 0}
-    exact = {**none, "folded_epilogue": n_batches * ENCODE_EPILOGUES}
+    exact = {**none, **encode_kernels(cf, n_batches)}
     modes = (("greedy", {}, {**greedy, **exact}), (f"beam{BEAM}", {"beam_size": BEAM}, {**beam, **exact}),
-             ("int8_a", {"encoder_quant": "int8"}, {**greedy, **none, "folded_epilogue": 0}))
+             ("int8_a", {"encoder_quant": "int8"},
+              {**greedy, **none, **encode_kernels(cf.replace(encoder_quant="int8"))}))
     tok, stem = text_backends()
     out = {}
     with tempfile.TemporaryDirectory() as root:
@@ -2191,7 +2356,7 @@ def train_loop(smi):
         expect = {"adaptive_decode_cell_fused": loop, "greedy_head_argmax": loop,
                   "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0,
                   "bottleneck_identity_int8": 0, "tail_conv1_int8": 0,
-                  "folded_epilogue": TRAIN_EPOCHS * 2 * ENCODE_EPILOGUES, "ssm_step": 0}
+                  **encode_kernels(cf, TRAIN_EPOCHS * 2), "ssm_step": 0}
         if launches != expect:
             raise AssertionError(f"main_train launches {launches}, expected {expect}")
         d = os.path.join(root, "trained_models")
@@ -2890,7 +3055,8 @@ opt_rnn_lbfgs_max_iter = {CLI_MAX_ITER}
         expect = {"adaptive_decode_cell_fused": loop, "greedy_head_argmax": loop,
                   "adaptive_decode_cell_fused_beam": 0, "beam_head_topk": 0,
                   "bottleneck_identity_int8": 0, "tail_conv1_int8": 0,
-                  "folded_epilogue": 4 * ENCODE_EPILOGUES, "ssm_step": 0}
+                  "folded_epilogue": 4 * (ENCODE_EPILOGUES - ENCODE_CONV1X1),
+                  "conv1x1_epilogue": 4 * ENCODE_CONV1X1, "ssm_step": 0}
         if launches != expect:
             raise AssertionError(f"CLI launches {launches}, expected {expect}")
         results = [os.path.join(exp, n) for n in os.listdir(exp) if n.endswith(".json")
@@ -3012,8 +3178,7 @@ def serving_mode(tag, cf, net, vocab, images, calib, smi, profile_dir=None):
                       else ("adaptive_decode_cell_fused", "greedy_head_argmax"))
         for name, n in launches.items():
             want_n = STEPS * batches if name in (cell, head) else 0
-            if name == "folded_epilogue":
-                want_n = encode_epilogues(cf, batches)
+            want_n = encode_kernels(cf, batches).get(name, want_n)
             if n != want_n:
                 raise AssertionError(f"[serve {tag}] {name} launched {n} times by the service's "
                                      f"worker over {batches} batches, expected {want_n}")
@@ -3113,10 +3278,10 @@ def export_check(model, net, cf, smi, out_dir):
                             "head_argmax_reduce")}
     if any(n != STEPS for n in per_kernel.values()) or \
             launches["adaptive_decode_cell_fused"] != STEPS or launches["greedy_head_argmax"] != STEPS \
-            or launches["folded_epilogue"] != ENCODE_EPILOGUES:
+            or any(launches[k] != n for k, n in encode_kernels(c).items()):
         raise AssertionError(f"exported call launched {per_kernel} (trace), {launches} (counts); "
                              f"expected {STEPS} of each of kernels 1 and 2 and "
-                             f"{ENCODE_EPILOGUES} of kernel 7")
+                             f"{encode_kernels(c)} of kernels 7 and 9")
     timers = {"exported": Timer(), "in_process": Timer()}
     for _ in range(5):
         for name, fn in (("exported", lambda: decode(images)),
@@ -3381,7 +3546,7 @@ def md_tp_decode(model, net, cf):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         launches = launch_counts()
-        expect = {cell: STEPS, "beam_head_topk": STEPS, "folded_epilogue": ENCODE_EPILOGUES}
+        expect = {cell: STEPS, "beam_head_topk": STEPS, **nonzero(encode_kernels(tcf))}
         if {k: v for k, v in launches.items() if v} != expect:
             raise AssertionError(f"11a {tag}: launches {launches}, expected {expect}")
         prepared = decode.prepare(net)
@@ -3428,7 +3593,7 @@ def md_dp_eval(cf, job, rank):
     launches = {k: v for k, v in launch_counts().items() if v}
     loop = MD_EVAL_IMAGES // MD_EVAL_BATCH * STEPS
     if launches != {"adaptive_decode_cell_fused": loop, "greedy_head_argmax": loop,
-                    "folded_epilogue": loop // STEPS * ENCODE_EPILOGUES}:
+                    **nonzero(encode_kernels(ecf, loop // STEPS))}:
         raise AssertionError(f"11b: launches {launches}")
     return {"cider": cider, "per_image": per_image, "wall_s": wall, "launches": launches}
 
@@ -3832,7 +3997,8 @@ distributed_init = {on}
     loop = 2 * (MD_CLI_IMAGES // (2 * MD_CLI_BATCH)) * STEPS
     for tag, run in runs.items():
         if run["launches"] != {"adaptive_decode_cell_fused": loop, "greedy_head_argmax": loop,
-                               "folded_epilogue": loop // STEPS * ENCODE_EPILOGUES}:
+                               "folded_epilogue": loop // STEPS * (ENCODE_EPILOGUES - ENCODE_CONV1X1),
+                               "conv1x1_epilogue": loop // STEPS * ENCODE_CONV1X1}:
             raise AssertionError(f"11e {tag}: launches {run['launches']}")
     if started != [("nccl", 1)] or dist.is_initialized():
         raise AssertionError(f"11e: process groups started {started}, "
@@ -3959,7 +4125,7 @@ def variant_decode(model, net, cf, images_u8, smi, beam, profile_dir=None, tag=N
     images = torch.as_tensor(images_u8, device="cuda")
     expect = {k: 0 for k in launch_counts()}
     expect["beam_head_topk" if beam else "greedy_head_argmax"] = STEPS
-    expect["folded_epilogue"] = encode_epilogues(cf)
+    expect.update(encode_kernels(cf))
     expect.update(extra or {})
     out, launches, total_ms, enc_ms = timed_decodes(decode, net, model, cf, images, expect)
     ids = out.ids.cpu().numpy()
@@ -4084,7 +4250,7 @@ def variant_checkpoint_eval(model, net, cf, smi):
         results = read_results(os.path.join(root, "val_results", "validation-1.json"), n)
     expect = {k: 0 for k in launches}
     expect["greedy_head_argmax"] = -(-n // EVAL_BATCH) * STEPS
-    expect["folded_epilogue"] = -(-n // EVAL_BATCH) * ENCODE_EPILOGUES
+    expect.update(encode_kernels(ecf, -(-n // EVAL_BATCH)))
     if launches != expect or len(per_image) != n or not np.isfinite(cider):
         raise AssertionError(f"{variant} eval: launches {launches}, {len(per_image)} per-image "
                              f"scores, CIDEr {cider}")
@@ -4121,7 +4287,7 @@ def variant_export(model, net, cf, smi):
     att_err = float((got["attention"].float() - want.attention.float()).abs().max())
     expect = {k: 0 for k in launches}
     expect["greedy_head_argmax"] = STEPS
-    expect["folded_epilogue"] = ENCODE_EPILOGUES
+    expect.update(encode_kernels(c))
     if not (got["ids"] == want.ids).all() or att_err > EXPORT_BETA_ATOL or launches != expect:
         raise AssertionError(f"{cf.atten_model_name} export: ids equal "
                              f"{bool((got['ids'] == want.ids).all())}, attention {att_err:.3e}, "
@@ -4779,7 +4945,7 @@ def early_exit(model, net, cf, images, smi, e2e, e2e_beam, p14):
                         got.all_scores, want.all_scores)
                 need = steps_to_end(want.all_ids if beam else want.ids, eos)
                 expect = {k: 0 for k in counts}
-                expect.update({k: need for k in kernels}, folded_epilogue=ENCODE_EPILOGUES)
+                expect.update({k: need for k in kernels}, **encode_kernels(cf))
                 att, beta = got.attention.float(), got.beta
                 ran = att[:, :need].sum(-1)
                 if not same or counts != expect or (boost == 1e4 and need >= STEPS) or \
@@ -4823,7 +4989,7 @@ def beam_widths(model, net, cf, images_u8, smi, fp32, p14):
     expect = {"adaptive_decode_cell_fused": 0, "greedy_head_argmax": 0,
               "adaptive_decode_cell_fused_beam": STEPS, "beam_head_topk": STEPS,
               "bottleneck_identity_int8": 0, "tail_conv1_int8": 0,
-              "folded_epilogue": ENCODE_EPILOGUES, "ssm_step": 0}
+              **encode_kernels(cf), "ssm_step": 0}
     line = {}
     for W in BEAM_WIDTHS:
         decode = make_beam_decoder(model, cf, beam_size=W)
@@ -5017,7 +5183,7 @@ def phase_14(smi, e2e, e2e_beam, e2e_int8, step_8a):
     line["14c_int8"] = int8_beyond_adaptive(smi, images_u8, fp32, p14)
     spans["14c"] = time.perf_counter() - t0
     del images_u8
-    reset_launch_counts()  # 14d and 14e run none of the eight kernels
+    reset_launch_counts()  # 14d and 14e run none of the nine kernels
     t0 = time.perf_counter()
     line["14d_layer_table"] = layer_table(smi, e2e_int8)
     spans["14d"] = time.perf_counter() - t0
@@ -5109,6 +5275,11 @@ def main() -> int:
     # granite_h_micro variant's greedy path end to end on phase 3's images
     ssm = ssm_step_checks(smi)
     torch.cuda.empty_cache()
+
+    # phase 2f: kernel 9, the bf16 encoder's stride-1 1x1 convs with their
+    # epilogue, at one encode's shapes at batch 1,024 and 32
+    conv1x1 = conv1x1_checks(smi)
+    torch.cuda.empty_cache()
     hybrid_launches, e2e_hybrid = hybrid_end_to_end(images_u8, smi, args.profile)
     launches["ssm_step"] = hybrid_launches["ssm_step"]
     torch.cuda.empty_cache()
@@ -5196,7 +5367,7 @@ def main() -> int:
 
     # phase 13: the conv-backward experiment, 13a its conv shapes, 13b the
     # step in modes manual and int8 beside 8a's none; 13c the detection
-    # stack on the host. None of the eight kernels runs here: their counts are
+    # stack on the host. None of the nine kernels runs here: their counts are
     # set to 0 just before and read just after
     reset_launch_counts()
     t12 = time.perf_counter()
@@ -5278,6 +5449,12 @@ def main() -> int:
         "launches": launches["folded_epilogue"],
         "launches_phase13": phase13_launches["folded_epilogue"],
         "launches_phase14": phase14_launches(p14, "folded_epilogue"), **epilogue})
+    kernels.append({
+        "name": "conv1x1_epilogue", "route": "cuda", "source": csrc + "conv1x1_epilogue.cu",
+        "replaces": None,  # no TPU kernel: XLA fused the convs with their epilogues
+        "launches": launches["conv1x1_epilogue"],
+        "launches_phase13": phase13_launches["conv1x1_epilogue"],
+        "launches_phase14": phase14_launches(p14, "conv1x1_epilogue"), **conv1x1})
     kernels.append({
         "name": "ssm_step", "route": "cuda", "source": csrc + "ssm_step.cu",
         "replaces": None,  # no TPU kernel: the JAX package has no state-space model

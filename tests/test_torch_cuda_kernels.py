@@ -4,7 +4,9 @@ straddle blocks, widths below a tile, row counts off the heads' 128-row
 bands, top-W lists up to 128, planted ties inside a vocab tile, across two
 tiles of a split and across two splits, int8 images of odd sizes and row
 counts off the tiles, the conv epilogue's rows off its block steps and the
-float encode through it. Each test skips where there is no card. On a machine with one:
+float encode through it, and the 1x1 conv GEMM's rows off its 128-row tiles
+at each tile width and a bf16 encode through it. Each test skips where there
+is no card. On a machine with one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
@@ -691,3 +693,91 @@ def test_float_encode_on_the_card_runs_the_epilogue(cuda, arch, launches):
         feats_c = model_c.encode_inference(model_c.prepare_inference(net_c), x)
     for name, g, c in zip(("V", "v_g", "h0", "c0"), feats_g, feats_c):
         torch.testing.assert_close(g.cpu(), c, atol=2e-4, rtol=0, msg=name)
+
+
+# -------------------------------- kernel 9, the stride-1 1x1 conv with its epilogue
+def _conv1x1_args(M, K, N, mode, device, seed=5):
+    """x [M, K], w [N, K, 1, 1] (N(0, 1/K)), bias, residual, residual_bias
+    of one mode, bf16 on the device."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).bfloat16().to(device)  # noqa: E731
+    x, w, bias = r(M, K), r(N, K, 1, 1, scale=K ** -0.5), r(N)
+    res = None if mode == "mid" else r(M, N)
+    return x, w, bias, res, r(N) if mode == "downsample" else None
+
+
+@pytest.mark.parametrize("mode", ["mid", "identity", "downsample"])
+@pytest.mark.parametrize("M,K,N", [
+    (1, 64, 64), (127, 64, 256), (1000, 256, 64), (3137, 256, 128), (300, 512, 128),
+    (4 * 196 + 5, 256, 1024), (129, 1024, 256), (77, 2048, 512), (200, 512, 2048),
+    (3 * 49, 128, 512), (513, 192, 192), (260, 64, 1024)])
+def test_conv1x1_kernel_matches_twin(cuda, mode, M, K, N):
+    """The encode's (K, N) pairs and others at row counts off the 128-row
+    tiles (the last tile's rows past M read as zeros and are not written),
+    each tile width (N = 192 takes three 64-wide tiles), W resident (N <=
+    256 and W up to 128 KB) and streamed: one launch a call, within one bf16
+    rounding of the twin (its fp32 product sums in another order)."""
+    from adaptive_tpu_torch.ops import conv1x1 as cx
+
+    x, w, bias, res, rb = _conv1x1_args(M, K, N, mode, cuda)
+    cx.conv1x1_epilogue.launches = 0
+    got = cx.conv1x1_epilogue(x, w, bias, res, rb)
+    torch.cuda.synchronize()
+    assert cx.conv1x1_epilogue.launches == 1
+    assert got.shape == (M, N) and got.dtype == torch.bfloat16
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), cx.conv1x1_epilogue_plain(x, w, bias, res, rb).float(),
+                               atol=atol, rtol=rtol)
+
+
+def test_conv1x1_refuses_what_the_kernel_does_not_take(cuda):
+    from adaptive_tpu_torch.ops import conv1x1 as cx
+
+    x, w, bias, res, rb = _conv1x1_args(256, 128, 64, "downsample", cuda)
+    with pytest.raises(ValueError, match="takes bfloat16"):
+        cx.conv1x1_epilogue(x.float(), w.float(), bias.float(), res.float(), rb.float())
+    off = torch.empty(x.numel() + 4, dtype=x.dtype, device=cuda)[4:].view(x.shape)
+    with pytest.raises(ValueError, match="x must be 16-byte aligned"):
+        cx.conv1x1_epilogue(off, w, bias, res, rb)  # 8 bytes off a 16-byte boundary
+    with pytest.raises(ValueError, match="multiples of 64"):
+        cx.conv1x1_epilogue(*_conv1x1_args(256, 96, 64, "mid", cuda)[:3])
+    with pytest.raises(ValueError, match="multiples of 64"):
+        cx.conv1x1_epilogue(*_conv1x1_args(256, 64, 72, "mid", cuda)[:3])
+    with pytest.raises(ValueError, match="residual must be contiguous"):
+        cx.conv1x1_epilogue(x, w, bias, res.T.contiguous().T, rb)
+    with pytest.raises(ValueError, match="bias has dtype"):
+        cx.conv1x1_epilogue(x, w, bias.float(), res, rb)
+    with pytest.raises(ValueError, match="residual_bias is on cpu"):
+        cx.conv1x1_epilogue(x, w, bias, res, rb.cpu())
+
+
+def test_bf16_encode_on_the_card_runs_kernel_9(cuda):
+    """A bf16 ResNet-50 encode launches kernel 9 for each bottleneck's conv1
+    and conv3 (32) and kernel 7 for the stem and the conv2s (17); its
+    features stay within bf16's reach of the same traversal with every conv
+    on cuDNN and kernel 7 (the rounding of each conv's output before its
+    epilogue, which kernel 9 leaves out, is the difference)."""
+    from adaptive_tpu_torch.models import infer
+    from adaptive_tpu_torch.ops import conv1x1 as cx
+
+    cf = Config(encoder_backbone="resnet50", train_crop_size=64, vocab_length=37,
+                vocab_pad_multiple=8, adaptive_word_embed_size=16, adaptive_lstm_hidden_size=32,
+                decode_max_len=4, compute_dtype="bfloat16")
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(3, 64, 64, 3)).astype(np.float32))
+    model = build_model(cf, device=cuda)
+    net = model.init(0)
+    prepared = model.prepare_inference(net)
+    folded, xg = prepared["encoder"]["resnet"], x.to(cuda).bfloat16()
+
+    def separate(name, xx, p, stride, pad, residual=None, residual_p=None):
+        z = infer._bias_free_conv(name, xx, p, stride, pad)
+        return infer._fused_epilogue(z, p, residual, residual_p)
+
+    with torch.no_grad():
+        ce.folded_epilogue.launches = cx.conv1x1_epilogue.launches = 0
+        got = infer.resnet_apply_folded(folded, xg, "resnet50")
+        torch.cuda.synchronize()
+        assert (cx.conv1x1_epilogue.launches, ce.folded_epilogue.launches) == (32, 17)
+        want = infer._folded_forward(folded, xg, "resnet50", infer._bias_free_conv, separate)
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    assert rel < 2e-2
