@@ -14,6 +14,7 @@ from adaptive_tpu_torch.decoding import make_beam_decoder
 from adaptive_tpu_torch.decoding.beam import backtrack
 from adaptive_tpu_torch.ops.preprocess import eval_preprocess
 from tests.torch_port_util import jax_weights, port_cf, port_model_and_net
+from tests.torch_port_util import port_threads  # noqa: F401
 
 W = 3
 

@@ -9,6 +9,7 @@ import torch
 from adaptive_tpu_torch.models.factory import Encoder2Decoder, build_model
 from adaptive_tpu_torch.models.jax_params import from_jax, to_jax
 from tests.torch_port_util import jax_weights, port_cf, random_weights
+from tests.torch_port_util import port_threads  # noqa: F401
 
 
 def _assert_trees_equal(a, b):

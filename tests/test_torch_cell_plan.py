@@ -19,6 +19,7 @@ from adaptive_tpu_torch.decoding.greedy import prepare_cached
 from adaptive_tpu_torch.models import build_model
 from adaptive_tpu_torch.models import decoders as D
 from adaptive_tpu_torch.ops import fused_step as fs
+from tests.torch_port_util import port_threads  # noqa: F401
 
 NAMES = ("h", "c", "c_hat", "alpha", "beta")
 

@@ -23,6 +23,7 @@ from adaptive_tpu.config.experiment import get_model_description as j_descriptio
 from adaptive_tpu_torch.config import Config, load_config
 from adaptive_tpu_torch.experiment import Experiment, get_model_description
 from tests.test_karpathy_split import SUBSETS, _cf, _fake_coco_origin
+from tests.torch_port_util import port_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.py")))

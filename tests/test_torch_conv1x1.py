@@ -15,6 +15,7 @@ from adaptive_tpu_torch.models import build_model
 from adaptive_tpu_torch.models import infer
 from adaptive_tpu_torch.ops import conv1x1 as cx
 from adaptive_tpu_torch.ops import conv_epilogue as ce
+from tests.torch_port_util import port_threads  # noqa: F401
 
 MODES = ("mid", "identity", "downsample")
 

@@ -33,6 +33,7 @@ from adaptive_tpu_torch.evalcap import detection as TDET
 from adaptive_tpu_torch.native import build as TBUILD
 from adaptive_tpu_torch.native import mask as TM
 from tests.test_detection_eval import _synthetic_det_dataset
+from tests.torch_port_util import port_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -13,6 +13,7 @@ from adaptive_tpu.models import resnet as jresnet
 from adaptive_tpu_torch.models import infer as tinfer
 from adaptive_tpu_torch.models.factory import build_model
 from tests.torch_port_util import jax_weights, port_cf, port_model_and_net
+from tests.torch_port_util import port_threads  # noqa: F401
 
 ATOL = 2e-4
 

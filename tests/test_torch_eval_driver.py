@@ -21,6 +21,7 @@ from adaptive_tpu_torch.evalcap import coco_eval as T
 from adaptive_tpu_torch.models.jax_params import from_jax, to_jax
 from adaptive_tpu_torch.training import checkpoint as TC
 from tests.torch_port_util import port_cf, port_model_and_net
+from tests.torch_port_util import port_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

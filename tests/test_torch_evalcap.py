@@ -36,6 +36,7 @@ from adaptive_tpu_torch.evalcap import meteor as tmet
 from adaptive_tpu_torch.evalcap import ptbtokenizer as tptb
 from adaptive_tpu_torch.evalcap import rouge as trouge
 from tests.test_ptb_differential import CURATED
+from tests.torch_port_util import port_threads  # noqa: F401
 
 # tests/test_scorers.py's word list; raw captions add case and punctuation
 WORDS = "a the dog cat man woman rides sits runs beach park red blue small big on in with near".split()

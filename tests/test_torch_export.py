@@ -13,6 +13,7 @@ from adaptive_tpu_torch.decoding import make_beam_decoder, make_greedy_decoder
 from adaptive_tpu_torch.export import export_decoder, load_decoder
 from adaptive_tpu_torch.models.factory import build_model
 from tests.torch_port_util import port_cf
+from tests.torch_port_util import port_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -9,6 +9,7 @@ import pytest
 
 from adaptive_tpu_torch.ops import fused_block as fb
 from adaptive_tpu_torch.ops.cuda import build
+from tests.torch_port_util import port_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

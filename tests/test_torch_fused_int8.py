@@ -18,6 +18,7 @@ from adaptive_tpu_torch.ops import fused_block as FB
 from adaptive_tpu_torch.ops import fused_tail as FT
 from adaptive_tpu_torch.ops.int8 import wmat
 from tests.test_torch_int8 import images, setup, to_port_folded
+from tests.torch_port_util import port_threads  # noqa: F401
 
 
 def _conv_params(rng, shapes):

@@ -12,6 +12,7 @@ import torch
 from adaptive_tpu.ops import attention as jatt
 from adaptive_tpu.ops.pallas import fused_step as jfs
 from adaptive_tpu_torch.ops import fused_step as tfs
+from tests.torch_port_util import port_threads  # noqa: F401
 
 
 def _cell_inputs(B, K, H, E2, seed=2):

@@ -8,6 +8,7 @@ import pytest
 
 from adaptive_tpu_torch.ops import fused_block as fb
 from adaptive_tpu_torch.ops import fused_tail as ft
+from tests.torch_port_util import port_threads  # noqa: F401
 
 # ResNet-152's boundaries at batch 1,024: (N, C, M, M2) and the plan's rows a
 # block, column chunk, K chunk and blocks an SM (tail_plan's choice)

@@ -26,6 +26,7 @@ from benchmark.lib.images import seeded_images
 from benchmark.reference.compare import logit_gap
 from benchmark.reference.model import calibrate_bn
 from plain_granite_hybrid import HybridReference, make_weights
+from torch_port_util import port_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 LM = {"hidden_size": 64, "shared_intermediate_size": 128,

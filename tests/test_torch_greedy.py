@@ -17,6 +17,7 @@ import torch
 from adaptive_tpu_torch.decoding import make_greedy_decoder
 from adaptive_tpu_torch.models.factory import build_model
 from tests.torch_port_util import jax_weights, port_cf, port_model_and_net
+from tests.torch_port_util import port_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -18,6 +18,7 @@ import torch
 from adaptive_tpu.models import infer as J
 from adaptive_tpu_torch.models import infer as T
 from tests.torch_port_util import jax_weights, port_cf, port_model_and_net
+from tests.torch_port_util import port_threads  # noqa: F401
 
 
 def exact_bn(tree, rng, variances=(0.25, 1.0, 4.0)):

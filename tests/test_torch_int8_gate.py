@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_port_util import port_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 import torch_int8_gate as gate  # noqa: E402

@@ -24,6 +24,7 @@ from adaptive_tpu_torch.training import checkpoint as TC
 from adaptive_tpu_torch.training import lbfgs as TL
 from adaptive_tpu_torch.training import optim as TO
 from tests.torch_port_util import jax_weights, port_cf, port_model_and_net
+from tests.torch_port_util import default_threads, port_threads  # noqa: F401
 
 B, T, S = 4, 6, 72
 MAX_ITER, HISTORY = 4, 3
@@ -261,6 +262,15 @@ def _model_close(got, want_flat, want_opt=None, lrs=None, floor=None):
         assert (d[over] <= 2 * lrs[group] * len(BATCHES) + PARAM_ATOL).all(), (k, float(d.max()))
 
 
+@pytest.fixture
+def case_threads(request, case):
+    """The moving case at torch's default thread count: its encoder's bound
+    holds there, not at one thread (ROADMAP.md §7 h)."""
+    if case == "dec_adam_enc_lbfgs_moving":
+        request.getfixturevalue("default_threads")
+
+
+@pytest.mark.usefixtures("case_threads")
 @pytest.mark.parametrize("case", list(CASES))
 def test_lbfgs_step_matches_jax(tiny_cf, monkeypatch, case):
     """Two steps on two batches against JAX's: each step's loss (the first

@@ -42,6 +42,7 @@ from adaptive_tpu_torch.models.jax_params import to_jax
 from adaptive_tpu_torch.training import checkpoint as TC
 from tests.test_torch_train_step import _jax_draws
 from tests.torch_port_util import jax_weights, port_cf
+from tests.torch_port_util import port_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, T, S = 4, 6, 72

@@ -13,6 +13,7 @@ from adaptive_tpu_torch.ops import attention as tatt
 from adaptive_tpu_torch.ops import inits as tinits
 from adaptive_tpu_torch.ops import lstm as tlstm
 from adaptive_tpu_torch.ops import preprocess as tpre
+from tests.torch_port_util import port_threads  # noqa: F401
 
 ATOL = 1e-5
 B, T, K, H, D, E2 = 3, 2, 49, 16, 49, 12

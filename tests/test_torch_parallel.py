@@ -30,6 +30,7 @@ from adaptive_tpu_torch.models.jax_params import param_keys
 from adaptive_tpu_torch.parallel import (
     make_mesh, opt_state_sharding_rules, param_sharding_rules, place_batch, shard_batch,
 )
+from tests.torch_port_util import port_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V5E8 = os.path.join(REPO, "configs", "coco_adaptive_v5e8.py")

@@ -20,6 +20,7 @@ from adaptive_tpu_torch.ops import quant_conv as tqc
 from tests.test_torch_multiprocess import run_ranks
 from tests.test_torch_train_step import _jax_copy, _patch_draws
 from tests.torch_port_util import jax_weights, port_cf, port_model_and_net
+from tests.torch_port_util import port_threads  # noqa: F401
 
 MODES = ("none", "manual", "int8")
 # port vs JAX, fp32 "none" and "manual": the train-step gradient bound of

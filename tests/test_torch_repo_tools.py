@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from tests.test_meteor_tables import PPDB_LINES, WORDNET_ADJ, WORDNET_NOUN
+from tests.torch_port_util import port_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 METEOR_ENV = ("ADAPTIVE_TPU_METEOR_SYNONYMS", "ADAPTIVE_TPU_METEOR_PARAPHRASES",

@@ -17,6 +17,7 @@ from adaptive_tpu.data.vocab import SPECIALS
 from adaptive_tpu_torch.data.vocab import Vocabulary
 from adaptive_tpu_torch.serving import CaptionService
 from tests.torch_port_util import port_cf
+from tests.torch_port_util import port_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORDS = SPECIALS + [f"w{i}" for i in range(28)]

@@ -20,6 +20,7 @@ from adaptive_tpu_torch.models.factory import build_model
 from adaptive_tpu_torch.training.optim import make_dual_optimizer
 from adaptive_tpu_torch.training.step import make_train_step
 from adaptive_tpu_torch.utils.profiling import span, take_spans
+from tests.torch_port_util import port_threads  # noqa: F401
 
 B, S, T = 2, 72, 6
 CLOCK_NS = 100_000  # a span against its record_function event: 0.1 ms
@@ -45,15 +46,6 @@ class Pool:
 
 @pytest.fixture(scope="module")
 def port():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)  # tiny widths: one thread, and none idle-spinning
-    try:
-        yield build_port()
-    finally:
-        torch.set_num_threads(threads)
-
-
-def build_port():
     cf = Config(encoder_backbone="resnet18", train_crop_size=64, resized_image_size=S,
                 vocab_length=32, adaptive_word_embed_size=8, adaptive_lstm_hidden_size=16,
                 train_batch_size=B, eval_batch_size=B, decode_max_len=5,

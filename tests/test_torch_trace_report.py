@@ -11,6 +11,7 @@ import torch
 
 from adaptive_tpu_torch.utils import trace_report as tr
 from adaptive_tpu_torch.utils.profiling import Timer, profile_trace
+from tests.torch_port_util import port_threads  # noqa: F401
 
 EVENTS = [
     {"ph": "X", "cat": "kernel", "name": "void (anonymous namespace)::cell_gates_kernel<64, 32>"

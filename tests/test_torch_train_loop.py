@@ -22,6 +22,7 @@ from adaptive_tpu_torch.data import loader as TL
 from adaptive_tpu_torch.data.vocab import Vocabulary as TVocabulary
 from adaptive_tpu_torch.training import train_loop as TT
 from tests.torch_port_util import port_cf
+from tests.torch_port_util import port_threads  # noqa: F401
 
 N_IMAGES, SIZE = 8, 64
 

@@ -23,6 +23,7 @@ from adaptive_tpu_torch.ops import lstm as tlstm
 from adaptive_tpu_torch.ops import preprocess as tpre
 from adaptive_tpu_torch.training import schedule as TS
 from adaptive_tpu_torch.training import step as TST
+from tests.torch_port_util import port_threads  # noqa: F401
 
 
 def _np(t):

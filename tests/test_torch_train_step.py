@@ -25,6 +25,7 @@ from adaptive_tpu_torch.training import checkpoint as TC
 from adaptive_tpu_torch.training import optim as TO
 from adaptive_tpu_torch.training import step as TST
 from tests.torch_port_util import jax_weights, port_cf, port_model_and_net
+from tests.torch_port_util import default_threads, port_threads  # noqa: F401
 
 B, T, S = 4, 6, 72
 SCORE_ATOL = 3e-4  # the full-model bound (tests/test_full_model_parity.py:146)
@@ -298,6 +299,7 @@ def test_grad_accum_matches_jax(setup, monkeypatch):
            {k: v for k, v in want.items() if k.startswith("params")}, PARAM_ATOL, what="param")
 
 
+@pytest.mark.usefixtures("default_threads")  # its bounds hold at that count only (ROADMAP.md §7 h)
 def test_grad_accum_two_equals_monolithic(setup, monkeypatch):
     """On a batch of two equal halves (the same images, captions and draws)
     each microbatch's BN statistics are the whole batch's, so two

@@ -24,6 +24,7 @@ from adaptive_tpu_torch.models.jax_params import from_jax, to_jax
 from adaptive_tpu_torch.ops import attention as TA
 from adaptive_tpu_torch.training import checkpoint as TC
 from tests.torch_port_util import jax_weights, np_tree, port_cf, port_model_and_net
+from tests.torch_port_util import port_threads  # noqa: F401
 
 OP_ATOL = 1e-5  # one op (ROADMAP.md's North star)
 SCORE_ATOL = 3e-4  # teacher-forced scores of the whole model

@@ -23,6 +23,7 @@ from adaptive_tpu_torch.models.resnet import ResNet
 from adaptive_tpu_torch.training.checkpoint import flatten_tree, restore_model
 from tests.test_torch_import import BasicBlock, Bottleneck, TorchResNet, _randomize_bn_stats
 from tests.torch_port_util import port_cf
+from tests.torch_port_util import port_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = {"resnet18": (BasicBlock, (2, 2, 2, 2)), "resnet50": (Bottleneck, (3, 4, 6, 3))}
